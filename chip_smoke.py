@@ -7,13 +7,17 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
 
 It builds every CUDA kernel of the port from ``csrc/`` (one nvcc per source,
 all at once), holds each kernel against its plain PyTorch version on the
-card at the shapes the serving path gives it, drives the full-width Swin
-U-Net 224 (``swin_unet_224``, random weights from a seed) through the
-port's ``predict_from_config`` in bf16 and checks that the path went through
-the kernels, and that its outputs agree with the plain attention and, on a
-small input, with the CPU.  Any failure exits non-zero.  Without a CUDA
-card, or without the package beside it, it exits non-zero and prints no
-result.  It imports nothing of JAX.
+card at the shapes the serving path gives it: K1 (window attention,
+windows layout) and K2 (the image-layout path, which also holds against
+the K1 path on the same input).  It drives the full-width Swin U-Net 224
+(``swin_unet_224``, random weights from a seed) through the port's
+``predict_from_config`` in bf16 on both paths, the windows layout through K1
+and the image layout through K2 (``set_fused_image_mode("on")``), checks
+that each went through its kernel, and that their outputs agree with each
+other, with the plain attention and, on a small input, with the CPU.  It
+times both paths in turns and profiles one call of each.  Any failure exits
+non-zero.  Without a CUDA card, or without the package beside it, it exits
+non-zero and prints no result.  It imports nothing of JAX.
 
 The last lines are the card's name and power limit, a JSON line with each
 kernel's launches, error and times, and
@@ -36,8 +40,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"torch.bfloat16": 989e12, "torch.float32": 67e12}
 
-#: K1 shapes of swin_unet_224 at batch 24: (level, heads, windows per
-#: image, masked calls per forward, unmasked calls per forward)
+#: attention shapes of swin_unet_224 at batch 24: (level, heads, windows
+#: per image, masked calls per forward, unmasked calls per forward); level
+#: l has resolution 56 / 2^l and 96 * 2^l channels
 BATCH = 24
 LEVELS = [(0, 3, 64, 2, 2), (1, 6, 16, 2, 2), (2, 12, 4, 2, 2),
           (3, 24, 1, 0, 2)]
@@ -125,13 +130,21 @@ def phase_build():
 def _k1_inputs(level, heads, n_w, masked, dtype, generator):
     import torch
 
-    from medsegpretrainimagenet_tpu_torch.models.swin import (
-        _relative_position_index, _shift_attn_mask)
-
     windows = BATCH * n_w
     q, k, v = (torch.randn(windows, heads, TOKENS, HEAD_DIM,
                            generator=generator).to("cuda", dtype)
                for _ in range(3))
+    return (q, k, v, *_tables(level, heads, masked, generator))
+
+
+def _tables(level, heads, masked, generator):
+    """A level's relative-position bias (from a random table) and, for
+    SW-MSA, its shift mask, float32 on the card."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.models.swin import (
+        _relative_position_index, _shift_attn_mask)
+
     table = torch.randn((2 * WINDOW - 1) ** 2, heads,
                         generator=generator) * 0.02
     index = torch.from_numpy(_relative_position_index((WINDOW, WINDOW)))
@@ -142,7 +155,7 @@ def _k1_inputs(level, heads, n_w, masked, dtype, generator):
         resolution = 56 // 2 ** level
         mask = torch.from_numpy(_shift_attn_mask(
             (resolution, resolution), WINDOW, WINDOW // 2)).cuda()
-    return q, k, v, bias, mask
+    return bias, mask
 
 
 def _k1_bound_ms(q, bias, mask):
@@ -194,11 +207,7 @@ def phase_k1():
                     continue
                 # SDPA with bias and mask folded into one additive mask:
                 # timed as a yardstick only, the port never calls it
-                full = bias[None].expand(q.shape[0], -1, -1, -1)
-                if mask is not None:
-                    full = (full.reshape(BATCH, n_w, heads, TOKENS, TOKENS)
-                            + mask[None, :, None]).reshape(full.shape)
-                full = full.to(dtype).contiguous()
+                full = _sdpa_mask(bias, mask, q.shape[0], dtype)
                 t_kernel = cuda_ms(lambda: wa.window_attention_cuda(
                     q, k, v, bias, mask, scale))
                 t_plain = cuda_ms(lambda: wa.window_attention_torch(
@@ -246,14 +255,174 @@ def phase_k1():
     return per_forward, bound_by, max_err[torch.bfloat16]
 
 
+def _sdpa_mask(bias, mask, windows, dtype):
+    """bias and mask folded into one additive (B_, H, N, N) mask for SDPA."""
+    heads = bias.shape[0]
+    full = bias[None].expand(windows, -1, -1, -1)
+    if mask is not None:
+        n_w = mask.shape[0]
+        full = (full.reshape(windows // n_w, n_w, heads, TOKENS, TOKENS)
+                + mask[None, :, None]).reshape(full.shape)
+    return full.to(dtype).contiguous()
+
+
+def _k1_path(qkv, bias, mask, scale):
+    """The windows-layout path on an image-layout qkv, with the layout
+    copies of SwinTransformerBlock.forward and WindowAttention.forward:
+    window_partition, head split, K1, head merge, window_reverse."""
+    from medsegpretrainimagenet_tpu_torch.models.swin import (
+        window_partition, window_reverse)
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+
+    b, res, _, c3 = qkv.shape
+    heads, c = bias.shape[0], c3 // 3
+    windows = window_partition(qkv, WINDOW).reshape(-1, TOKENS, 3, heads,
+                                                    c // heads)
+    q, k, v = windows.permute(2, 0, 3, 1, 4).contiguous()
+    out = wa.window_attention_cuda(q, k, v, bias, mask, scale)
+    out = out.transpose(1, 2).reshape(-1, WINDOW, WINDOW, c)
+    return window_reverse(out, WINDOW, res, res)
+
+
+def _sdpa_image_path(qkv, full, scale):
+    """The library yardstick for K2: the image-to-windows layout permute of
+    qkv, SDPA with bias and mask folded into *full*, the permute back."""
+    import torch.nn.functional as F
+
+    b, res, _, c3 = qkv.shape
+    heads = full.shape[1]
+    n_wc, d = res // WINDOW, c3 // 3 // heads
+    t = qkv.reshape(b, n_wc, WINDOW, n_wc, WINDOW, 3, heads, d)
+    t = t.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, -1, heads, TOKENS, d)
+    out = F.scaled_dot_product_attention(t[0], t[1], t[2], attn_mask=full,
+                                         scale=scale)
+    out = out.reshape(b, n_wc, n_wc, heads, WINDOW, WINDOW, d)
+    return out.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, res, res, c3 // 3)
+
+
+def phase_k2():
+    """K2 against its plain version and against the K1 path at every level
+    shape of the forward, W-MSA and SW-MSA, bf16 and f32; times per shape
+    beside the K1 path, the library yardstick and the bound; one
+    backward."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(2)
+    scale = HEAD_DIM ** -0.5
+    per_forward = {"ms": 0.0, "plain_ms": 0.0, "k1_path_ms": 0.0,
+                   "bound_ms": 0.0, "library_ms": 0.0, "bytes_ms": 0.0,
+                   "ops_ms": 0.0}
+    max_err = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    for level, heads, n_w, n_masked, n_plain in LEVELS:
+        res = 56 // 2 ** level
+        for masked in (False, True):
+            if masked and n_masked == 0:
+                continue
+            calls = n_masked if masked else n_plain
+            for dtype in (torch.bfloat16, torch.float32):
+                qkv = torch.randn(BATCH, res, res, 3 * heads * HEAD_DIM,
+                                  generator=gen).to("cuda", dtype)
+                bias, mask = _tables(level, heads, masked, gen)
+                out = wa.image_attention_cuda(qkv, bias, mask, scale, WINDOW)
+                ref = wa.fused_image_window_attention(
+                    qkv, bias, mask, scale, WINDOW, force="torch")
+                via_k1 = _k1_path(qkv, bias, mask, scale)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                err_k1 = (out.float() - via_k1.float()).abs().max().item()
+                tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+                check(out.shape == (BATCH, res, res, heads * HEAD_DIM)
+                      and err < tol and err_k1 < tol
+                      and torch.isfinite(out).all().item(),
+                      f"K2 level {level} masked={masked} {dtype}: max "
+                      f"|kernel - plain| {err}, |kernel - K1 path| {err_k1} "
+                      f"(bar {tol})")
+                max_err[dtype] = max(max_err[dtype], err)
+                if dtype != torch.bfloat16:
+                    continue
+                full = _sdpa_mask(bias, mask, BATCH * n_w, dtype)
+                err_lib = (_sdpa_image_path(qkv, full, scale).float()
+                           - ref.float()).abs().max().item()
+                t_kernel = cuda_ms(lambda: wa.image_attention_cuda(
+                    qkv, bias, mask, scale, WINDOW))
+                t_plain = cuda_ms(lambda: wa.image_attention_torch(
+                    qkv, bias, mask, scale, WINDOW))
+                t_k1 = cuda_ms(lambda: _k1_path(qkv, bias, mask, scale))
+                t_lib = cuda_ms(lambda: _sdpa_image_path(qkv, full, scale))
+                # qkv read once, out (a third of its size) written once,
+                # bias and mask read once; the two products' operations
+                moved = qkv.numel() * qkv.element_size() * 4 // 3 \
+                    + bias.numel() * 4 \
+                    + (0 if mask is None else mask.numel() * 4)
+                ops = 4 * BATCH * n_w * heads * TOKENS * TOKENS * HEAD_DIM
+                t_bytes = 1e3 * moved / HBM_BYTES_PER_S
+                t_ops = 1e3 * ops / PEAK_OPS_PER_S[str(dtype)]
+                bound = max(t_bytes, t_ops)
+                by = "bytes" if t_bytes >= t_ops else "operations"
+                print(f"[k2] level {level} B={BATCH} R={res} "
+                      f"C={heads * HEAD_DIM} H={heads} "
+                      f"{'SW-MSA' if masked else 'W-MSA '} bf16: "
+                      f"kernel_ms={t_kernel:.4f} plain_ms={t_plain:.4f} "
+                      f"k1_path_ms={t_k1:.4f} "
+                      f"library_ms(permute+SDPA+permute)={t_lib:.4f} "
+                      f"bound_ms={bound:.4f} ({by}) max_err_bf16={err:.3g} "
+                      f"vs_k1_path={err_k1:.3g} library_err={err_lib:.3g} "
+                      f"calls/forward={calls}", flush=True)
+                per_forward["ms"] += calls * t_kernel
+                per_forward["plain_ms"] += calls * t_plain
+                per_forward["k1_path_ms"] += calls * t_k1
+                per_forward["library_ms"] += calls * t_lib
+                per_forward["bound_ms"] += calls * bound
+                per_forward["bytes_ms"] += calls * t_bytes
+                per_forward["ops_ms"] += calls * t_ops
+    print(f"[k2] max |kernel - plain|: bf16 {max_err[torch.bfloat16]:.3g} "
+          f"(bar {BF16_TOL}), f32 {max_err[torch.float32]:.3g} "
+          f"(bar {F32_TOL})")
+    print(f"[k2] per bf16 forward (14 calls): kernel "
+          f"{per_forward['ms']:.4f} ms, K1 path "
+          f"{per_forward['k1_path_ms']:.4f} ms, plain "
+          f"{per_forward['plain_ms']:.4f} ms, permute+SDPA+permute "
+          f"{per_forward['library_ms']:.4f} ms, bound "
+          f"{per_forward['bound_ms']:.4f} ms", flush=True)
+
+    # one backward through the autograd Function (kernel forward, backward
+    # through autograd of the plain version) against autograd through the
+    # plain version; TF32 off
+    qkv = torch.randn(BATCH, 56, 56, 3 * 3 * HEAD_DIM,
+                      generator=gen).cuda()
+    bias, mask = _tables(0, 3, True, gen)
+    g = torch.randn(BATCH, 56, 56, 3 * HEAD_DIM, generator=gen).cuda()
+    grads = []
+    for force in (None, "torch"):
+        leaves = [t.clone().requires_grad_() for t in (qkv, bias, mask)]
+        (wa.fused_image_window_attention(*leaves, scale, WINDOW, force=force)
+         * g).sum().backward()
+        grads.append([t.grad for t in leaves])
+    grad_err = max((a - b).abs().max().item() for a, b in zip(*grads))
+    check(grad_err < 1e-3, f"K2 backward: max |Function - autograd| "
+                           f"{grad_err}")
+    print(f"[k2] backward max |Function - plain autograd| {grad_err:.3g}",
+          flush=True)
+    bound_by = "bytes" if per_forward["bytes_ms"] >= per_forward["ops_ms"] \
+        else "operations"
+    return per_forward, bound_by, max_err[torch.bfloat16]
+
+
 def phase_small_vs_cpu():
     """The port's small Swin U-Net in float32: the card (kernel) against
-    the CPU (plain version), the same weights."""
+    the CPU (plain version), the same weights, on the windows-layout path
+    (K1) and on the image-layout path (K2)."""
     import numpy as np
     import torch
 
+    from medsegpretrainimagenet_tpu_torch import ops
     from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
     from medsegpretrainimagenet_tpu_torch.models import Model
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
 
     cfg = swin_unet_224_config()
     arch = cfg["model"]["segmentation.models.UNet"]["architecture"]
@@ -270,19 +439,32 @@ def phase_small_vs_cpu():
     with torch.no_grad():
         ref = model.apply(x)
         model.module.cuda()
-        out = model.apply(x.cuda()).cpu()
-    err = (out - ref).abs().max().item()
-    check(out.shape == (2, 112, 112, 1) and err < 1e-4,
-          f"small Swin U-Net f32: card vs CPU max |diff| {err}")
-    print(f"[small] f32 Swin U-Net 112x112, card (kernel) vs CPU (plain): "
-          f"max |diff| {err:.3g}", flush=True)
+        for mode, kernel in (("off", wa.window_attention_cuda),
+                             ("on", wa.image_attention_cuda)):
+            ops.set_fused_image_mode(mode)
+            kernel.launches = 0
+            try:
+                out = model.apply(x.cuda()).cpu()
+            finally:
+                ops.set_fused_image_mode("off")
+            err = (out - ref).abs().max().item()
+            check(out.shape == (2, 112, 112, 1) and err < 1e-4
+                  and kernel.launches == 10,
+                  f"small Swin U-Net f32, fused image mode {mode}: card vs "
+                  f"CPU max |diff| {err}, {kernel.launches} launches")
+            print(f"[small] f32 Swin U-Net 112x112, fused image mode {mode}"
+                  f", card ({kernel.__name__}, {kernel.launches} launches) "
+                  f"vs CPU (plain): max |diff| {err:.3g}", flush=True)
 
 
 def phase_serve(tmp: Path):
-    """Full-width swin_unet_224 bf16 serving through predict_from_config,
-    then the same forward with the attention pinned to the plain version."""
+    """Full-width swin_unet_224 bf16 serving through predict_from_config on
+    the windows-layout path (K1), then with the attention pinned to the
+    plain version, then on the image-layout path (K2).  Returns the K1 and
+    K2 launches of their serving runs."""
     import numpy as np
 
+    from medsegpretrainimagenet_tpu_torch import ops
     from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
     from medsegpretrainimagenet_tpu_torch.models import Model, swin
     from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
@@ -301,11 +483,14 @@ def phase_serve(tmp: Path):
             * 255).astype(np.uint8)
     np.save(tmp / "imgs.npy", imgs)
 
-    def serve(out_name: str, plain: bool = False):
+    def serve(out_name: str, path: str = "k1"):
+        """*path*: "k1" (windows layout, K1), "plain" (windows layout,
+        attention pinned to its plain version) or "k2" (image layout)."""
         core = swin.window_attention_core
-        if plain:  # pin the attention to its plain version
+        if path == "plain":
             swin.window_attention_core = functools.partial(core,
                                                            force="torch")
+        ops.set_fused_image_mode("on" if path == "k2" else "off")
         try:
             return predict_from_config(
                 ConfigDict(swin_unet_224_config()), str(tmp / "w.pt"),
@@ -313,49 +498,78 @@ def phase_serve(tmp: Path):
                 batch_size=BATCH, mixed_precision=True, device="cuda")
         finally:
             swin.window_attention_core = core
+            ops.set_fused_image_mode("off")
 
-    serve("warmup.npy")  # first calls: cuBLAS/cuDNN set-up, kernel load
-    wa.window_attention_cuda.launches = 0
-    stats = serve("kernel.npy")
-    launches = wa.window_attention_cuda.launches
+    def counted(path: str):
+        """One serving run of *path* with both launch counts set to 0
+        just before it; returns (stats, outputs, K1 launches, K2
+        launches)."""
+        wa.window_attention_cuda.launches = 0
+        wa.image_attention_cuda.launches = 0
+        stats = serve(f"{path}.npy", path)
+        out = np.load(tmp / f"{path}.npy")
+        check(out.shape == (SERVE_IMAGES, 224, 224, 1)
+              and out.dtype == np.float32 and np.isfinite(out).all()
+              and out.min() >= 0 and out.max() <= 1,
+              f"serving output ({path}) {out.shape} {out.dtype} in "
+              f"[{out.min()}, {out.max()}]")
+        return (stats, out, wa.window_attention_cuda.launches,
+                wa.image_attention_cuda.launches)
+
     forwards = -(-SERVE_IMAGES // BATCH)
-    check(launches == 14 * forwards,
-          f"K1 launches on the serving path: {launches}, want "
-          f"{14 * forwards}")
-    out = np.load(tmp / "kernel.npy")
-    check(out.shape == (SERVE_IMAGES, 224, 224, 1) and out.dtype == np.float32
-          and np.isfinite(out).all() and out.min() >= 0 and out.max() <= 1,
-          f"serving output {out.shape} {out.dtype} in "
-          f"[{out.min()}, {out.max()}]")
-
-    plain_stats = serve("plain.npy", plain=True)
-    check(wa.window_attention_cuda.launches == launches,
-          "the plain run launched the kernel")
-    diff = float(np.abs(out - np.load(tmp / "plain.npy")).max())
+    serve("warmup.npy")  # first calls: cuBLAS/cuDNN set-up, kernel load
+    stats, out, k1_launches, k2_none = counted("k1")
+    check(k1_launches == 14 * forwards and k2_none == 0,
+          f"launches on the windows-layout serving path: K1 {k1_launches} "
+          f"(want {14 * forwards}), K2 {k2_none} (want 0)")
+    plain_stats, plain, k1_none, k2_none = counted("plain")
+    check(k1_none == 0 and k2_none == 0, "the plain run launched a kernel")
+    diff = float(np.abs(out - plain).max())
     check(diff < SERVE_TOL, f"serving outputs, kernel vs plain attention: "
                             f"max |diff| {diff} (bar {SERVE_TOL})")
     print(f"[serve] swin_unet_224 bf16, {SERVE_IMAGES} images, batch "
           f"{BATCH}: kernel {stats['images_per_sec']} images/s, plain "
           f"attention {plain_stats['images_per_sec']} images/s; K1 "
-          f"launches {launches} ({launches // forwards} per forward); max "
-          f"|kernel - plain| of the sigmoid outputs {diff:.3g} (bar "
+          f"launches {k1_launches} ({k1_launches // forwards} per forward); "
+          f"max |kernel - plain| of the sigmoid outputs {diff:.3g} (bar "
           f"{SERVE_TOL})", flush=True)
 
-    # one short run is at the mercy of the shared host: time both again
-    # in turns (plain, kernel, kernel, plain, twice) and take medians
-    rates = {True: [], False: []}
-    for plain in (True, False, False, True) * 2:
-        rates[plain].append(serve("turn.npy", plain)["images_per_sec"])
-    for plain, name in ((False, "kernel"), (True, "plain attention")):
+    serve("warmup.npy", "k2")  # the image-layout path's own GEMM shapes
+    fused_stats, fused, k1_none, k2_launches = counted("k2")
+    check(k2_launches == 14 * forwards and k1_none == 0,
+          f"launches on the image-layout serving path: K2 {k2_launches} "
+          f"(want {14 * forwards}), K1 {k1_none} (want 0)")
+    diff_k1 = float(np.abs(fused - out).max())
+    diff_plain = float(np.abs(fused - plain).max())
+    check(diff_k1 < SERVE_TOL and diff_plain < SERVE_TOL,
+          f"serving outputs, image layout (K2) vs K1 path {diff_k1}, vs "
+          f"plain attention {diff_plain} (bar {SERVE_TOL})")
+    print(f"[serve] fused image layout: K2 {fused_stats['images_per_sec']} "
+          f"images/s; K2 launches {k2_launches} ({k2_launches // forwards} "
+          f"per forward), K1 launches {k1_none}; max |K2 path - K1 path| "
+          f"{diff_k1:.3g}, max |K2 path - plain| {diff_plain:.3g} (bar "
+          f"{SERVE_TOL})", flush=True)
+
+    # one short run is at the mercy of the shared host: time the three
+    # again in turns (plain, K1, K2, K2, K1, plain, twice), medians
+    rates = {"plain": [], "k1": [], "k2": []}
+    for path in ("plain", "k1", "k2", "k2", "k1", "plain") * 2:
+        rates[path].append(serve("turn.npy", path)["images_per_sec"])
+    for path, name in (("k1", "kernel (K1, windows layout)"),
+                       ("k2", "fused image layout (K2)"),
+                       ("plain", "plain attention")):
         print(f"[serve] in turns, {name}: median "
-              f"{statistics.median(rates[plain])} images/s of "
-              f"{sorted(rates[plain])}", flush=True)
-    profile_serving(serve, SERVE_IMAGES / statistics.median(rates[False]))
-    return launches
+              f"{statistics.median(rates[path])} images/s of "
+              f"{sorted(rates[path])}", flush=True)
+    for path in ("k1", "k2"):
+        profile_serving(functools.partial(serve, path=path), path,
+                        SERVE_IMAGES / statistics.median(rates[path]))
+    return k1_launches, k2_launches
 
 
 #: kernel-name fragments -> the layer they belong to, for the breakdown
-_KERNEL_GROUPS = (("window_attention", "K1 window attention"),
+_KERNEL_GROUPS = (("image_attention", "K2 image attention"),
+                  ("window_attention", "K1 window attention"),
                   ("gemm", "matmul (cuBLAS)"), ("xmma", "matmul (cuBLAS)"),
                   ("nvjet", "matmul (cuBLAS)"),
                   ("cutlass", "matmul (cuBLAS)"), ("conv", "conv (cuDNN)"),
@@ -364,12 +578,13 @@ _KERNEL_GROUPS = (("window_attention", "K1 window attention"),
                   ("elementwise", "elementwise (casts, adds, GELU, copies)"))
 
 
-def profile_serving(serve, loop_seconds: float) -> None:
-    """Where the serving time goes: one more predict call under
+def profile_serving(serve, path: str, loop_seconds: float) -> None:
+    """Where the serving time goes on *path*: one more predict call under
     torch.profiler, device time by layer and by kernel.  The model upload
     (pageable host-to-device copies) is set-up and left out; the device's
     busy share is its time per batch over the wall time per batch of the
-    unprofiled kernel runs (*loop_seconds* for all batches, median)."""
+    unprofiled runs of that path (*loop_seconds* for all batches,
+    median)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -380,14 +595,15 @@ def profile_serving(serve, loop_seconds: float) -> None:
                if e.device_type == DeviceType.CUDA and e.device_time_total
                and "pageable" not in e.key.lower()]
     if not kernels:
-        print("[profile] device time not measured: the profiler recorded "
-              "no kernels", flush=True)
+        print(f"[profile {path}] device time not measured: the profiler "
+              f"recorded no kernels", flush=True)
         return
     batches = -(-SERVE_IMAGES // BATCH)
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / batches
     wall_ms = 1e3 * loop_seconds / batches
-    print(f"[profile] per batch of {BATCH}: device busy {busy_ms:.2f} ms of "
-          f"{wall_ms:.2f} ms wall ({100 * busy_ms / wall_ms:.1f} %), "
+    print(f"[profile {path}] per batch of {BATCH}: device busy "
+          f"{busy_ms:.2f} ms of {wall_ms:.2f} ms wall "
+          f"({100 * busy_ms / wall_ms:.1f} %), "
           f"{sum(e.count for e in kernels) // batches} kernel launches")
     groups = {}
     for e in kernels:
@@ -397,10 +613,10 @@ def profile_serving(serve, loop_seconds: float) -> None:
         groups[group] = groups.get(group, 0.0) \
             + e.device_time_total / 1e3 / batches
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[profile]   {group}: {ms:.3f} ms/batch "
+        print(f"[profile {path}]   {group}: {ms:.3f} ms/batch "
               f"({100 * ms / busy_ms:.1f} %)")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:12]:
-        print(f"[profile]   {e.device_time_total / 1e3 / batches:7.3f} "
+        print(f"[profile {path}]   {e.device_time_total / 1e3 / batches:7.3f} "
               f"ms/batch {e.count // batches:4d}x {e.key[:90]}")
     sys.stdout.flush()
 
@@ -421,22 +637,35 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     phase_build()
-    k1, bound_by, k1_err = phase_k1()
+    k1, k1_bound_by, k1_err = phase_k1()
+    k2, k2_bound_by, k2_err = phase_k2()
     with tempfile.TemporaryDirectory() as tmp:
         phase_small_vs_cpu()
-        launches = phase_serve(Path(tmp))
+        k1_launches, k2_launches = phase_serve(Path(tmp))
 
+    # per kernel: the 14 calls of one bf16 forward at batch 24, summed;
+    # launches from its own serving run
     kernels = [{
         "name": "window_attention",
         "route": "cuda",
         "source": "medsegpretrainimagenet_tpu_torch/csrc/window_attention.cu",
         "replaces": "medsegpretrainimagenet_tpu/ops/window_attention.py:81",
-        "launches": launches,
+        "launches": k1_launches,
         "max_abs_err": k1_err,
-        # the 14 calls of one bf16 forward at batch 24, summed
         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"], "bound_by": bound_by,
+        "bound_ms": k1["bound_ms"], "bound_by": k1_bound_by,
         "library_ms": k1["library_ms"],
+    }, {
+        "name": "image_attention",
+        "route": "cuda",
+        "source": "medsegpretrainimagenet_tpu_torch/csrc/image_attention.cu",
+        "replaces": "medsegpretrainimagenet_tpu/ops/window_attention.py:266",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"], "bound_by": k2_bound_by,
+        # the layout permutes around SDPA included: the same function
+        "library_ms": k2["library_ms"],
     }]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -10,9 +10,12 @@ The relative-position index and the shift mask are computed with numpy when
 a block is built and kept as non-persistent buffers, so checkpoints hold
 parameters only.  The attention core is ``ops.window_attention_core``: the
 hand-written CUDA kernel on the card, the plain PyTorch version on the CPU.
-The image-layout path (``WindowAttention.attend_image``, the JAX package's
-second Pallas kernel) is not ported yet; the JAX package has it off by
-default.
+Under ``ops.set_fused_image_mode("on")`` (or "auto" for the no-grad bf16
+forward on the card) a block takes the image-layout path instead,
+``WindowAttention.attend_image``: the qkv projection in image layout, then
+one kernel (``ops.fused_image_window_attention``) for window partition,
+head split, attention, head merge and window reverse.  Both paths share
+the same parameters.  The mode is off by default, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ import torch
 from torch import nn
 
 from ..config import register
-from ..ops import window_attention_core
+from ..ops import (fused_image_window_attention, use_fused_image,
+                   window_attention_core)
 from ..ops.window_attention import _logits
 from . import blocks as B
 from .activations import make_activation
@@ -275,6 +279,18 @@ class WindowAttention(nn.Module):
         x = x.transpose(1, 2).reshape(b_, n, c)
         return _dropout(self.proj(x), self.proj_drop, self.training)
 
+    def attend_image(self, x: torch.Tensor,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Image-layout forward: (B, R, R, C) -> (B, R, R, C).  The qkv and
+        proj projections are pointwise over tokens, so they apply in image
+        layout; what lies between them is one kernel.  The same parameters
+        and the same values as :meth:`forward` on partitioned windows."""
+        c = x.shape[-1]
+        out = fused_image_window_attention(
+            self.qkv(x), self._bias(), mask, self._scale(c // self.num_heads),
+            self.window_size[0])
+        return _dropout(self.proj(out), self.proj_drop, self.training)
+
 
 def _shift_attn_mask(resolution: Tuple[int, int], window_size: int,
                      shift_size: int) -> np.ndarray:
@@ -385,10 +401,17 @@ class SwinTransformerBlock(nn.Module):
         x = self.norm1(x).reshape(b, resolution, resolution, c)
         if shift > 0:
             x = torch.roll(x, (-shift, -shift), dims=(1, 2))
-        windows = window_partition(x, window).reshape(-1, window * window, c)
-        attn_windows = self.attn(windows, mask=self.attn_mask)
-        attn_windows = attn_windows.reshape(-1, window, window, c)
-        x = window_reverse(attn_windows, window, resolution, resolution)
+        if use_fused_image(self.training, B.compute_dtype() or torch.float32,
+                           x.device) \
+                and not (self.attn.attn_drop and self.training):
+            # image-layout path: the cyclic shift stays outside the kernel
+            x = self.attn.attend_image(x, mask=self.attn_mask)
+        else:
+            windows = window_partition(x, window).reshape(
+                -1, window * window, c)
+            attn_windows = self.attn(windows, mask=self.attn_mask)
+            attn_windows = attn_windows.reshape(-1, window, window, c)
+            x = window_reverse(attn_windows, window, resolution, resolution)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
         x = x.reshape(b, length, c)

@@ -12,6 +12,17 @@ card.
 ``window_attention_core(q, k, v, bias, mask, scale)``:
   q, k, v: (B_, H, N, D)   bias: (H, N, N)   mask: (nW, N, N) or None,
   where B_ = batch * nW.  Returns (B_, H, N, D).
+
+The image-layout path does the same attention straight from the (B, R, R,
+3C) output of the qkv projection: window partition, head split, attention,
+head merge and window reverse in one kernel, ``csrc/image_attention.cu``
+(the counterpart of ``_pallas_image_attention``), with the plain version
+:func:`image_attention_torch`.  ``set_fused_image_mode`` switches the Swin
+blocks onto it, as in the JAX package; it is off by default.
+
+``fused_image_window_attention(qkv, bias, mask, scale, window)``:
+  qkv: (B, R, R, 3C)   bias: (H, N, N)   mask: ((R/w)^2, N, N) or None,
+  with N = window^2.  Returns (B, R, R, C).
 """
 from __future__ import annotations
 
@@ -23,7 +34,10 @@ import torch
 from . import _build
 
 __all__ = ["window_attention_core", "window_attention_torch",
-           "window_attention_cuda", "window_attention_backward"]
+           "window_attention_cuda", "window_attention_backward",
+           "fused_image_window_attention", "image_attention_torch",
+           "image_attention_cuda", "image_attention_backward",
+           "set_fused_image_mode", "use_fused_image"]
 
 #: largest window (tokens) and head width the kernel takes
 MAX_TOKENS = 64
@@ -96,13 +110,34 @@ def _entry(dtype: torch.dtype):
     return fn
 
 
+def _check_input(kernel: str, name: str, x: torch.Tensor) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"the {kernel} kernel needs CUDA tensors, got "
+                         f"{name} on {x.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"the {kernel} kernel takes bfloat16 or float32, "
+                         f"got {x.dtype}")
+
+
+def _check_tables_and_layout(kernel: str, device: torch.device,
+                             tables: dict, operands: dict) -> None:
+    """*tables*: {name: (tensor or None, shape)}, each float32 of that
+    shape on *device*; *operands*: {name: tensor or None}, each
+    contiguous."""
+    for name, (t, shape) in tables.items():
+        if t is not None and (tuple(t.shape) != shape
+                              or t.dtype != torch.float32
+                              or t.device != device):
+            raise ValueError(f"{name} must be float32 {shape} on {device},"
+                             f" got {t.dtype} {tuple(t.shape)} on {t.device}")
+    for name, t in operands.items():
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"the {kernel} kernel needs contiguous inputs; "
+                             f"{name} is not")
+
+
 def _check(q, k, v, bias, mask):
-    if q.device.type != "cuda":
-        raise ValueError(f"the window-attention kernel needs CUDA tensors, "
-                         f"got q on {q.device}")
-    if q.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"the window-attention kernel takes bfloat16 or "
-                         f"float32, got {q.dtype}")
+    _check_input("window-attention", "q", q)
     if q.dim() != 4:
         raise ValueError(f"q must be (B_, H, N, D), got {tuple(q.shape)}")
     b_, heads, n, d = q.shape
@@ -115,23 +150,15 @@ def _check(q, k, v, bias, mask):
             raise ValueError(f"{name} must match q: {tuple(t.shape)} "
                              f"{t.dtype} {t.device} vs {tuple(q.shape)} "
                              f"{q.dtype} {q.device}")
-    want = {"bias": (heads, n, n)}
-    if mask is not None:
-        want["mask"] = (mask.shape[0], n, n)
-        if mask.dim() != 3 or mask.shape[0] < 1 or b_ % mask.shape[0]:
-            raise ValueError(f"mask must be (nW, N, N) with nW dividing "
-                             f"B_={b_}, got {tuple(mask.shape)}")
-    for name, shape in want.items():
-        t = bias if name == "bias" else mask
-        if tuple(t.shape) != shape or t.dtype != torch.float32 \
-                or t.device != q.device:
-            raise ValueError(f"{name} must be float32 {shape} on {q.device},"
-                             f" got {t.dtype} {tuple(t.shape)} on {t.device}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias),
-                    ("mask", mask)):
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"the window-attention kernel needs contiguous "
-                             f"inputs; {name} is not")
+    if mask is not None and (mask.dim() != 3 or mask.shape[0] < 1
+                             or b_ % mask.shape[0]):
+        raise ValueError(f"mask must be (nW, N, N) with nW dividing "
+                         f"B_={b_}, got {tuple(mask.shape)}")
+    _check_tables_and_layout(
+        "window-attention", q.device,
+        {"bias": (bias, (heads, n, n)),
+         "mask": (mask, None if mask is None else (mask.shape[0], n, n))},
+        {"q": q, "k": k, "v": v, "bias": bias, "mask": mask})
 
 
 def window_attention_cuda(q, k, v, bias, mask: Optional[torch.Tensor],
@@ -190,3 +217,165 @@ def window_attention_core(q, k, v, bias, mask: Optional[torch.Tensor],
     if needs_grad:
         return _WindowAttentionKernel.apply(q, k, v, bias, mask, scale)
     return window_attention_cuda(q, k, v, bias, mask, scale)
+
+
+# ---------------------------------------------------------------------------
+# Image-layout path: window partition + head split + attention + head merge
+# + window reverse in one kernel
+# ---------------------------------------------------------------------------
+
+def image_attention_torch(qkv, bias, mask: Optional[torch.Tensor],
+                          scale: float, window: int) -> torch.Tensor:
+    """Plain PyTorch image-layout window attention: the counterpart of the
+    JAX package's ``_xla_image_attention``, the op sequence the kernel
+    replaces.  qkv: (B, R, R, 3C) -> out: (B, R, R, C)."""
+    b, r, _, c3 = qkv.shape
+    c = c3 // 3
+    heads = bias.shape[0]
+    n_wc = r // window
+    t = qkv.reshape(b, n_wc, window, n_wc, window, c3)
+    t = t.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, 3, heads,
+                                            c // heads)
+    t = t.permute(2, 0, 3, 1, 4)                      # (3, B_, H, N, D)
+    out = window_attention_torch(t[0], t[1], t[2], bias, mask, scale)
+    out = out.transpose(1, 2).reshape(b, n_wc, n_wc, window, window, c)
+    return out.permute(0, 1, 3, 2, 4, 5).reshape(b, r, r, c)
+
+
+def image_attention_backward(qkv, bias, mask, scale, window, g):
+    """Gradients of image-layout attention through autograd of the plain
+    version: the port of the JAX custom VJP's ``_fused_image_bwd``.
+    Returns ``(dqkv, dbias, dmask)``; ``dmask`` is None without a mask."""
+    leaves = [None if t is None else t.detach().requires_grad_()
+              for t in (qkv, bias, mask)]
+    with torch.enable_grad():
+        out = image_attention_torch(*leaves, scale, window)
+        grads = torch.autograd.grad(
+            out, [t for t in leaves if t is not None], g)
+    return (*grads, None) if mask is None else tuple(grads)
+
+
+_IMAGE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+    + [ctypes.c_float, ctypes.c_void_p]
+
+
+def _image_entry(dtype: torch.dtype):
+    lib = _build.library("image_attention")
+    fn = lib.image_attention_fwd_bf16 if dtype == torch.bfloat16 \
+        else lib.image_attention_fwd_f32
+    fn.argtypes = _IMAGE_ARGTYPES
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_image(qkv, bias, mask, window):
+    _check_input("image-attention", "qkv", qkv)
+    if qkv.dim() != 4 or qkv.shape[1] != qkv.shape[2] or qkv.shape[3] % 3:
+        raise ValueError(f"qkv must be (B, R, R, 3C), got {tuple(qkv.shape)}")
+    b, r, _, c3 = qkv.shape
+    if window < 1 or r % window:
+        raise ValueError(f"the image-attention kernel needs R % window == 0,"
+                         f" got R={r}, window={window}")
+    if bias.dim() != 3 or bias.shape[0] < 1 or (c3 // 3) % bias.shape[0]:
+        raise ValueError(f"bias must be (H, N, N) with H dividing C="
+                         f"{c3 // 3}, got {tuple(bias.shape)}")
+    n, d = window * window, c3 // 3 // bias.shape[0]
+    if n > MAX_TOKENS or d > MAX_HEAD_DIM:
+        raise ValueError(f"the image-attention kernel takes N <= "
+                         f"{MAX_TOKENS} and D <= {MAX_HEAD_DIM}, got N={n}, "
+                         f"D={d}")
+    # window (i, j) of the R/w x R/w grid takes mask row i * R/w + j
+    _check_tables_and_layout(
+        "image-attention", qkv.device,
+        {"bias": (bias, (bias.shape[0], n, n)),
+         "mask": (mask, ((r // window) ** 2, n, n))},
+        {"qkv": qkv, "bias": bias, "mask": mask})
+
+
+def image_attention_cuda(qkv, bias, mask: Optional[torch.Tensor],
+                         scale: float, window: int) -> torch.Tensor:
+    """Launch the image-layout CUDA kernel on the current stream.  Raises on
+    inputs it does not take or if the launch is refused."""
+    _check_image(qkv, bias, mask, window)
+    b, r, _, c3 = qkv.shape
+    out = torch.empty((b, r, r, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        err = _image_entry(qkv.dtype)(
+            qkv.data_ptr(), bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            b, r, c3 // 3, bias.shape[0], window, scale,
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"image-attention kernel launch failed with CUDA "
+                           f"error {err} for qkv {tuple(qkv.shape)} "
+                           f"{qkv.dtype}")
+    image_attention_cuda.launches += 1
+    return out
+
+
+#: launches of the kernel since the count was last set to 0
+image_attention_cuda.launches = 0
+
+
+class _ImageAttentionKernel(torch.autograd.Function):
+    """Kernel forward, backward through the plain version
+    (``image_attention_backward``)."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, mask, scale, window):
+        ctx.save_for_backward(qkv, bias, mask)
+        ctx.scale, ctx.window = scale, window
+        return image_attention_cuda(qkv, bias, mask, scale, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, bias, mask = ctx.saved_tensors
+        return (*image_attention_backward(qkv, bias, mask, ctx.scale,
+                                          ctx.window, g), None, None)
+
+
+def fused_image_window_attention(qkv, bias, mask: Optional[torch.Tensor],
+                                 scale: float, window: int,
+                                 force: Optional[str] = None) -> torch.Tensor:
+    """Image-layout window attention, qkv (B, R, R, 3C) -> (B, R, R, C).
+    Dispatch as :func:`window_attention_core`: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor or under
+    ``force="torch"``."""
+    if force not in (None, "torch"):
+        raise ValueError(f"force must be None or 'torch', got {force!r}")
+    if force == "torch" or qkv.device.type == "cpu":
+        return image_attention_torch(qkv, bias, mask, scale, window)
+    needs_grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (qkv, bias, mask))
+    if needs_grad:
+        return _ImageAttentionKernel.apply(qkv, bias, mask, scale, window)
+    return image_attention_cuda(qkv, bias, mask, scale, window)
+
+
+#: the Swin blocks' switch onto the image-layout path, as in the JAX
+#: package: "off" (the default: the windows-layout path through
+#: window_attention_core), "on" (always) or "auto" (the no-grad bf16
+#: forward on a CUDA tensor, the card's counterpart of the JAX package's
+#: no-grad bf16 forward on a TPU)
+_FUSED_IMAGE_MODE = "off"
+
+
+def set_fused_image_mode(mode: str) -> None:
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"fused image mode must be 'auto', 'on' or 'off', "
+                         f"got {mode!r}")
+    global _FUSED_IMAGE_MODE
+    _FUSED_IMAGE_MODE = mode
+
+
+def use_fused_image(train: bool, dtype: torch.dtype,
+                    device: torch.device) -> bool:
+    """Should a SwinTransformerBlock take the image-layout path?  *dtype*
+    is the compute dtype (the qkv projection's output), *device* where the
+    block runs."""
+    if _FUSED_IMAGE_MODE == "off":
+        return False
+    if _FUSED_IMAGE_MODE == "on":
+        return True
+    return (not train and not torch.is_grad_enabled()
+            and dtype == torch.bfloat16 and device.type == "cuda")

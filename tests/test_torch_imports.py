@@ -20,7 +20,7 @@ for name in ("jax", "flax", "medsegpretrainimagenet_tpu"):
 import numpy as np, torch
 from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
 from medsegpretrainimagenet_tpu_torch.models import Model
-from medsegpretrainimagenet_tpu_torch import predict, transfer  # noqa: F401
+from medsegpretrainimagenet_tpu_torch import ops, predict, transfer  # noqa
 arch = {
     "in_channel_size": 3, "out_channel_size": 1, "depth": 1, "width": 2,
     "channels": (8, 16), "change_channels_in_block": False,
@@ -39,9 +39,14 @@ cd.expand()
 registry.fill_spec(cd, "model")
 model = registry.build(cd, key="model", wrapper=Model)
 model.init(0)
+x = torch.rand(2, 32, 32, 3)
 with torch.no_grad():
-    out = model.apply(torch.rand(2, 32, 32, 3))
+    out = model.apply(x)
+    ops.set_fused_image_mode("on")  # the image-layout path as well
+    fused = model.apply(x)
+    ops.set_fused_image_mode("off")
 assert out.shape == (2, 32, 32, 1) and torch.isfinite(out).all()
+assert torch.allclose(fused, out, atol=1e-5)
 assert not any(m.split(".")[0] in ("jax", "flax")
                for m, v in sys.modules.items() if v is not None)
 print("OK")
