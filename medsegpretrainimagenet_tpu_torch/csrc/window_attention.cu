@@ -13,17 +13,48 @@
 // What bounds it on the H100: device-memory bytes.  The call must read q, k
 // and v and write out, 4 * B_*H*N*D*itemsize bytes, for 2 * 2*B_*H*N*N*D
 // operations: at N = 49, D = 32 in bf16 that is about 24 FLOP per byte, far
-// under the card's ridge of about 295 FLOP per byte.  bias and mask are
-// small and stay in L2.  This first design does nothing yet about that
-// bound: one block per (window, head) pair, operands widened to float32 in
-// shared memory, scalar FMAs on the CUDA cores, no tensor cores, no vector
-// loads, no overlap of one window's loads with another's compute.
+// under the card's ridge of about 295 FLOP per byte.
 //
-// Rounding points follow the JAX reference (_xla_window_attention), so the
-// bf16 outputs agree with it: q is multiplied by scale in the input dtype
-// before the product, logits and the softmax are float32, and the
-// probabilities are rounded to the input dtype before P.V, which
-// accumulates in float32.
+// The bf16 kernel (window_attention_bf16) is built for that bound:
+// - the two products run on tensor cores, mma.sync.m16n8k16 on bf16 tiles
+//   with float32 accumulators, with the probabilities kept in registers
+//   between them (attention_tile.cuh; 128 mma per pair at N = 49, D = 32);
+// - q, k and v stay bf16 in shared memory, in rows padded against ldmatrix
+//   bank conflicts; a pair is one contiguous N*D run of each operand,
+//   loaded with 16-byte cp.async, the per-thread offsets free of any
+//   division but by the compile-time D padded to 16 (a template parameter:
+//   16, 32, 48 or 64, one instance of the same body each);
+// - a block walks several pairs, double-buffered: the next pair's loads are
+//   in flight while the tensor cores work on this one;
+// - the pairs of a block share one (window mod nW, head): it walks images,
+//   so it reads its bias tile (and, for SW-MSA, its mask tile) from L2 once
+//   into shared memory instead of once per pair.  The grid is as many
+//   blocks as fit on the card at once (tile::plan).
+// A D that is not a multiple of 8, or an operand not 16-byte aligned, is
+// loaded and stored one element at a time by the same kernel.  All of this
+// is tile::attend_pairs; this file gives it only K1's addressing
+// (WindowsLayout).
+//
+// The float32 kernel (window_attention_f32) keeps the first
+// design: one block per (window, head) pair, scalar FMAs on the CUDA cores
+// over float32 copies in shared memory.  Tensor cores would take float32 as
+// TF32, which keeps about three decimal digits and misses the 1e-4 bar that
+// the float32 checks hold the kernel to.
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at a 700 W power
+// limit, the 14 calls of one bf16 forward of swin_unet_224 at batch 24,
+// L2-cold: 0.357 ms, 35 % of their 0.126 ms bytes bound (the first design,
+// on CUDA cores: 2.10 ms; SDPA: 1.85 ms).  Per call and shape: PERF.md.
+//
+// Rounding points follow the JAX reference (_xla_window_attention) in both
+// kernels: q is multiplied by scale in the input dtype (the scale rounded
+// to it first) before the product, logits, bias, mask and the softmax are
+// float32, and the probabilities are rounded to the input dtype before P.V,
+// which accumulates in float32.  The float32 kernel also sums in the plain
+// version's order; the bf16 one sums inside the mma tiles, so its output is
+// within a bf16 rounding step of the plain version, not equal to it.
+#include "attention_tile.cuh"
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -34,39 +65,18 @@ constexpr int kThreads = 128;
 constexpr int kMaxN = 64;
 constexpr int kMaxD = 64;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-// x rounded to T and widened back: the value a T-typed tensor would hold
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
-
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v,
-                        const float* __restrict__ bias,
-                        const float* __restrict__ mask, T* __restrict__ out,
-                        int heads, int n, int d, int n_w, float scale) {
+window_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ bias,
+                     const float* __restrict__ mask, float* __restrict__ out,
+                     int heads, int n, int d, int n_w, float scale) {
   // rows padded by one float, so a warp walking a column (k[j][c] over j,
   // v[j][c] over c) touches 32 distinct banks
   extern __shared__ float smem[];
   const int ld = d + 1;
   const int lp = n + 1;
-  float* qs = smem;          // n x ld: q * scale, rounded to T
+  float* qs = smem;          // n x ld: q * scale
   float* ks = qs + n * ld;   // n x ld
   float* vs = ks + n * ld;   // n x ld
   float* ps = vs + n * ld;   // n x lp: logits, then probabilities
@@ -75,14 +85,13 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int b = bh / heads;
   const int h = bh - b * heads;
   const size_t base = static_cast<size_t>(bh) * n * d;
-  const float scale_t = round_to<T>(scale);
 
   for (int idx = threadIdx.x; idx < n * d; idx += blockDim.x) {
     const int i = idx / d;
     const int c = idx - i * d;
-    qs[i * ld + c] = round_to<T>(to_float(q[base + idx]) * scale_t);
-    ks[i * ld + c] = to_float(k[base + idx]);
-    vs[i * ld + c] = to_float(v[base + idx]);
+    qs[i * ld + c] = q[base + idx] * scale;
+    ks[i * ld + c] = k[base + idx];
+    vs[i * ld + c] = v[base + idx];
   }
   __syncthreads();
 
@@ -118,8 +127,8 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float e1 = has1 ? expf(x1 - m) : 0.f;
     float s = e0 + e1;
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (has0) row[lane] = round_to<T>(e0 / s);
-    if (has1) row[lane + 32] = round_to<T>(e1 / s);
+    if (has0) row[lane] = e0 / s;
+    if (has1) row[lane + 32] = e1 / s;
   }
   __syncthreads();
 
@@ -129,44 +138,83 @@ window_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float* pi = ps + i * lp;
     float acc = 0.f;
     for (int j = 0; j < n; ++j) acc = fmaf(pi[j], vs[j * ld + c], acc);
-    out[base + idx] = from_float<T>(acc);
+    out[base + idx] = acc;
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const void* bias,
-           const void* mask, void* out, int windows, int heads, int n, int d,
-           int n_w, float scale, void* stream) {
-  if (windows < 1 || heads < 1 || n < 1 || n > kMaxN || d < 1 || d > kMaxD ||
-      n_w < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (3 * n * (d + 1) + n * (n + 1));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        window_attention_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+using tile::bf16;
+
+// Pair t of a block, image img0 + t of window w and head h, is one
+// contiguous n * d run of q, k, v and out, at ((img0 + t) * n_w + w) *
+// heads + h runs from the start.
+struct WindowsLayout {
+  const bf16 *q, *k, *v;
+  bf16* out;
+  tile::Pairs p;
+  int heads, n_w;
+  size_t pair;  // n * d
+  int d;
+
+  __device__ size_t src(int t) const {
+    return ((static_cast<size_t>(p.img0 + t) * n_w + p.w) * heads + p.h) *
+           pair;
   }
-  window_attention_kernel<T>
-      <<<windows * heads, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(q), static_cast<const T*>(k),
-          static_cast<const T*>(v), static_cast<const float*>(bias),
-          static_cast<const float*>(mask), static_cast<T*>(out), heads, n, d,
-          n_w, scale);
-  return static_cast<int>(cudaGetLastError());
+  __device__ size_t src_token(int i) const { return i * d; }
+  __device__ size_t dst(int t) const { return src(t); }
+  __device__ size_t dst_token(int i) const { return i * d; }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(tile::kThreads)
+window_attention_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const float* __restrict__ bias,
+                      const float* __restrict__ mask, bf16* __restrict__ out,
+                      int heads, int n, int d, int n_w, int images,
+                      float scale, int vec8, int per) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  const tile::Pairs p = tile::block_pairs(heads, n_w, per, images);
+  const WindowsLayout at{q, k, v, out, p, heads, n_w,
+                         static_cast<size_t>(n) * d, d};
+  tile::attend_pairs<DP>(
+      at, tile_smem, bias + p.h * static_cast<size_t>(n) * n,
+      mask == nullptr ? nullptr : mask + p.w * static_cast<size_t>(n) * n, n,
+      d, p.count, scale, vec8);
+}
+
+// the shapes both kernels take; n_w is 1 without a mask
+bool takes(int windows, int heads, int n, int d, int n_w) {
+  return windows >= 1 && heads >= 1 && n >= 1 && n <= kMaxN && d >= 1 &&
+         d <= kMaxD && n_w >= 1 && windows % n_w == 0;
 }
 
 }  // namespace
 
 // C entry points, bound with ctypes.  mask may be null (W-MSA); n_w is then
-// ignored.  Each returns cudaGetLastError() after the launch: 0 on success.
+// ignored.  bf16 runs the tensor-core kernel, float32 the scalar one.  Each
+// returns cudaGetLastError() after the launch: 0 on success.
 extern "C" int window_attention_fwd_bf16(const void* q, const void* k,
                                          const void* v, const void* bias,
                                          const void* mask, void* out,
                                          int windows, int heads, int n, int d,
                                          int n_w, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, bias, mask, out, windows, heads, n, d,
-                               n_w, scale, stream);
+  if (mask == nullptr) n_w = 1;
+  if (!takes(windows, heads, n, d, n_w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uintptr_t addresses =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out);
+  const int vec8 = d % 8 == 0 && addresses % 16 == 0;
+  return tile::with_padded_d(d, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    return tile::launch(
+        window_attention_bf16<DP>, tile::smem_bytes<DP>(n, mask != nullptr),
+        static_cast<long long>(n_w) * heads, windows / n_w, stream,
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const float*>(bias),
+        static_cast<const float*>(mask), static_cast<bf16*>(out), heads, n, d,
+        n_w, windows / n_w, scale, vec8);
+  });
 }
 
 extern "C" int window_attention_fwd_f32(const void* q, const void* k,
@@ -174,6 +222,21 @@ extern "C" int window_attention_fwd_f32(const void* q, const void* k,
                                         const void* mask, void* out,
                                         int windows, int heads, int n, int d,
                                         int n_w, float scale, void* stream) {
-  return launch<float>(q, k, v, bias, mask, out, windows, heads, n, d, n_w,
-                       scale, stream);
+  if (mask == nullptr) n_w = 1;
+  if (!takes(windows, heads, n, d, n_w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * (3 * n * (d + 1) + n * (n + 1));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        window_attention_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  window_attention_f32<<<windows * heads, kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(bias),
+      static_cast<const float*>(mask), static_cast<float*>(out), heads, n, d,
+      n_w, scale);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -62,12 +62,24 @@ def fused_on():
         ops.set_fused_image_mode("off")
 
 
-@MASKED
-def test_plain_matches_xla_image_path(masked):
-    arrays = _inputs(0, masked=masked)
-    ref = jax_wa._xla_image_attention(*_jax(arrays), SCALE, 4)
-    out = wa.image_attention_torch(*_torch(arrays), SCALE, 4)
-    assert out.shape == (2, 8, 8, 16)
+#: (window, D, R) with N = window^2 at the edges of what the CUDA kernel
+#: takes, and swin_unet_224's (7, 32): the plain version, which the card's
+#: tests trust as the kernel's oracle, equals the JAX package's at each.
+#: The first keeps the ids the test had before it took a shape.
+EDGE_SHAPES = [pytest.param(masked, window, d, r,
+                            id=("sw_msa" if masked else "w_msa") + suffix)
+               for window, d, r, suffix in ((4, 8, 8, ""),
+                                            (7, 32, 14, "-49x32"),
+                                            (8, 64, 16, "-64x64"))
+               for masked in (False, True)]
+
+
+@pytest.mark.parametrize("masked,window,d,r", EDGE_SHAPES)
+def test_plain_matches_xla_image_path(masked, window, d, r):
+    arrays = _inputs(0, r=r, window=window, d=d, masked=masked)
+    ref = jax_wa._xla_image_attention(*_jax(arrays), SCALE, window)
+    out = wa.image_attention_torch(*_torch(arrays), SCALE, window)
+    assert out.shape == (2, r, r, 2 * d)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref),
                                rtol=2e-5, atol=2e-5)
 

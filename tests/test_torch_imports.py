@@ -86,7 +86,8 @@ def test_kernels_are_written_by_hand():
         for word in ("cublas", "cudnn", "scaled_dot_product", "torch/",
                      "cutlass::gemm::device", "flash"):
             assert word not in text, f"{src.name} names {word}"
-        assert "__global__" in text
+        # a .cu defines its kernels; a .cuh holds device code they share
+        assert "__global__" in text or src.suffix == ".cuh"
 
 
 def test_chip_smoke_refuses_without_card_or_package(tmp_path):

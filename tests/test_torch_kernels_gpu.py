@@ -27,30 +27,77 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _inputs(dtype, masked, device, windows=64, heads=3, seed=0):
+#: (N, D) at the edges of what the kernels take, swin_unet_224's, and one
+#: with D not a multiple of 8 (the bf16 kernels' element-wise loads), each
+#: on a 2x2 grid of windows with 3 heads; the pair counts (401 windows, or
+#: 101 images) are prime, so the last block of the bf16 kernels' grid holds
+#: fewer pairs than the others.  Then level 1 of swin_unet_224, whose 4x4
+#: grid of windows (16 mask rows) the model runs.
+#: K1: (N, D, windows per side of the grid, windows under W-MSA, heads)
+K1_SHAPES = pytest.mark.parametrize(
+    "n,d,grid,windows,heads",
+    [(16, 8, 2, 401, 3), (49, 32, 2, 401, 3), (64, 64, 2, 401, 3),
+     (25, 12, 2, 401, 3), (49, 32, 4, 64, 3)],
+    ids=["16x8", "49x32", "64x64", "25x12", "level1"])
+#: K2: (N, D, windows per side of the grid, images, heads)
+K2_SHAPES = pytest.mark.parametrize(
+    "n,d,grid,batch,heads",
+    [(16, 8, 2, 101, 3), (49, 32, 2, 101, 3), (64, 64, 2, 101, 3),
+     (25, 12, 2, 101, 3), (49, 32, 4, 2, 6)],
+    ids=["16x8", "49x32", "64x64", "25x12", "level1"])
+#: bars on the max and the mean |kernel - plain|.  The bf16 kernel sums in
+#: another order than the plain version and reads a mean of about 1e-7 on
+#: swin_unet_224's shapes; one that drops its bias, or takes another head's
+#: bias or another window's mask, reads 3e-3 or more (chip_smoke.py
+#: measures both), under the max bar all the same.
+DTYPES = pytest.mark.parametrize("dtype,tol,mean_tol",
+                                 [(torch.bfloat16, 0.05, 1e-5),
+                                  (torch.float32, 1e-4, 1e-6)],
+                                 ids=["bf16", "f32"])
+MASKED = pytest.mark.parametrize("masked", [False, True],
+                                 ids=["w_msa", "sw_msa"])
+
+
+def _mask(window, grid, device):
+    """The shift mask of a grid x grid grid of windows: (grid², N, N)."""
+    return torch.from_numpy(_shift_attn_mask(
+        (grid * window, grid * window), window, window // 2)).to(device)
+
+
+def _inputs(dtype, masked, device, n=49, d=32, grid=2, windows=401,
+            heads=3, seed=0):
+    """q, k, v, bias and mask; under SW-MSA *windows* is rounded up to
+    whole images of the grid."""
+    window = int(round(n ** 0.5))
+    if masked:
+        windows = -(-windows // grid ** 2) * grid ** 2
     g = torch.Generator().manual_seed(seed)
-    q, k, v = (torch.randn(windows, heads, 49, 32, generator=g)
+    q, k, v = (torch.randn(windows, heads, n, d, generator=g)
                .to(device, dtype) for _ in range(3))
-    bias = (0.02 * torch.randn(heads, 49, 49, generator=g)).to(device)
-    mask = torch.from_numpy(_shift_attn_mask((28, 28), 7, 3)).to(device) \
-        if masked else None
-    return q, k, v, bias, mask
+    bias = (0.02 * torch.randn(heads, n, n, generator=g)).to(device)
+    return q, k, v, bias, _mask(window, grid, device) if masked else None
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 0.05),
-                                       (torch.float32, 1e-4)],
-                         ids=["bf16", "f32"])
-@pytest.mark.parametrize("masked", [False, True], ids=["w_msa", "sw_msa"])
+def _assert_close(out, ref, tol, mean_tol):
+    diff = (out.float() - ref.float()).abs()
+    assert diff.max().item() < tol
+    assert diff.mean().item() < mean_tol
+
+
+@DTYPES
+@MASKED
+@K1_SHAPES
 def test_window_attention_kernel_matches_plain(cuda_device, dtype, tol,
-                                               masked):
-    args = _inputs(dtype, masked, cuda_device)
+                                               mean_tol, masked, n, d, grid,
+                                               windows, heads):
+    args = _inputs(dtype, masked, cuda_device, n, d, grid, windows, heads)
     wa.window_attention_cuda.launches = 0
-    out = wa.window_attention_core(*args, SCALE)
-    ref = wa.window_attention_core(*args, SCALE, force="torch")
+    out = wa.window_attention_core(*args, d ** -0.5)
+    ref = wa.window_attention_core(*args, d ** -0.5, force="torch")
     torch.cuda.synchronize()
     assert wa.window_attention_cuda.launches == 1
     assert out.dtype == dtype and out.shape == ref.shape
-    assert (out.float() - ref.float()).abs().max().item() < tol
+    _assert_close(out, ref, tol, mean_tol)
 
 
 def test_window_attention_kernel_backward_matches_autograd(cuda_device):
@@ -77,31 +124,38 @@ def test_window_attention_kernel_refuses_large_windows(cuda_device):
             1, 8, 8, device=cuda_device), None, SCALE)
 
 
-def _image_inputs(dtype, masked, device, batch=2, res=28, heads=6, seed=0):
-    """Level 1 of swin_unet_224 (R = 28, C = 192, 6 heads), batch 2."""
+def _image_inputs(dtype, masked, device, batch=2, res=28, heads=6, d=32,
+                  window=7, seed=0):
+    """Level 1 of swin_unet_224 (R = 28, C = 192, 6 heads) by default."""
     g = torch.Generator().manual_seed(seed)
-    qkv = torch.randn(batch, res, res, 3 * 32 * heads, generator=g) \
+    qkv = torch.randn(batch, res, res, 3 * d * heads, generator=g) \
         .to(device, dtype)
-    bias = (0.02 * torch.randn(heads, 49, 49, generator=g)).to(device)
-    mask = torch.from_numpy(_shift_attn_mask((res, res), 7, 3)).to(device) \
-        if masked else None
+    n = window * window
+    bias = (0.02 * torch.randn(heads, n, n, generator=g)).to(device)
+    mask = torch.from_numpy(_shift_attn_mask(
+        (res, res), window, window // 2)).to(device) if masked else None
     return qkv, bias, mask
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 0.05),
-                                       (torch.float32, 1e-4)],
-                         ids=["bf16", "f32"])
-@pytest.mark.parametrize("masked", [False, True], ids=["w_msa", "sw_msa"])
+@DTYPES
+@MASKED
+@K2_SHAPES
 def test_image_attention_kernel_matches_plain(cuda_device, dtype, tol,
-                                              masked):
-    args = _image_inputs(dtype, masked, cuda_device)
+                                              mean_tol, masked, n, d, grid,
+                                              batch, heads):
+    window = int(round(n ** 0.5))
+    res = grid * window
+    args = _image_inputs(dtype, masked, cuda_device, batch=batch, res=res,
+                         heads=heads, d=d, window=window)
     wa.image_attention_cuda.launches = 0
-    out = wa.fused_image_window_attention(*args, SCALE, 7)
-    ref = wa.fused_image_window_attention(*args, SCALE, 7, force="torch")
+    out = wa.fused_image_window_attention(*args, d ** -0.5, window)
+    ref = wa.fused_image_window_attention(*args, d ** -0.5, window,
+                                          force="torch")
     torch.cuda.synchronize()
     assert wa.image_attention_cuda.launches == 1
-    assert out.dtype == dtype and out.shape == ref.shape == (2, 28, 28, 192)
-    assert (out.float() - ref.float()).abs().max().item() < tol
+    assert out.dtype == dtype and out.shape == ref.shape \
+        == (batch, res, res, heads * d)
+    _assert_close(out, ref, tol, mean_tol)
 
 
 def test_image_attention_kernel_backward_matches_autograd(cuda_device):

@@ -36,9 +36,20 @@ def _jax(arrays, dtype=jnp.float32):
             for i, a in enumerate(arrays)]
 
 
-@pytest.mark.parametrize("masked", [False, True], ids=["w_msa", "sw_msa"])
-def test_plain_matches_xla_path(masked):
-    arrays = _inputs(0, masked=masked)
+#: (N, D) at the edges of what the CUDA kernel takes, and swin_unet_224's
+#: (49, 32): the plain version, which the card's tests trust as the
+#: kernel's oracle, equals the JAX package's at each.  The first shape
+#: keeps the ids the test had before it took a shape.
+EDGE_SHAPES = [pytest.param(masked, n, d, id=("sw_msa" if masked else "w_msa")
+                            + suffix)
+               for n, d, suffix in ((16, 8, ""), (49, 32, "-49x32"),
+                                    (64, 64, "-64x64"))
+               for masked in (False, True)]
+
+
+@pytest.mark.parametrize("masked,n,d", EDGE_SHAPES)
+def test_plain_matches_xla_path(masked, n, d):
+    arrays = _inputs(0, n=n, d=d, masked=masked)
     ref = jax_wa._xla_window_attention(*_jax(arrays), SCALE)
     out = wa.window_attention_torch(*_torch(arrays), SCALE)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref),
