@@ -23,9 +23,21 @@ windows layout through K1 and the image layout through K2
 (``set_fused_image_mode("on")``), checks that each went through its kernel,
 and that their outputs agree with each other, with the plain attention and,
 on a small input, with the CPU.  It times both paths in turns and profiles
-one call of each.  Any failure exits non-zero.  Without a CUDA card, or
-without the package beside it, it exits non-zero and prints no result.  It
-imports nothing of JAX.
+one call of each.  Then ``[train]`` drives the port's U-Net training step:
+a small float32 U-Net, three steps of two fragments on the card against
+the same steps on the CPU; ``unet_256_train`` at full width in bf16
+against the same port in float32 for three steps from the same weights,
+with three injected faults that must read above the bars; then
+``unet_256_train`` at full width (the JAX package's headline step: U-Net
+64 -> 1024, 256 x 256, batch 16, bf16 compute, SGD with momentum, Dice
+loss), built through the framework's own objects, timed, with its loss
+falling on a fixed batch, its running statistics
+moving and no host sync queued by the timed steps; it prints images/s, the
+device's busy share and its time per step by kernel group, launches and
+peak memory per step and the share of the operations bound, and runs one
+turn with two fragments of 8.  Any failure exits non-zero.  Without a CUDA
+card, or without the package beside it, it exits non-zero and prints no
+result.  It imports nothing of JAX.
 
 The last lines are the card's name and power limit, a JSON line with each
 kernel's launches, error and times, and
@@ -35,6 +47,8 @@ from __future__ import annotations
 
 import functools
 import json
+import math
+import re
 import statistics
 import subprocess
 import sys
@@ -65,6 +79,27 @@ MEAN_TOL = {"torch.bfloat16": 1e-5, "torch.float32": 1e-6}
 #: how far under the least fault reading the mean bar must sit
 FAULT_MARGIN = 10
 SERVE_IMAGES, SERVE_TOL = 96, 2e-2
+#: unet_256_train: batch, image side, steps per timed turn, timed turns
+TRAIN_BATCH, TRAIN_SIZE, TURN_STEPS, TURNS = 16, 256, 10, 5
+#: card against CPU, the small float32 step (TF32 off)
+TRAIN_TOL = 1e-4
+#: unet_256_train in bf16 against the same port in float32 (TF32 off),
+#: BF16_STEPS steps from the same weights on the same batch: bars on the
+#: relative |bf16 - f32| of the loss, of the gradient norm, and of the
+#: change over the steps of the worst parameter leaf and of the worst
+#: running statistic.  Conv biases are held through the loss and the norm
+#: only: in front of a BatchNorm (and the stem's, but at the borders)
+#: their gradient is rounding noise.  On an H100 with seeds 0 to 2 a sound
+#: step read at most 1.67e-3, 1.27e-2, 0.391 and 0.0132; the faults that
+#: phase_train_bf16 injects read at least 0.0272 in running statistics
+#: (statistics taken in bf16), 0.224 there (conv bias dropped), and
+#: 5.65e-3 in loss and 0.906 in parameters (up-conv padding on the wrong
+#: side).  The gradient norm separates no fault from bf16 rounding.  Each
+#: fault must read BF16_FAULT_MARGIN times a bar or more.
+BF16_STEPS = 3
+BF16_TRAIN_TOL = {"loss": 2.5e-3, "gradient norm": 3e-2, "parameters": 0.55,
+                  "running statistics": 0.017}
+BF16_FAULT_MARGIN = 1.5
 
 
 def fail(message: str) -> None:
@@ -720,6 +755,501 @@ def profile_serving(serve, path: str, loop_seconds: float) -> None:
     sys.stdout.flush()
 
 
+def unet_256_train_config(channels=None) -> dict:
+    """``unet_256_train``: the JAX package's headline training step
+    (``bench.py``, ``_unet_step_setup``): ``UNet(img_ch=3, output_ch=1,
+    depth=4)`` with the default channels 64 -> 1024, SGD with momentum 0.9
+    at lr 1e-3 (here under the COVID-QU U-Net config's poly decay), Dice
+    loss; the metric that config logs, Dice at 0.5.  *channels* cuts the
+    width and depth."""
+    arch = {"in_channel_size": 3, "out_channel_size": 1, "depth": 4}
+    if channels:
+        arch.update(channels=tuple(channels), depth=len(channels) - 1)
+    return {
+        "model": {"segmentation.models.UNet": {"architecture": arch}},
+        "training": {
+            "optimizer": {"sgd": {"momentum": 0.9, "learning_rate": {
+                "optim.scheduler.PolyLearningRateDecay": {
+                    "base": 1e-3, "exponent": 0.9,
+                    "iteration_unit": "batch",
+                    "number_of_iterations": "auto"}}}},
+            "loss": {"segmentation.losses.DiceLoss": {}}},
+        "metrics": {"metrics": ("metrics.DiceIndex",)},
+    }
+
+
+def build_trainer(cfg: dict, device, seed: int = 0,
+                  batches_per_epoch: int = 1000):
+    """The framework's own objects from a config: ``Model`` with its
+    kaiming-normal ``weight_init``, ``Loss(DiceLoss)``, the ``sgd``
+    ``Optimizer`` with its schedule, ``MetricsCalculator``,
+    ``TrainState`` and ``make_train_step``.  Returns (model, state,
+    calculator, step)."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
+    from medsegpretrainimagenet_tpu_torch.losses import Loss
+    from medsegpretrainimagenet_tpu_torch.metrics import MetricsCalculator
+    from medsegpretrainimagenet_tpu_torch.models import Model
+    from medsegpretrainimagenet_tpu_torch.optim import Optimizer
+    from medsegpretrainimagenet_tpu_torch.train import (TrainState,
+                                                        make_train_step)
+
+    cd = ConfigDict(cfg)
+    cd.expand()
+    for key in ("model", "training/loss"):
+        registry.fill_spec(cd, key)
+    model_cfg = cd["model"].value()
+    Model.fill_weight_init_kwargs(model_cfg)
+    model = registry.build(cd, key="model", wrapper=Model)
+    model.init(seed)
+    model.init_weight(model_cfg, torch.Generator().manual_seed(seed + 1))
+    model.module.to(device)
+    optimizer = Optimizer(cd["training/optimizer"], num_epochs=1,
+                          batches_per_epoch=batches_per_epoch)
+    state = TrainState.create(model.module, optimizer.init(model.module),
+                              seed)
+    loss = registry.build(cd, key="training/loss", wrapper=Loss)
+    calculator = MetricsCalculator(cd, loss=loss)
+    return model, state, calculator, make_train_step(model, loss, calculator,
+                                                     optimizer)
+
+
+def segmentation_batch(n_frag: int, frag_bs: int, size: int, seed: int):
+    """A learnable synthetic batch stack: uint8 images with bright discs
+    over noise, the discs as the mask; (n_frag, frag_bs, size, size, 3)
+    and (n_frag, frag_bs, size, size)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size]
+    mask = np.zeros((n_frag * frag_bs, size, size), np.uint8)
+    for m in mask:
+        for _ in range(3):
+            cy, cx = rng.integers(0, size, 2)
+            r = rng.integers(size // 16, size // 5)
+            m[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = 1
+    img = np.clip(60 + 120 * mask + rng.normal(0, 25, mask.shape), 0, 255)
+    x = np.repeat(img.astype(np.uint8)[..., None], 3, axis=-1)
+    return {"x": torch.from_numpy(x.reshape((n_frag, frag_bs) + x.shape[1:])),
+            "mask": torch.from_numpy(mask.reshape((n_frag, frag_bs)
+                                                  + mask.shape[1:]))}
+
+
+def phase_train_small():
+    """(a) A small float32 U-Net (depth 2, channels 8-16-32, BatchNorm),
+    three steps of two fragments of 2 at 64 x 64, on the card and on the
+    CPU from the same weights: loss, parameters and running statistics
+    within TRAIN_TOL, TF32 off."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = unet_256_train_config(channels=(8, 16, 32))
+    runs = []
+    for device in ("cpu", "cuda"):
+        model, state, calculator, step = build_trainer(cfg, device)
+        metrics_state = calculator.init_state(device)
+        losses = []
+        for k in range(3):
+            batch = {key: v.to(device) for key, v in
+                     segmentation_batch(2, 2, 64, seed=k).items()}
+            state, metrics_state, per_batch = step(state, metrics_state,
+                                                   batch)
+            losses.append(per_batch["dice_loss"].item())
+        runs.append((losses, {k: v.double().cpu() for k, v in
+                              model.module.state_dict().items()}))
+    (cpu_losses, cpu_state), (losses, state) = runs
+    loss_err = max(abs(a - b) for a, b in zip(losses, cpu_losses))
+    state_err = {k: (v - cpu_state[k]).abs().max().item()
+                 for k, v in state.items()}
+    worst = max(state_err, key=state_err.get)
+    stats_err = max(v for k, v in state_err.items() if "running" in k)
+    check(loss_err < TRAIN_TOL and state_err[worst] < TRAIN_TOL,
+          f"small f32 train step, card vs CPU: loss {loss_err}, "
+          f"{worst} {state_err[worst]} (bar {TRAIN_TOL})")
+    print(f"[train] small f32 U-Net, 3 steps of 2 fragments of 2 at 64x64, "
+          f"card vs CPU: max |diff| loss {loss_err:.3g}, parameters and "
+          f"running statistics {state_err[worst]:.3g} (running statistics "
+          f"{stats_err:.3g}; bar {TRAIN_TOL})", flush=True)
+
+
+def _trained_look(module, seed: int) -> None:
+    """Draw every bias and BatchNorm scale from a seeded generator, in
+    place: the initial ones (biases 0, scales 1) hide a dropped bias or a
+    swapped scale for the first steps, as a trained checkpoint would
+    not."""
+    import torch
+
+    generator = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith(".bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=generator))
+            elif ".BatchNorm_" in name:
+                p.copy_(1 + 0.1 * torch.randn(p.shape, generator=generator))
+
+
+def _bf16_stats_batch_norm(self, x):
+    """A faulty BatchNorm forward: the batch statistics taken in bf16, the
+    variance by the one-pass E[x^2] - E[x]^2."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.models.blocks import compute_dtype
+
+    dtype = compute_dtype() or torch.float32
+    x = x.to(dtype)
+    mean = x.mean((0, 1, 2), dtype=torch.bfloat16)
+    var = ((x * x).mean((0, 1, 2), dtype=torch.bfloat16)
+           - mean * mean).float().clamp_min(0)
+    mean = mean.float()
+    n = x.numel() // x.shape[-1]
+    with torch.no_grad():
+        self.num_batches_tracked.add_(1)
+        self.running_mean.lerp_(mean, self.momentum)
+        self.running_var.lerp_(var * n / (n - 1), self.momentum)
+    y = (x.float() - mean) * torch.rsqrt(var + self.eps) * self.weight \
+        + self.bias
+    return y.to(dtype)
+
+
+def phase_train_bf16(seed: int = 0):
+    """unet_256_train at full width in bf16 against the same port in
+    float32 with TF32 off: BF16_STEPS steps from the same weights (biases
+    and BatchNorm scales drawn, see _trained_look) on the same batch; the
+    relative |bf16 - f32| of the losses, the gradient norms and the worst
+    leaves' change within BF16_TRAIN_TOL.  The same comparison of three
+    faulty bf16 runs (batch statistics taken in bf16, the conv bias
+    dropped, the up-conv's SAME padding on the wrong side) must read
+    BF16_FAULT_MARGIN times a bar or more, so the bars sit between sound
+    and faulty."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    from medsegpretrainimagenet_tpu_torch.models import blocks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    batch = {k: v.cuda() for k, v in segmentation_batch(
+        1, TRAIN_BATCH, TRAIN_SIZE, seed=seed).items()}
+    conv2d, axis_pads = F.conv2d, blocks._axis_pads
+
+    def run(dtype, fault=contextlib.nullcontext()):
+        blocks.set_compute_dtype(dtype)
+        try:
+            model, state, calculator, step = build_trainer(
+                unet_256_train_config(), "cuda")
+            _trained_look(model.module, seed=seed + 7)
+            start = {k: v.double() for k, v in
+                     model.module.state_dict().items() if v.is_floating_point()}
+            metrics_state = calculator.init_state("cuda")
+            logs = []
+            with fault:
+                for _ in range(BF16_STEPS):
+                    state, metrics_state, per_batch = step(
+                        state, metrics_state, batch)
+                    logs.append((per_batch["dice_loss"],
+                                 per_batch["gradient_magnitude"]))
+            end = model.module.state_dict()
+            return {"loss": torch.stack([a for a, _ in logs]).double().cpu(),
+                    "norm": torch.stack([b for _, b in logs]).double().cpu(),
+                    "delta": {k: end[k].double() - v
+                              for k, v in start.items()
+                              if not re.search(r"\.Conv_\d+\.bias$", k)}}
+        finally:
+            blocks.set_compute_dtype(None)
+
+    def readings(run_, ref):
+        """Relative |run_ - ref| per quantity, and the worst leaf of each
+        leaf family."""
+        def rel(a, b):
+            return ((a - b).norm() / b.norm()).item()
+        read = {"loss": ((run_["loss"] - ref["loss"]).abs()
+                         / ref["loss"].abs()).max().item(),
+                "gradient norm": ((run_["norm"] - ref["norm"]).abs()
+                                  / ref["norm"]).max().item()}
+        worst = {}
+        for family, stats_ in (("parameters", False),
+                               ("running statistics", True)):
+            leaves = {k: rel(d, ref["delta"][k])
+                      for k, d in run_["delta"].items()
+                      if ("running_" in k) == stats_
+                      and ref["delta"][k].norm() > 0}
+            worst[family] = max(leaves, key=leaves.get)
+            read[family] = leaves[worst[family]]
+        return read, worst
+
+    t0 = time.perf_counter()
+    ref = run(None)
+    sound, worst = readings(run(torch.bfloat16), ref)
+    print(f"[train bf16] unet_256_train, {BF16_STEPS} steps bf16 vs f32 "
+          f"(TF32 off) from the same weights and batch (seed {seed}): "
+          f"relative |diff| "
+          + ", ".join(f"{k} {v:.3g} (bar {BF16_TRAIN_TOL[k]})"
+                      for k, v in sound.items()) + f"; worst {worst}",
+          flush=True)
+    faults = {
+        "batch statistics taken in bf16": mock.patch.object(
+            blocks.BatchNorm, "forward", _bf16_stats_batch_norm),
+        "conv bias dropped": mock.patch.object(
+            F, "conv2d", lambda x, w, b=None, *a, **k: conv2d(x, w, None,
+                                                               *a, **k)),
+        "up-conv SAME padding on the wrong side": mock.patch.object(
+            blocks, "_axis_pads", lambda padding, *a: tuple(
+                (hi, lo) for lo, hi in axis_pads(padding, *a))
+            if padding == "SAME" else axis_pads(padding, *a)),
+    }
+    caught = {}
+    for name, fault in faults.items():
+        read, worst = readings(run(torch.bfloat16, fault), ref)
+        caught[name] = max(read[k] / BF16_TRAIN_TOL[k] for k in read)
+        print(f"[train bf16] fault '{name}': "
+              + ", ".join(f"{k} {v:.3g}" for k, v in read.items())
+              + f"; worst {worst}; {caught[name]:.3g} x its bar",
+              flush=True)
+    torch.cuda.empty_cache()
+    print(f"[train bf16] {time.perf_counter() - t0:.1f} s", flush=True)
+    check(all(sound[k] < BF16_TRAIN_TOL[k] for k in sound),
+          f"unet_256_train bf16 vs f32: {sound} (bars {BF16_TRAIN_TOL})")
+    check(all(v >= BF16_FAULT_MARGIN for v in caught.values()),
+          f"a fault reads under {BF16_FAULT_MARGIN} x the bf16 bars: "
+          f"{caught}")
+
+
+def conv_macs(module, x) -> tuple:
+    """Multiply-adds of one forward of *module* on *x*, summed over the
+    port's convolutions from their output shapes: (all convolutions, the
+    convolutions whose input is *x*, which need no input gradient)."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.models.blocks import Conv
+
+    counts = [0, 0]
+    module.eval()  # no running-statistics update; the step sets train()
+
+    def hook(conv, args, out):
+        macs = out.numel() * conv.weight[0].numel()
+        counts[0] += macs
+        if args[0] is x:
+            counts[1] += macs
+
+    handles = [m.register_forward_hook(hook) for m in module.modules()
+               if isinstance(m, Conv)]
+    try:
+        with torch.no_grad():
+            module(x)
+    finally:
+        for h in handles:
+            h.remove()
+    return tuple(counts)
+
+
+#: kernel-name fragments -> the group they belong to in the train step's
+#: breakdown; the first match wins
+_TRAIN_GROUPS = (
+    ("nchwtonhwc", "layout transforms"), ("nhwctonchw", "layout transforms"),
+    ("transpose", "layout transforms"),
+    ("batch_norm", "BatchNorm"), ("batchnorm", "BatchNorm"),
+    ("bn_fw", "BatchNorm"), ("bn_bw", "BatchNorm"),
+    ("max_pool", "pooling/upsample"), ("upsample", "pooling/upsample"),
+    ("multi_tensor_apply", "optimizer, grad mean and norm (foreach)"),
+    ("reduce_kernel", "reductions: conv bias grads, loss, metrics"),
+    ("catarraybatchedcopy", "concat"),
+    ("xmma", "convs (cuDNN)"), ("conv", "convs (cuDNN)"),
+    ("wgrad", "convs (cuDNN)"), ("dgrad", "convs (cuDNN)"),
+    ("gemm", "convs (cuDNN)"), ("cutlass", "convs (cuDNN)"),
+    ("cudnn", "convs (cuDNN)"), ("winograd", "convs (cuDNN)"),
+    ("elementwise", "elementwise: conv bias adds, ReLU, casts, copies"),
+    ("copy", "elementwise: conv bias adds, ReLU, casts, copies"),
+    ("fill", "elementwise: conv bias adds, ReLU, casts, copies"))
+
+
+def profile_train(run_steps, steps: int, wall_ms: float,
+                  tag: str = "train") -> None:
+    """Device time per train step by kernel group and by operator, from
+    torch.profiler over *steps* steps.  The busy share is the device time
+    over the wall time of the same profiled steps; *wall_ms*, the median
+    wall time of a step in the unprofiled turns, is printed beside it.
+    Lines start with ``[profile <tag>]``."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_steps(steps)
+        torch.cuda.synchronize()
+        profiled_ms = 1e3 * (time.perf_counter() - t0) / steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.device_time_total]
+    check(bool(kernels), f"[profile {tag}] the profiler recorded no "
+                         f"kernels")
+    busy = sum(e.device_time_total for e in kernels) / 1e3 / steps
+    launches = sum(e.count for e in kernels) / steps
+    print(f"[profile {tag}] per step: device busy {busy:.3f} ms of "
+          f"{profiled_ms:.3f} ms wall in the profiled steps "
+          f"({100 * busy / profiled_ms:.1f} %; unprofiled {wall_ms:.3f} ms),"
+          f" {launches:.0f} kernel launches")
+    groups = {}
+    for e in kernels:
+        name = e.key.lower()
+        group = next((g for frag, g in _TRAIN_GROUPS if frag in name),
+                     "other")
+        groups[group] = groups.get(group, 0.0) \
+            + e.device_time_total / 1e3 / steps
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"[profile {tag}]   {group}: {ms:.3f} ms/step "
+              f"({100 * ms / busy:.1f} %)")
+    for e in sorted(kernels, key=lambda e: -e.device_time_total)[:15]:
+        print(f"[profile {tag}]   {e.device_time_total / 1e3 / steps:7.3f} "
+              f"ms/step {e.count / steps:5.1f}x {e.key[:160]}")
+    # the same device time by the operator that launched it
+    ops = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CPU and e.self_device_time_total]
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:20]:
+        print(f"[profile {tag} op]   "
+              f"{e.self_device_time_total / 1e3 / steps:7.3f} ms/step "
+              f"{e.count / steps:5.1f}x {e.key}")
+    sys.stdout.flush()
+
+
+def phase_train_full():
+    """(b) and (c): unet_256_train at full width in bf16."""
+    import statistics as stats
+
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.models import blocks
+
+    torch.backends.cudnn.benchmark = True
+    blocks.set_compute_dtype(torch.bfloat16)
+    try:
+        model, state, calculator, step = build_trainer(
+            unet_256_train_config(), "cuda")
+        n_params = sum(p.numel() for p in model.module.parameters())
+        check(n_params == 31_080_449, f"unet_256_train has {n_params} "
+                                      f"parameters")
+        batch = {k: v.cuda() for k, v in segmentation_batch(
+            1, TRAIN_BATCH, TRAIN_SIZE, seed=0).items()}
+        x0 = (batch["x"][0, :1].float() / 255.0)
+        macs, first_macs = conv_macs(model.module, x0)
+        # forward, weight gradients, and input gradients of every conv but
+        # those fed the image: 2 operations per multiply-add
+        flops = 2 * TRAIN_BATCH * (3 * macs - first_macs)
+        bound_ms = 1e3 * flops / PEAK_OPS_PER_S["torch.bfloat16"]
+        print(f"[train] unet_256_train: {n_params} parameters, forward "
+              f"{macs / 1e9:.2f} GMAC per image, train step "
+              f"{flops / 1e12:.3f} TFLOP at batch {TRAIN_BATCH}: bound "
+              f"{bound_ms:.3f} ms (operations, bf16 at 989 TFLOP/s)",
+              flush=True)
+
+        metrics_state = calculator.init_state("cuda")
+        log = {"dice_loss": [], "gradient_magnitude": []}
+
+        def run_steps(n, stack=batch):
+            nonlocal state, metrics_state
+            for _ in range(n):
+                state, metrics_state, per_batch = step(state, metrics_state,
+                                                       stack)
+                for key in log:
+                    log[key].append(per_batch[key])
+
+        t0 = time.perf_counter()
+        run_steps(3)  # cuDNN autotuning, allocator warm-up
+        torch.cuda.synchronize()
+        print(f"[train] warm-up, 3 steps: {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        bn = model.module.enc.level_convs[0][0].BatchNorm_0
+        stats_before = bn.running_mean.clone(), bn.running_var.clone()
+        for values in log.values():
+            values.clear()
+        torch.cuda.reset_peak_memory_stats()
+        turns = []
+        for _ in range(TURNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # any synchronising call inside a step raises here
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                run_steps(TURN_STEPS)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            turns.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated()
+        losses = torch.stack(log["dice_loss"]).cpu()
+        norms = torch.stack(log["gradient_magnitude"]).cpu()
+        moved = not (torch.equal(bn.running_mean, stats_before[0])
+                     and torch.equal(bn.running_var, stats_before[1]))
+        n = len(losses)
+        check(bool(torch.isfinite(losses).all())
+              and bool(losses[29] < losses[0]),
+              f"unet_256_train losses: step 1 {losses[0].item()}, step 30 "
+              f"{losses[29].item()}, all finite "
+              f"{bool(torch.isfinite(losses).all())}")
+        check(bool(torch.isfinite(norms).all()) and moved,
+              f"unet_256_train: gradient norms finite "
+              f"{bool(torch.isfinite(norms).all())}, running statistics "
+              f"moved {moved}")
+        step_ms = [1e3 * t / TURN_STEPS for t in turns]
+        rates = [TRAIN_BATCH * TURN_STEPS / t for t in turns]
+        wall_ms = stats.median(step_ms)
+        print(f"[train] unet_256_train bf16, batch {TRAIN_BATCH}, "
+              f"{TRAIN_SIZE}x{TRAIN_SIZE}, {n} steps on one batch with no "
+              f"host sync queued (sync debug mode 'error'): dice loss step 1 "
+              f"{losses[0].item():.4f}, step 30 {losses[29].item():.4f}, "
+              f"step {n} {losses[-1].item():.4f}; gradient norm "
+              f"{norms[0].item():.4g} -> {norms[-1].item():.4g}; running "
+              f"statistics moved", flush=True)
+        print(f"[train] images/s: median {stats.median(rates):.1f} of "
+              f"{[round(r, 1) for r in sorted(rates)]} ({TURNS} turns of "
+              f"{TURN_STEPS} steps); {wall_ms:.3f} ms per step, "
+              f"{100 * bound_ms / wall_ms:.1f} % of the {bound_ms:.3f} ms "
+              f"bound; peak memory {peak / 2 ** 30:.2f} GiB", flush=True)
+        profile_train(run_steps, 5, wall_ms)
+
+        # two fragments of 8: accumulation at full width, in turns
+        split = {k: v.reshape((2, TRAIN_BATCH // 2) + v.shape[2:])
+                 for k, v in batch.items()}
+        run_steps(2, split)  # autotuning of the batch-8 shapes
+        split_rates = []
+        for _ in range(TURNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                run_steps(TURN_STEPS, split)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            split_rates.append(TRAIN_BATCH * TURN_STEPS
+                               / (time.perf_counter() - t0))
+        tail = torch.stack(log["dice_loss"][-TURNS * TURN_STEPS:]).cpu()
+        check(bool(torch.isfinite(tail).all()),
+              f"two-fragment losses {tail.tolist()}")
+        split_rate = stats.median(split_rates)
+        print(f"[train] two fragments of {TRAIN_BATCH // 2}, {TURNS} turns "
+              f"of {TURN_STEPS} steps, no host sync: median "
+              f"{split_rate:.1f} images/s of "
+              f"{[round(r, 1) for r in sorted(split_rates)]}; dice loss "
+              f"{tail[0].item():.4f} -> {tail[-1].item():.4f}", flush=True)
+        profile_train(lambda n: run_steps(n, split), 5,
+                      1e3 * TRAIN_BATCH / split_rate, tag="train 2x8")
+        values = calculator.finalize_epoch(metrics_state)
+        check(all(math.isfinite(v) for v in values.values()),
+              f"epoch metrics {values}")
+        print(f"[train] epoch row over all {state.step} steps: {values}",
+              flush=True)
+    finally:
+        blocks.set_compute_dtype(None)
+
+
 def main() -> int:
     if not (ROOT / "medsegpretrainimagenet_tpu_torch").is_dir():
         fail("run from a checkout: the package medsegpretrainimagenet_tpu_"
@@ -741,6 +1271,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase_small_vs_cpu()
         k1_launches, k2_launches = phase_serve(Path(tmp))
+    phase_train_small()
+    phase_train_bf16()
+    phase_train_full()
 
     # per kernel: the 14 calls of one bf16 forward at batch 24, summed,
     # L2-cold (warm_ms: the same calls on warm inputs); launches from its

@@ -39,6 +39,8 @@ _LOCK = threading.Lock()
 #: modules whose import registers the port's components
 _COMPONENT_MODULES = (
     "medsegpretrainimagenet_tpu_torch.models",
+    "medsegpretrainimagenet_tpu_torch.losses",
+    "medsegpretrainimagenet_tpu_torch.optim",
 )
 
 

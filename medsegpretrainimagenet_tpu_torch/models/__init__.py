@@ -1,5 +1,5 @@
-"""Model zoo of the port: the Swin U-Net's blocks, the generic U-Net and
-the Model wrapper."""
+"""Model zoo of the port: the conv U-Net's and the Swin U-Net's blocks, the
+generic U-Net and the Model wrapper."""
 from . import activations  # noqa: F401  (registers activation components)
 from . import blocks  # noqa: F401
 from .swin import (DoubleSwinTransformerBlock, FinalPatchExpand_X4,  # noqa: F401

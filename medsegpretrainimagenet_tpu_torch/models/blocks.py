@@ -1,22 +1,31 @@
-"""Building blocks on the Swin U-Net's path: the port of ``models/blocks.py``.
+"""Building blocks of the U-Nets: the port of ``models/blocks.py``.
 
 Layout is the JAX package's: NHWC images and (B, L, C) token sequences,
 "channel" always the last axis.  Submodules carry the names of the flax
-parameter paths (``Dense_0``, ``LayerNorm_0``, ...), so a JAX checkpoint
-maps onto a state dict key by key (``transfer.state_dict_from_jax``).
+parameter paths (``Dense_0``, ``Conv_0``, ``BatchNorm_0``, ...), so a JAX
+checkpoint maps onto a state dict key by key
+(``transfer.state_dict_from_jax``).  The ``torch.nn.*`` aliases the
+configs name (``Conv2d``, ``MaxPool2d``, ``Upsample``) are modules of
+their own with the JAX package's semantics, not torch's layers.
 
 Mixed precision follows flax's ``dtype=`` convention rather than
 ``torch.autocast``: parameters stay float32 masters, a :class:`Dense` or
 :class:`Conv` casts its input and weights to the compute dtype and returns
-that dtype, and :class:`LayerNorm` computes its statistics *and output* in
+that dtype, :class:`LayerNorm` computes its statistics *and output* in
 float32 whatever its input, as flax's LayerNorm with float32 parameters
-does.
+does, and :class:`BatchNorm` takes and returns the compute dtype with
+float32 statistics and parameters.
+
+On the card every 4-D activation is an NHWC tensor whose NCHW view is
+channels-last in memory: convolutions, BatchNorm, pooling and upsampling
+run on that view, which cuDNN and PyTorch's channels-last kernels take
+without a layout copy.
 """
 from __future__ import annotations
 
 import inspect
 import math
-from typing import Any, Optional
+from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -24,12 +33,15 @@ from torch import nn
 
 from ..config import ConfigDict, register
 from ..config.registry import fill_spec, get_kwargs, resolve
+from .activations import fill_activation_spec, make_activation
 from .init import lecun_normal_
 
 __all__ = [
     "set_compute_dtype", "compute_dtype", "Dense", "Conv", "LayerNorm",
-    "make_layer_norm", "drop_path", "Identity", "ConcatLinearBlock",
-    "mixing_out_channels", "block_accepts", "make_block_builder",
+    "make_layer_norm", "drop_path", "Identity", "Conv2d", "MaxPool2d",
+    "Upsample", "BatchNorm", "ConvBlock", "UpConvBlock", "ConcatBlock",
+    "ConcatLinearBlock", "set_dropout_generator", "mixing_out_channels",
+    "block_accepts", "make_block_builder",
 ]
 
 _COMPUTE_DTYPE = [None]  # None -> float32 compute with float32 parameters
@@ -74,17 +86,62 @@ class Dense(nn.Module):
         return F.linear(*_cast(x, self.weight, self.bias))
 
 
+def _pair(v) -> Tuple[int, int]:
+    if isinstance(v, (tuple, list)):
+        return tuple(v)
+    return (v, v)
+
+
+def _padding(pad) -> Union[str, Tuple[Tuple[int, int], Tuple[int, int]]]:
+    """Torch-style padding specs as the JAX package reads them: "SAME",
+    "VALID", or ((lo, hi), (lo, hi)) per spatial axis."""
+    if pad in ("same", "SAME"):
+        return "SAME"
+    if pad in ("valid", "VALID"):
+        return "VALID"
+    if isinstance(pad, int):
+        return ((pad, pad), (pad, pad))
+    if isinstance(pad, (tuple, list)):
+        return tuple((p, p) for p in pad)
+    raise ValueError(f"Unsupported padding {pad!r}")
+
+
+def _axis_pads(padding, size: Sequence[int], kernel: Sequence[int],
+               stride: Sequence[int], dilation: Sequence[int]):
+    """(lo, hi) per spatial axis.  "SAME" is lax's: out = ceil(size /
+    stride), the excess split with the odd element at the end, so an even
+    kernel at stride 1 pads (k/2 - 1, k/2)."""
+    if padding == "VALID":
+        return ((0, 0), (0, 0))
+    if padding != "SAME":
+        return padding
+    pads = []
+    for n, k, s, d in zip(size, kernel, stride, dilation):
+        total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return tuple(pads)
+
+
 class Conv(nn.Module):
-    """flax ``nn.Conv`` on NHWC input, VALID padding; weight stored
-    torch-style as (out, in, kh, kw)."""
+    """flax ``nn.Conv`` on NHWC input; weight stored torch-style as (out,
+    in / groups, kh, kw).  *padding* is "VALID" (the default), "SAME" or
+    ((lo, hi), (lo, hi)) per axis; an asymmetric one ("SAME" with an even
+    kernel) is an explicit zero padding of the input."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 1, stride: int = 1,
-                 use_bias: bool = True):
+                 kernel_size: Union[int, Tuple[int, int]] = 1,
+                 stride: Union[int, Tuple[int, int]] = 1,
+                 use_bias: bool = True, padding: Any = "VALID",
+                 dilation: Union[int, Tuple[int, int]] = 1,
+                 groups: int = 1):
         super().__init__()
-        self.stride = stride
+        self.kernel_size = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.dilation = _pair(dilation)
+        self.padding = padding
+        self.groups = groups
         self.weight = nn.Parameter(torch.empty(
-            out_channels, in_channels, kernel_size, kernel_size))
+            out_channels, in_channels // groups, *self.kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels)) if use_bias \
             else None
         self.reset_parameters()
@@ -96,11 +153,23 @@ class Conv(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, weight, bias = _cast(x, self.weight, self.bias)
+        dtype = compute_dtype() or torch.promote_types(x.dtype, torch.float32)
         # the NCHW view of an NHWC tensor is channels-last in memory, which
-        # cuDNN convolves without a layout copy
-        y = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride=self.stride)
-        return y.permute(0, 2, 3, 1)
+        # cuDNN convolves without a layout copy; the weight is cast into
+        # that format in the same copy as into the compute dtype
+        x = x.to(dtype).permute(0, 3, 1, 2)
+        weight = self.weight.to(dtype, memory_format=torch.channels_last)
+        bias = None if self.bias is None else self.bias.to(dtype)
+        pads = _axis_pads(self.padding, x.shape[2:], self.kernel_size,
+                          self.stride, self.dilation)
+        if all(lo == hi for lo, hi in pads):
+            padding = tuple(lo for lo, _ in pads)
+        else:
+            (top, bottom), (left, right) = pads
+            x, padding = F.pad(x, (left, right, top, bottom)), 0
+        return F.conv2d(x, weight, bias, stride=self.stride, padding=padding,
+                        dilation=self.dilation,
+                        groups=self.groups).permute(0, 2, 3, 1)
 
 
 class LayerNorm(nn.Module):
@@ -138,6 +207,16 @@ def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
+def set_dropout_generator(module: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Point every dropout of *module* at *generator*, a generator on the
+    activations' device (None: the default generator).  The train step
+    sets one per fragment, derived from the state's seed and step."""
+    for sub in module.modules():
+        if isinstance(sub, ConvBlock):
+            sub.generator = generator
+
+
 @register("torch.nn.Identity", "identity")
 class Identity(nn.Module):
     def __init__(self):
@@ -153,6 +232,227 @@ def _cat(tensors, dim: int = -1) -> torch.Tensor:
     for t in tensors[1:]:
         dtype = torch.promote_types(dtype, t.dtype)
     return torch.cat([t.to(dtype) for t in tensors], dim=dim)
+
+
+# ---------------------------------------------------------------------------
+# torch.nn.* layer aliases (so the configs run unchanged)
+# ---------------------------------------------------------------------------
+
+@register("torch.nn.Conv2d", "nn.Conv2d", "conv2d")
+class Conv2d(nn.Module):
+    """The JAX package's ``Conv2d``: a flax ``nn.Conv`` (parameters under
+    ``Conv_0``) with torch's argument names; padding as ``_padding``
+    reads it, so ``"same"`` is lax's SAME."""
+
+    def __init__(self, in_channels: int = 0, out_channels: int = 0,
+                 kernel_size: Union[int, Tuple[int, int]] = 3,
+                 stride: Union[int, Tuple[int, int]] = 1, padding: Any = 0,
+                 bias: bool = True, groups: int = 1,
+                 dilation: Union[int, Tuple[int, int]] = 1):
+        super().__init__()
+        self.Conv_0 = Conv(in_channels, out_channels, kernel_size,
+                           stride=stride, use_bias=bias,
+                           padding=_padding(padding), dilation=dilation,
+                           groups=groups)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Conv_0(x)
+
+
+@register("torch.nn.MaxPool2d", "max_pool2d")
+class MaxPool2d(nn.Module):
+    """Max pooling over H and W of an NHWC tensor; the stride defaults to
+    the window, padding (with -inf) as ``_padding`` reads it."""
+
+    def __init__(self, kernel_size: Union[int, Tuple[int, int]] = 2,
+                 stride: Optional[Union[int, Tuple[int, int]]] = None,
+                 padding: Any = 0):
+        super().__init__()
+        self.kernel_size = _pair(kernel_size)
+        self.stride = _pair(stride) if stride is not None \
+            else self.kernel_size
+        self.padding = "VALID" if padding == 0 else _padding(padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (top, bottom), (left, right) = _axis_pads(
+            self.padding, x.shape[1:3], self.kernel_size, self.stride,
+            (1, 1))
+        x = x.permute(0, 3, 1, 2)
+        if (top, left) != (bottom, right):
+            x = F.pad(x, (left, right, top, bottom), value=-math.inf)
+            top = left = 0
+        return F.max_pool2d(x, self.kernel_size, self.stride,
+                            padding=(top, left)).permute(0, 2, 3, 1)
+
+
+@register("torch.nn.Upsample", "upsample")
+class Upsample(nn.Module):
+    """Nearest-neighbour upsampling of H and W by an integer factor (the
+    JAX package's ``jnp.repeat`` on both axes)."""
+
+    def __init__(self, scale_factor: int = 2):
+        super().__init__()
+        self.scale_factor = int(scale_factor)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.interpolate(x.permute(0, 3, 1, 2),
+                             scale_factor=self.scale_factor,
+                             mode="nearest").permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# core conv blocks
+# ---------------------------------------------------------------------------
+
+class BatchNorm(nn.Module):
+    """The JAX package's ``TorchBatchNorm`` (``_batch_norm``): batch
+    statistics in train mode, running statistics in eval mode, epsilon
+    1e-5, the running averages updated with weight 0.1 on the batch
+    (flax's momentum 0.9) and the *unbiased* batch variance, as torch
+    does.  The input is cast to the compute dtype and the output has it;
+    statistics, scale and bias stay float32."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.empty(num_features))
+        self.bias = nn.Parameter(torch.empty(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.long))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+        with torch.no_grad():
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+            self.num_batches_tracked.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = compute_dtype() or torch.promote_types(x.dtype, torch.float32)
+        if self.training:
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x.to(dtype).permute(0, 3, 1, 2),
+                            self.running_mean, self.running_var,
+                            self.weight, self.bias, training=self.training,
+                            momentum=self.momentum,
+                            eps=self.eps).permute(0, 2, 3, 1)
+
+
+def _dropout2d(x: torch.Tensor, rate: float,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """torch's ``Dropout2d`` on NHWC: whole feature maps drop per (sample,
+    channel), the kept ones scaled by 1 / (1 - rate)."""
+    keep = 1.0 - rate
+    mask = torch.rand((x.shape[0], 1, 1, x.shape[-1]), device=x.device,
+                      generator=generator) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+@register("segmentation.models.blocks.ConvBlock", "conv_block")
+class ConvBlock(nn.Module):
+    """``size`` x (conv k x k -> BN -> act), an optional stride-2 last conv
+    and ``Dropout2d``.  Dropout draws from ``self.generator`` (see
+    :func:`set_dropout_generator`)."""
+
+    PARAMS = {
+        "activations": "relu",
+        "size": 2,
+        "padding": 1,
+        "kernel_size": 3,
+        "dropout": False,
+        "stride": None,
+    }
+    DROPOUT_RATE = 0.5
+
+    @staticmethod
+    def fill_kwargs(config_dict: ConfigDict):
+        fill_activation_spec(config_dict, "activations")
+        if config_dict.get("dropout"):
+            config_dict.get_or_update("dropout/rate", ConvBlock.DROPOUT_RATE)
+
+    def __init__(self, in_channels: int = 0, out_channels: int = 0,
+                 size: int = 2, kernel_size: int = 3, padding: Any = 1,
+                 activations: Any = "relu", dropout: Any = False,
+                 stride: Optional[int] = None,
+                 downsample_in_block: bool = False):
+        super().__init__()
+        self.size = size
+        for i in range(size):
+            downsampling = downsample_in_block and i == size - 1
+            setattr(self, f"Conv_{i}", Conv(
+                in_channels if i == 0 else out_channels, out_channels,
+                kernel_size, stride=stride or (2 if downsampling else 1),
+                padding=_padding(padding)))
+            setattr(self, f"BatchNorm_{i}", BatchNorm(out_channels))
+            setattr(self, f"Activation_{i}", make_activation(activations))
+        self.dropout_rate = 0.0
+        if dropout:
+            self.dropout_rate = self.DROPOUT_RATE \
+                if isinstance(dropout, bool) else float(dropout["rate"])
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.size):
+            x = getattr(self, f"Conv_{i}")(x)
+            x = getattr(self, f"BatchNorm_{i}")(x)
+            x = getattr(self, f"Activation_{i}")(x)
+        if self.dropout_rate and self.training:
+            x = _dropout2d(x, self.dropout_rate, self.generator)
+        return x
+
+
+@register("segmentation.models.blocks.UpConvBlock", "up_conv_block")
+class UpConvBlock(nn.Module):
+    """Upsample (x2 nearest) -> conv with lax SAME padding -> act.  The
+    2 x 2 kernel pads (0, 1) per axis."""
+
+    PARAMS = {
+        "activation": "relu",
+        "kernel_size": 2,
+        "scale_factor": 2,
+    }
+
+    @staticmethod
+    def fill_kwargs(config_dict: ConfigDict):
+        fill_activation_spec(config_dict, "activation")
+
+    def __init__(self, in_channels: int = 0, out_channels: int = 0,
+                 activation: Any = "relu", kernel_size: int = 2,
+                 scale_factor: int = 2, channel_decrease_ratio: float = 0.5):
+        super().__init__()
+        self.Upsample_0 = Upsample(scale_factor)
+        self.Conv_0 = Conv(in_channels, out_channels, kernel_size,
+                           padding="SAME")
+        self.Activation_0 = make_activation(activation)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Activation_0(self.Conv_0(self.Upsample_0(x)))
+
+
+# ---------------------------------------------------------------------------
+# mixing blocks (decoder skip-connection aggregation)
+# ---------------------------------------------------------------------------
+
+@register("segmentation.models.blocks.ConcatBlock", "concatenate")
+class ConcatBlock(nn.Module):
+    """Channel concat of the upsampled path and the skip value."""
+
+    def __init__(self):
+        super().__init__()
+
+    @staticmethod
+    def get_out_ch(x_channels, x_up_channels, skip_channels,
+                   level_out_channels):
+        return x_up_channels + skip_channels
+
+    def forward(self, x, x_up, skip_val):
+        return _cat([x_up, skip_val])
 
 
 @register("segmentation.models.blocks.ConcatLinearBlock",

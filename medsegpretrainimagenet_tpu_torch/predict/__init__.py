@@ -34,20 +34,10 @@ import numpy as np
 import torch
 
 from ..config import ConfigDict, registry
+from ..utils.device import resolve_device
 from ..utils.errors import handle_exception
 
 __all__ = ["predict_from_config", "resolve_device", "main"]
-
-
-def resolve_device(device: Optional[str] = None) -> torch.device:
-    """The card unless the caller names another device; raise when no card
-    is found and none was named."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device found; pass device='cpu' to run "
-                           "on the CPU")
-    return torch.device("cuda")
 
 
 def _to_nhwc(imgs: np.ndarray) -> np.ndarray:

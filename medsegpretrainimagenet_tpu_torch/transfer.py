@@ -8,8 +8,13 @@ mechanical:
   ``Dense_0``, start with a capital and stay as they are);
 * a Dense ``kernel`` (in, out) becomes ``weight`` (out, in);
 * a Conv ``kernel`` HWIO becomes ``weight`` OIHW;
-* a LayerNorm ``scale`` becomes ``weight``;
-* ``bias`` and ``relative_position_bias_table`` are copied as they are.
+* a LayerNorm or BatchNorm ``scale`` becomes ``weight``;
+* ``bias``, ``alpha`` (PReLU) and ``relative_position_bias_table`` are
+  copied as they are;
+* the ``batch_stats`` of a BatchNorm, ``mean`` and ``var``, become its
+  ``running_mean`` and ``running_var`` buffers, and its
+  ``num_batches_tracked`` is filled with 0 (flax keeps no such count), so
+  that a strict ``load_state_dict`` takes the result.
 
 Usage, with the JAX package's ``load_params_file`` for the msgpack file::
 
@@ -30,7 +35,10 @@ __all__ = ["state_dict_from_jax"]
 _LIST_ENTRY = re.compile(r"^([a-z][a-z0-9_]*?)((?:_\d+)+)$")
 
 
-def _torch_name(path) -> str:
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+
+
+def _torch_name(path, stats: bool = False) -> str:
     parts = []
     for part in path[:-1]:
         match = _LIST_ENTRY.match(part)
@@ -40,7 +48,8 @@ def _torch_name(path) -> str:
         else:
             parts.append(part)
     leaf = path[-1]
-    parts.append({"kernel": "weight", "scale": "weight"}.get(leaf, leaf))
+    rename = _STAT_NAMES if stats else {"kernel": "weight", "scale": "weight"}
+    parts.append(rename.get(leaf, leaf))
     return ".".join(parts)
 
 
@@ -64,28 +73,30 @@ def _leaves(tree: Mapping, prefix=()):
 def state_dict_from_jax(variables: Mapping,
                         module: nn.Module) -> Dict[str, torch.Tensor]:
     """Map the JAX package's ``{"params": ..., "batch_stats": ...}`` tree
-    (numpy or jax arrays) onto *module*'s state dict.  Raises KeyError on
-    any key the module lacks or leaves unfilled, ValueError on a shape that
-    does not match."""
+    (numpy or jax arrays) onto *module*'s state dict, buffers included.
+    Raises KeyError on any key the module lacks or leaves unfilled,
+    ValueError on a shape that does not match."""
     if "params" not in variables:
         variables = {"params": variables}
-    if any(True for _ in _leaves(variables.get("batch_stats") or {})):
-        raise NotImplementedError("BatchNorm statistics are not carried "
-                                  "across yet: no module of the port has "
-                                  "them")
     target = module.state_dict()
     out = {}
-    for path, value in _leaves(variables["params"]):
-        name = _torch_name(path)
-        if name not in target:
-            raise KeyError(f"JAX parameter {'/'.join(path)} maps to {name!r},"
-                           f" which the module does not have")
-        tensor = _torch_value(path[-1], value)
-        if tuple(tensor.shape) != tuple(target[name].shape):
-            raise ValueError(f"{'/'.join(path)}: shape {tuple(tensor.shape)}"
-                             f" after mapping, module has "
-                             f"{tuple(target[name].shape)} at {name}")
-        out[name] = tensor
+    for collection in ("params", "batch_stats"):
+        for path, value in _leaves(variables.get(collection) or {}):
+            name = _torch_name(path, stats=collection == "batch_stats")
+            if name not in target:
+                raise KeyError(f"JAX {collection} leaf {'/'.join(path)} maps "
+                               f"to {name!r}, which the module does not "
+                               f"have")
+            tensor = _torch_value(path[-1], value)
+            if tuple(tensor.shape) != tuple(target[name].shape):
+                raise ValueError(f"{'/'.join(path)}: shape "
+                                 f"{tuple(tensor.shape)} after mapping, "
+                                 f"module has {tuple(target[name].shape)} at "
+                                 f"{name}")
+            out[name] = tensor
+    for name, value in target.items():
+        if name.endswith("num_batches_tracked"):
+            out[name] = torch.zeros_like(value)
     missing = sorted(set(target) - set(out))
     if missing:
         raise KeyError(f"the JAX variables fill no value for {missing[:8]}"

@@ -47,6 +47,30 @@ with torch.no_grad():
     ops.set_fused_image_mode("off")
 assert out.shape == (2, 32, 32, 1) and torch.isfinite(out).all()
 assert torch.allclose(fused, out, atol=1e-5)
+# the U-Net trainer: losses, optim, metrics, train step
+from medsegpretrainimagenet_tpu_torch.losses import DiceLoss, Loss
+from medsegpretrainimagenet_tpu_torch.metrics import MetricsCalculator
+from medsegpretrainimagenet_tpu_torch.optim import Optimizer
+from medsegpretrainimagenet_tpu_torch.train import (TrainState,
+                                                    make_train_step)
+cd = ConfigDict({"model": {"segmentation.models.UNet": {"architecture": {
+    "in_channel_size": 3, "out_channel_size": 1, "depth": 1,
+    "channels": (4, 8)}}}})
+cd.expand()
+registry.fill_spec(cd, "model")
+unet = registry.build(cd, key="model", wrapper=Model)
+unet.init(0)
+opt = Optimizer(ConfigDict({"sgd": {}}))
+loss = Loss(DiceLoss)
+calc = MetricsCalculator(ConfigDict({"metrics": {
+    "metrics": ("metrics.DiceIndex",)}}), loss=loss)
+step = make_train_step(unet, loss, calc, opt)
+state = TrainState.create(unet.module, opt.init(unet.module), 0)
+batch = {"x": torch.randint(0, 255, (2, 2, 16, 16, 3), dtype=torch.uint8),
+         "mask": torch.randint(0, 2, (2, 2, 16, 16), dtype=torch.uint8)}
+state, metrics, per_batch = step(state, calc.init_state("cpu"), batch)
+assert torch.isfinite(per_batch["dice_loss"]) and state.step == 1
+assert 0 <= calc.finalize_epoch(metrics)["metrics/dice_index_threshold_0.5"] <= 1
 assert not any(m.split(".")[0] in ("jax", "flax")
                for m, v in sys.modules.items() if v is not None)
 print("OK")

@@ -1,6 +1,7 @@
 """Shared pieces of the tests that hold the PyTorch port against the JAX
-package: one small Swin U-Net configuration, built by either package, and
-weight transplanting from a flax module into its torch counterpart."""
+package: a small Swin U-Net and a small conv U-Net configuration, built by
+either package, and weight transplanting from a flax module into its torch
+counterpart."""
 import jax
 import numpy as np
 import torch
@@ -36,6 +37,16 @@ def model_config(**kwargs):
     """A whole ``model`` config section, as a plain dict."""
     return {"model": {"segmentation.models.UNet": {
         "architecture": swin_unet_architecture(**kwargs)}}}
+
+
+def unet_config(channels=(4, 8, 16), in_channels=3, **architecture):
+    """A whole ``model`` config section of the default conv U-Net
+    (ConvBlock, BatchNorm, max pooling, UpConvBlock, concatenation), as a
+    plain dict; ``depth`` follows the channel ladder."""
+    arch = {"in_channel_size": in_channels, "out_channel_size": 1,
+            "depth": len(channels) - 1, "channels": tuple(channels)}
+    arch.update(architecture)
+    return {"model": {"segmentation.models.UNet": {"architecture": arch}}}
 
 
 def build_model(package_config, registry, model_cls, cfg):
