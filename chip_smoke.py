@@ -35,7 +35,19 @@ falling on a fixed batch, its running statistics
 moving and no host sync queued by the timed steps; it prints images/s, the
 device's busy share and its time per step by kernel group, launches and
 peak memory per step and the share of the operations bound, and runs one
-turn with two fragments of 8.  Any failure exits non-zero.  Without a CUDA
+turn with two fragments of 8.  ``[cli]`` then drives the port's experiment
+CLI as a user runs it, ``python3 -m medsegpretrainimagenet_tpu_torch.cli
+config.yaml`` in a process of its own, on a synthetic COVID-QU tree (1024
+training images of 256 x 256): the full-width CLI config for three epochs,
+then a fourth under ``--continued``.  It checks the run files (every
+``.pt`` loads into the model), the row counts of epoch_logs.csv and
+batch_logs.csv, the columns, the backups, the loss falling and the val
+Dice rising, and that the error envelope printed nothing; it prints the
+epochs' images/s beside ``[train]``'s, the val and checkpoint times and the
+device time per step.  In this process it counts the host syncs of
+``run_epoch`` at two step counts, times host assembly and the copy to the
+card per batch, profiles the device's busy share and runs the test pass.
+Any failure exits non-zero.  Without a CUDA
 card, or without the package beside it, it exits non-zero and prints no
 result.  It imports nothing of JAX.
 
@@ -110,6 +122,14 @@ def fail(message: str) -> None:
 def check(ok: bool, message: str) -> None:
     if not ok:
         fail(message)
+
+
+def timed(name: str, fn, *args):
+    """Run a phase and print its wall time as ``[time] name: s``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def card_line() -> str:
@@ -1119,8 +1139,9 @@ def profile_train(run_steps, steps: int, wall_ms: float,
     sys.stdout.flush()
 
 
-def phase_train_full():
-    """(b) and (c): unet_256_train at full width in bf16."""
+def phase_train_full() -> float:
+    """(b) and (c): unet_256_train at full width in bf16.  Returns the
+    median images/s of the one-fragment turns."""
     import statistics as stats
 
     import torch
@@ -1246,8 +1267,373 @@ def phase_train_full():
               f"epoch metrics {values}")
         print(f"[train] epoch row over all {state.step} steps: {values}",
               flush=True)
+        return stats.median(rates)
     finally:
         blocks.set_compute_dtype(None)
+
+
+#: the [cli] run: COVID-QU-shaped synthetic data, 1024 training images (64
+#: steps of 16 per epoch) and 16 test images (the val split under
+#: validate_on_test), 3 epochs, then a 4th under --continued
+CLI_IMAGES, CLI_TEST, CLI_EPOCHS, CLI_SIZE, CLI_BATCH = 1024, 16, 3, 256, 16
+#: epoch_logs.csv's columns for Dice loss and metrics.DiceIndex, the JAX
+#: CLI's set (tests/test_torch_cli.py holds the two CLIs' sets equal)
+CLI_EPOCH_COLUMNS = {"epoch", "learning_rate", "dice_loss",
+                     "metrics/dice_index_threshold_0.5", "val_dice_loss",
+                     "val_metrics/dice_index_threshold_0.5"}
+#: what a failed batch, epoch, run or experiment prints through the error
+#: envelope
+ENVELOPE_MARKS = ("Exception occured", "Traceback")
+
+
+def cli_config(workdir: Path, epochs: int, absolute_path=None) -> dict:
+    """The port's counterpart of the JAX package's CLI-epoch config
+    (``bench.py:1072-1109``): UNet depth 4 with the default channels 64 ->
+    1024, 256 x 256, batch 16, bf16, async checkpoints, profiling, Dice loss
+    and metrics.DiceIndex, SGD momentum 0.9 at a constant lr of 0.01,
+    validate_on_test.  Added: RepeatChannels for train and val, the mask
+    cast, and the watched metric, so that a best model is written."""
+    technical = {"seed": 777, "save_destination": str(workdir / "logs"),
+                 "maximum_actual_batch_size": CLI_BATCH,
+                 "mixed_precision": True, "async_checkpointing": True,
+                 "profile": True, "export_plots_as": ("json",),
+                 "model_evaluation": {
+                     "metric": "val_metrics/dice_index_threshold_0.5",
+                     "mode": "max"}}
+    if absolute_path is not None:
+        technical["absolute_path"] = absolute_path
+    return {
+        "experiment": {"number_of_epochs": epochs, "number_of_trials": 1},
+        "meta": {"technical": technical},
+        "data": {"data": {"segmentation.datasets.COVIDQUDataset": {
+            "lung_or_infection": "inf", "image_sizes": CLI_SIZE,
+            "validate_on_test": True, "seed": 20231027}},
+            "sampling": {"batch_size": CLI_BATCH},
+            "transforms": {"train": "transform.RepeatChannels",
+                           "val": "transform.RepeatChannels",
+                           "casting": {"mask": "torch.LongTensor"}}},
+        "model": {"segmentation.models.UNet": {
+            "architecture": {"in_channel_size": 3, "out_channel_size": 1,
+                             "depth": 4},
+            "final_activation": "sigmoid"}},
+        "training": {"loss": {"segmentation.losses.DiceLoss": {}},
+                     "optimizer": {"sgd": {"momentum": 0.9, "learning_rate": {
+                         "constant": {"base": 0.01}}}}},
+        "metrics": {"metrics": ("metrics.DiceIndex",)},
+    }
+
+
+def write_covidqu_tree(root: Path, seed: int = 0) -> None:
+    """A COVID-QU tree as ``bench.py:1061-1071`` writes it, with bright
+    discs over noise as the images and the discs as the infection mask
+    (values 0/2), so that the Dice has something to learn."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:CLI_SIZE, :CLI_SIZE]
+    base = root / "COVID_QU" / "Inf_segm" / "data arrays" / "COVID-19"
+    for part, n in (("train and val", CLI_IMAGES), ("test", CLI_TEST)):
+        masks = np.zeros((n, 1, CLI_SIZE, CLI_SIZE), np.uint8)
+        for m in masks[:, 0]:
+            for _ in range(3):
+                cy, cx = rng.integers(0, CLI_SIZE, 2)
+                r = rng.integers(CLI_SIZE // 16, CLI_SIZE // 5)
+                m[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = 2
+        noise = rng.normal(0, 25, masks.shape).astype(np.float32)
+        imgs = np.clip(60 + 60 * masks + noise, 0, 255).astype(np.uint8)
+        d = base / part
+        d.mkdir(parents=True)
+        np.save(d / "imgs.npy", imgs)
+        np.save(d / "inf_masks.npy", masks)
+
+
+def _csv_rows(path: Path) -> list:
+    import csv
+
+    with open(path, newline="") as fh:
+        return list(csv.DictReader(fh))
+
+
+def _run_cli(workdir: Path, config: dict, *modifiers: str) -> float:
+    """``python3 -m medsegpretrainimagenet_tpu_torch.cli`` as a user runs
+    it, in a process of its own; fails on a non-zero exit or on anything
+    the error envelope printed.  Returns the wall seconds."""
+    import os
+
+    from medsegpretrainimagenet_tpu_torch.config import dump_yaml
+
+    path = workdir / f"cli_{config['experiment']['number_of_epochs']}.yaml"
+    path.write_text(dump_yaml(config))
+    env = dict(os.environ, MST_DATA_DIR=str(workdir / "data"),
+               PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "medsegpretrainimagenet_tpu_torch.cli",
+         str(path), *modifiers], cwd=workdir, env=env, capture_output=True,
+        text=True, timeout=400)
+    seconds = time.perf_counter() - t0
+    marks = [m for m in ENVELOPE_MARKS if m in out.stderr]
+    check(out.returncode == 0 and not marks,
+          f"[cli] {path.name} {' '.join(modifiers)}: exit {out.returncode}, "
+          f"envelope marks {marks}; stderr tail:\n{out.stderr[-4000:]}")
+    return seconds
+
+
+def _check_run(run: Path, epochs: int, module) -> list:
+    """The run directory after *epochs* epochs; returns the epoch rows."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.train import checkpoint as ckpt
+
+    rows = _csv_rows(run / "epoch_logs.csv")
+    check(len(rows) == epochs and set(rows[0]) == CLI_EPOCH_COLUMNS,
+          f"[cli] epoch_logs.csv: {len(rows)} rows (want {epochs}), "
+          f"columns {sorted(rows[0]) if rows else None}")
+    steps = CLI_IMAGES // CLI_BATCH
+    batch_rows = _csv_rows(run / "batch_logs.csv")
+    check(len(batch_rows) == steps * epochs,
+          f"[cli] batch_logs.csv: {len(batch_rows)} rows, want "
+          f"{steps} per epoch for {epochs} epochs")
+    # COVID-QU has no test split: validate_on_test folds it into val, and
+    # neither CLI writes test_logs.csv for it (the in-process part below
+    # runs the test pass)
+    check(not (run / "test_logs.csv").exists(),
+          "[cli] test_logs.csv written for a reader without a test split")
+    for name in ("last_model_state_dict.pt", "best_model_state_dict.pt"):
+        module.load_state_dict(ckpt.load_params_file(run / name))
+    saved = ckpt.load_state_file(run / "optimizer_state_dict.pt")
+    check(saved["step"] == saved["micro_step"] == steps * epochs
+          and len(saved["optimizer"]["state"]) > 0,
+          f"[cli] optimizer_state_dict.pt: step {saved['step']}")
+    schedule = ckpt.load_state_file(run / "scheduler_state_dict.pt")
+    check(schedule["step"] == steps * epochs, f"[cli] scheduler {schedule}")
+    check(ckpt.load_params_file(run / "checkpoint_epoch.pt")
+          == {"epoch": epochs}, "[cli] checkpoint_epoch.pt")
+    for row in rows:
+        check(all(math.isfinite(float(v)) for v in row.values()),
+              f"[cli] epoch row {row}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _count_syncs(fn) -> int:
+    """Host syncs that *fn* queues, as torch's sync debug mode reports
+    them (one warning each)."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def phase_cli_in_process(workdir: Path) -> None:
+    """One epoch's parts of the CLI in this process, over the CLI's own
+    loader and data: the host syncs of ``run_epoch`` at two step counts
+    (they must not grow with the steps), the host assembly and the
+    host-to-device copy per batch, the device's busy share over a profiled
+    stretch, and the test pass."""
+    import itertools
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict
+    from medsegpretrainimagenet_tpu_torch.data import BalancedDataLoader
+    from medsegpretrainimagenet_tpu_torch.data.loader import PinnedCopier
+    from medsegpretrainimagenet_tpu_torch.data.readers.covidqu import \
+        COVIDQUDataset
+    from medsegpretrainimagenet_tpu_torch.data.transforms import (
+        Compose, ConvertToType, RepeatChannels)
+    from medsegpretrainimagenet_tpu_torch.models import blocks
+    from medsegpretrainimagenet_tpu_torch.train import (make_eval_step,
+                                                        run_epoch)
+
+    import os
+    os.environ["MST_DATA_DIR"] = str(workdir / "data")
+    cfg = cli_config(workdir, 1)
+    data_cfg = ConfigDict(cfg["data"]["data"][
+        "segmentation.datasets.COVIDQUDataset"])
+    dataset = COVIDQUDataset(data_cfg)
+    sampling = ConfigDict({"sampling": {"batch size": CLI_BATCH}})
+    BalancedDataLoader.fill_kwargs(sampling["sampling"])
+    pipeline = Compose(RepeatChannels(),
+                       ConvertToType({"mask": "torch.LongTensor"}))
+
+    def loader(split):
+        return BalancedDataLoader(getattr(dataset, split),
+                                  sampling["sampling/train"], bs=CLI_BATCH,
+                                  actual_bs=CLI_BATCH, transforms=pipeline,
+                                  seed=1)
+
+    # host assembly, staging into pinned memory, and the copy to the card,
+    # per batch
+    train = loader("train")
+    t0 = time.perf_counter()
+    host = list(itertools.islice(iter(train), 16))
+    assembly_ms = 1e3 * (time.perf_counter() - t0) / len(host)
+    stacks = [{k: v[None] for k, v in batch.items()} for batch in host]
+    copier = PinnedCopier(torch.device("cuda"))
+    for stack in stacks[:4]:  # the pinned allocator's first blocks
+        copier(stack)
+    check(all(t.is_pinned() for t in copier.last_host.values()),
+          "[cli] the prefetch's host buffers are not pinned")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for stack in stacks:
+        copier(stack)
+    copy_ms = 1e3 * (time.perf_counter() - t0) / len(stacks)
+    pinned = list(copier.last_host.values())
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(16):
+        for t in pinned:
+            t.to("cuda", non_blocking=True)
+    end.record()
+    end.synchronize()
+    h2d_ms = start.elapsed_time(end) / 16
+    nbytes = sum(t.nbytes for t in pinned)
+    print(f"[cli] host assembly {assembly_ms:.2f} ms per batch of "
+          f"{CLI_BATCH} (transforms, stacking); the prefetch's staging "
+          f"into pinned memory and queued copy {copy_ms:.2f} ms of host "
+          f"time; host-to-device copy {h2d_ms:.3f} ms of device time per "
+          f"batch ({nbytes / 2 ** 20:.1f} MiB, {nbytes / h2d_ms / 1e6:.1f} "
+          f"GB/s)", flush=True)
+
+    blocks.set_compute_dtype(torch.bfloat16)
+    try:
+        model, state, calculator, step = build_trainer(
+            unet_256_train_config(), "cuda")
+        log = workdir / "in_process_batch_logs.csv"
+        syncs = {}
+        for steps in (2, 4, 16):
+            batches = host[:steps]
+            metrics_state = calculator.init_state("cuda")
+
+            def one_epoch():
+                nonlocal state, metrics_state
+                state, metrics_state = run_epoch(
+                    step, state, metrics_state, batches, device="cuda",
+                    log_path=str(log), calculator=calculator)
+                calculator.finalize_epoch(metrics_state)
+            # the first run, at 2 steps, warms up the pinned allocator
+            syncs[steps] = _count_syncs(one_epoch)
+        check(syncs[4] == syncs[16] and syncs[4] <= 8,
+              f"[cli] host syncs of run_epoch grow with the steps: {syncs}")
+        print(f"[cli] run_epoch host syncs (sync debug mode 'warn'), batch "
+              f"log read-back and epoch metrics included: {syncs[4]} at 4 "
+              f"steps, {syncs[16]} at 16 steps", flush=True)
+
+        batches = host
+        metrics_state = calculator.init_state("cuda")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, metrics_state = run_epoch(
+                step, state, metrics_state, batches, device="cuda",
+                log_path=str(log), calculator=calculator)
+            calculator.finalize_epoch(metrics_state)
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        busy_ms = sum(e.device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA) / 1e3
+        print(f"[profile cli] run_epoch over {len(batches)} assembled "
+              f"batches (copies to the card, steps, batch log): device "
+              f"busy {busy_ms:.1f} ms of {wall_ms:.1f} ms wall "
+              f"({100 * busy_ms / wall_ms:.1f} %)", flush=True)
+
+        # the 16 test images: the val split under validate_on_test
+        test = loader("val")
+        metrics_state = calculator.init_state("cuda")
+        _, metrics_state = run_epoch(make_eval_step(model, calculator.loss,
+                                                    calculator),
+                                     state, metrics_state, test,
+                                     train=False, device="cuda")
+        values = calculator.finalize_epoch(metrics_state)
+        check(len(values) == 2 and all(math.isfinite(v)
+                                       for v in values.values()),
+              f"[cli] test pass {values}")
+        print(f"[cli] test pass over {CLI_TEST} images: {values}",
+              flush=True)
+    finally:
+        blocks.set_compute_dtype(None)
+
+
+def phase_cli(step_rate: float) -> None:
+    """The port's experiment CLI as a user runs it: CLI_EPOCHS epochs of
+    the full-width CLI config in a process of its own, then one more epoch
+    under --continued; the run files, row counts, learning and timings;
+    then the in-process epoch."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
+    from medsegpretrainimagenet_tpu_torch.models import Model
+
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        workdir = Path(tmp)
+        write_covidqu_tree(workdir / "data")
+        print(f"[cli] synthetic COVID-QU tree: {CLI_IMAGES} + {CLI_TEST} "
+              f"images of {CLI_SIZE}x{CLI_SIZE} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        seconds = _run_cli(workdir, cli_config(workdir, CLI_EPOCHS))
+        (exp,) = (workdir / "logs").glob("*/Experiment")
+        run = exp / "run_1"
+        for name in ("config.yaml", "source_config.yaml", "environment.txt"):
+            check((exp / name).is_file(), f"[cli] {name} missing")
+        cd = ConfigDict({"model": cli_config(workdir, 1)["model"]})
+        cd.expand()
+        registry.fill_spec(cd, "model")
+        module = registry.build(cd, key="model", wrapper=Model).module
+        rows = _check_run(run, CLI_EPOCHS, module)
+        losses = [float(r["dice_loss"]) for r in rows]
+        dice = [float(r["val_metrics/dice_index_threshold_0.5"])
+                for r in rows]
+        check(losses[-1] < losses[0] and dice[-1] > dice[0],
+              f"[cli] dice_loss {losses}, val Dice {dice}")
+        print(f"[cli] {CLI_EPOCHS} epochs in {seconds:.1f} s of wall time "
+              f"(process included): dice_loss {losses}, val Dice {dice}",
+              flush=True)
+        epoch_times = _csv_rows(run / "profile" / "epoch_times.csv")
+        step_times = _csv_rows(run / "profile" / "step_times.csv")
+        for row, steps in zip(epoch_times, step_times):
+            train_s = float(row["train_s"])
+            rate = CLI_IMAGES / train_s
+            print(f"[cli] epoch {row['epoch']}: train {train_s:.3f} s = "
+                  f"{rate:.1f} images/s ({100 * rate / step_rate:.1f} % of "
+                  f"[train]'s {step_rate:.1f} step-only images/s), val "
+                  f"{float(row['val_s']):.3f} s, checkpoints "
+                  f"{float(row['ckpt_s']):.3f} s; device time per step "
+                  f"mean {1e3 * float(steps['mean_s']):.2f} ms, p50 "
+                  f"{1e3 * float(steps['p50_s']):.2f}, max "
+                  f"{1e3 * float(steps['max_s']):.2f}", flush=True)
+
+        seconds = _run_cli(workdir, cli_config(
+            workdir, CLI_EPOCHS + 1, absolute_path=str(exp) + "/"),
+            "--continued")
+        rows = _check_run(run, CLI_EPOCHS + 1, module)
+        check([int(r["epoch"]) for r in rows]
+              == list(range(1, CLI_EPOCHS + 2)), "[cli] resumed epochs")
+        for name in ("last_model_state_dict_checkpoint.pt",
+                     "optimizer_state_dict_checkpoint.pt"):
+            check((run / name).is_file(), f"[cli] {name} missing")
+        print(f"[cli] --continued: epoch {CLI_EPOCHS + 1} in {seconds:.1f} s"
+              f" of wall time: dice_loss {rows[-1]['dice_loss']}, val Dice "
+              f"{rows[-1]['val_metrics/dice_index_threshold_0.5']}",
+              flush=True)
+        del module
+        torch.cuda.empty_cache()
+        phase_cli_in_process(workdir)
+    print(f"[cli] {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -1265,15 +1651,16 @@ def main() -> int:
           f" cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    phase_build()
-    k1, k1_bound_by, k1_err = phase_k1()
-    k2, k2_bound_by, k2_err = phase_k2()
+    timed("build", phase_build)
+    k1, k1_bound_by, k1_err = timed("k1", phase_k1)
+    k2, k2_bound_by, k2_err = timed("k2", phase_k2)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_small_vs_cpu()
-        k1_launches, k2_launches = phase_serve(Path(tmp))
-    phase_train_small()
-    phase_train_bf16()
-    phase_train_full()
+        timed("small", phase_small_vs_cpu)
+        k1_launches, k2_launches = timed("serve", phase_serve, Path(tmp))
+    timed("train small", phase_train_small)
+    timed("train bf16", phase_train_bf16)
+    step_rate = timed("train", phase_train_full)
+    timed("cli", phase_cli, step_rate)
 
     # per kernel: the 14 calls of one bf16 forward at batch 24, summed,
     # L2-cold (warm_ms: the same calls on warm inputs); launches from its

@@ -243,8 +243,19 @@ class MetricsCalculator:
         """Host view of one step's values (for batch_logs.csv), with the
         derived CM values from the step's counts; one transfer for the
         whole dict."""
-        host = {k: np.asarray(v)
-                for k, v in self._to_host(per_batch).items()}
+        return self._batch_values_host(self._to_host(per_batch))
+
+    def batch_values_window(self, rows) -> list:
+        """:meth:`batch_values` of a window of steps, in one transfer for
+        the whole window (the loop's per-window read-back)."""
+        host = self._to_host({str(i): row for i, row in enumerate(rows)})
+        return [self._batch_values_host(host[str(i)])
+                for i in range(len(rows))]
+
+    def _batch_values_host(self, per_batch: Dict[str, Any]
+                           ) -> Dict[str, float]:
+        # sorted, as the JAX package's pytree read-back orders the keys
+        host = {k: np.asarray(per_batch[k]) for k in sorted(per_batch)}
         values = {}
         for key, value in host.items():
             if value.ndim == 0 and not is_cm_count_name(key):

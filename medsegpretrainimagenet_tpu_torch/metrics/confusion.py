@@ -103,15 +103,21 @@ class ConfusionMatrixSpec(MetricSpec):
         target = target.float()
         pos = target == 1
         pred_pos = prediction >= self.threshold
+        nans = torch.isnan(target)
+        if self.multilabel:
+            # a target of another shape broadcasts against the prediction
+            # (e.g. one (B, H, W, 1) mask for every class), as in JAX
+            pos, pred_pos = torch.broadcast_tensors(pos, pred_pos)
+            nans = nans.expand(pos.shape)
         # one reduction: TP, predicted positives, positives, NaN targets;
         # FP, FN and TN follow exactly in integer arithmetic
         maps = [pos & pred_pos, pred_pos, pos]
         if self.ignore_nans:
-            maps.append(torch.isnan(target))
+            maps.append(nans)
         sums = torch.stack(maps).sum(dim=dims) if dims \
             else torch.stack(maps).long()
         tp, predicted, positives = sums[0], sums[1], sums[2]
-        total = math.prod(prediction.shape[:len(dims)] if self.multilabel
+        total = math.prod(pos.shape[:len(dims)] if self.multilabel
                           else prediction.shape)
         tn = total - predicted - positives + tp
         if self.ignore_nans:

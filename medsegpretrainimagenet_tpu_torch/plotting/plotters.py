@@ -1,0 +1,318 @@
+"""Plot/export framework (host-side).
+
+The port's own copy of the part of ``medsegpretrainimagenet_tpu/plotting/
+plotters.py`` that the CLI uses: ``BasePlotter`` and ``GeneralPlotter``
+(multi-line metric curves with legends, baselines, log scale), exporting to
+json / png / svg / html.  JSON export writes the full parameter tree (so
+plots can be re-rendered later) and needs nothing installed; png/svg use
+matplotlib and html uses bokeh, each imported only when its format is
+asked for (html falls back to png with a warning without bokeh).
+``ScatterPlotter``, ``ConfMtxPlotter`` and ``PCAPlotter`` are ROADMAP
+queues M4 and M10.
+
+``export_plot`` fans one plotter out to the configured formats under a
+watchdog timeout, mirroring ``utils/_utils.py:169-182``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import signal
+import warnings
+from typing import Any, Dict, Iterable
+
+import numpy as np
+
+from ..utils import handle_exception
+
+__all__ = ["BasePlotter", "GeneralPlotter", "export_plot"]
+
+_EXPORT_TIMEOUT_S = 300
+
+
+class _Timeout:
+    """SIGALRM watchdog (plot export must never hang a run)."""
+
+    def __init__(self, seconds: int):
+        self.seconds = seconds
+
+    def __enter__(self):
+        if hasattr(signal, "SIGALRM"):
+            self._old = signal.signal(signal.SIGALRM, self._raise)
+            signal.alarm(self.seconds)
+        return self
+
+    @staticmethod
+    def _raise(*_args):
+        raise TimeoutError
+
+    def __exit__(self, *exc):
+        if hasattr(signal, "SIGALRM"):
+            signal.alarm(0)
+            signal.signal(signal.SIGALRM, self._old)
+        return False
+
+
+class BasePlotter:
+    DEFAULTS: Dict[str, Any] = {}
+
+    def __init__(self, params: Dict[str, Any], *args, **kwargs):
+        import copy
+        # deep-copy the class-level defaults: a shallow dict() would share
+        # the nested legend/baselines/histogram dicts across ALL instances,
+        # so one caller mutating e.g. plotter.legend['labels'] in place
+        # would corrupt every later plotter in a long multi-experiment run
+        merged = copy.deepcopy(self.DEFAULTS)
+        merged.update(params or {})
+        self.params = merged
+        for key, value in merged.items():
+            setattr(self, key, value)
+
+    # -- shared export paths -------------------------------------------
+
+    def _path(self, extension: str) -> str:
+        dirname = getattr(self, "dirname", ".") or "."
+        os.makedirs(dirname, exist_ok=True)
+        return os.path.join(dirname, f"{getattr(self, 'fname', 'plot')}"
+                                     f".{extension}")
+
+    def export_json(self, *args, **kwargs):
+        def default(o):
+            if isinstance(o, (np.floating, np.integer)):
+                return o.item()
+            if isinstance(o, np.ndarray):
+                return o.tolist()
+            return str(o)
+        with open(self._path("json"), "w") as fh:
+            json.dump(self.params, fh, indent=2, default=default)
+
+    def export_matplotlib(self, extension: str = "png", *args, **kwargs):
+        import matplotlib
+        matplotlib.use("Agg")
+        from matplotlib import pyplot as plt
+        fig = self.render_matplotlib(plt)
+        try:
+            fig.savefig(self._path(extension), bbox_inches="tight")
+        finally:
+            # close even when savefig raises (disk full, export timeout):
+            # leaked figures accumulate in pyplot's registry over a long
+            # multi-experiment run
+            plt.close(fig)
+
+    def export_bokeh(self, *args, png_fallback: bool = True, **kwargs):
+        """Write the .html; with *png_fallback*, plotters lacking a bokeh
+        renderer (or hosts without bokeh) produce a .png instead, so the
+        default ``export_plots_as=('json','html')`` always yields an
+        artifact.  ``export_plot`` disables the fallback when .png is
+        already among the requested formats."""
+        try:
+            import bokeh  # noqa: F401
+        except ImportError:
+            if png_fallback:
+                warnings.warn("bokeh is not installed; exporting .png "
+                              "instead of .html.")
+                return self.export_matplotlib("png", *args, **kwargs)
+            warnings.warn("bokeh is not installed; skipping .html export.")
+            return
+        try:
+            self.render_bokeh()
+        except NotImplementedError:
+            if png_fallback:
+                warnings.warn(f"{type(self).__name__} has no bokeh "
+                              f"renderer; exporting .png instead of .html.")
+                self.export_matplotlib("png", *args, **kwargs)
+
+    def render_matplotlib(self, plt):
+        raise NotImplementedError
+
+    def render_bokeh(self):
+        raise NotImplementedError
+
+
+class GeneralPlotter(BasePlotter):
+    """Line plots of one or more series over a shared x axis."""
+
+    DEFAULTS = {
+        "Ys": [],
+        "x": None,
+        "xlabel": "",
+        "ylabel": "",
+        "title": "",
+        "legend": {"labels": []},
+        "baselines": {"labels": [], "values": []},
+        "dirname": ".",
+        "fname": "plot",
+        "yscale": "linear",
+        "colors": None,
+        "dashes": None,
+        # reference plotters.py:258-265: optional distribution overlays
+        "histogram": {"labels": [], "Xs": [], "colors": None, "bins": 100,
+                      "density": True, "alpha": 0.5},
+        "dark": False,  # reference dark_color_settings / dark_minimal theme
+    }
+
+    #: bokeh dash names -> matplotlib linestyles
+    _DASH_STYLES = {"solid": "-", "dashed": "--", "dotted": ":",
+                    "dotdash": "-.", "dashdot": "-."}
+
+    def _series_style(self, i: int) -> dict:
+        style = {}
+        colors = self.colors or []
+        dashes = self.dashes or []
+        if i < len(colors) and colors[i]:
+            style["color"] = colors[i]
+        if i < len(dashes) and dashes[i]:
+            style["linestyle"] = self._DASH_STYLES.get(
+                str(dashes[i]), dashes[i])
+        return style
+
+    def render_matplotlib(self, plt):
+        import contextlib
+        style = plt.style.context("dark_background") if self.dark \
+            else contextlib.nullcontext()  # scoped: no global style leak
+        with style:
+            return self._render_matplotlib_inner(plt)
+
+    def _render_matplotlib_inner(self, plt):
+        fig, ax = plt.subplots(figsize=(8, 5))
+        hist = self.histogram or {}
+        hist_xs = hist.get("Xs", []) or []
+        hist_labels = hist.get("labels", []) or []
+        hist_colors = hist.get("colors") or ["grey"]
+        for i, xs_h in enumerate(hist_xs):
+            ax.hist(list(xs_h), bins=int(hist.get("bins", 100) or 100),
+                    density=bool(hist.get("density", True)),
+                    alpha=float(hist.get("alpha", 0.5) or 0.5),
+                    color=hist_colors[i % len(hist_colors)],
+                    label=hist_labels[i] if i < len(hist_labels) else None)
+        ys_list = self.Ys or []
+        labels = (self.legend or {}).get("labels", []) or []
+        for i, ys in enumerate(ys_list):
+            xs = self.x if self.x is not None else range(1, len(ys) + 1)
+            xs = list(xs)
+            if len(xs) != len(ys):
+                # short auxiliary series (e.g. the ROC diagonal [0, 1])
+                # spans the x range
+                lo, hi = (min(xs), max(xs)) if xs else (0.0, 1.0)
+                xs = list(np.linspace(lo, hi, len(ys)))
+            label = labels[i] if i < len(labels) else None
+            ax.plot(xs, list(ys), label=label, **self._series_style(i))
+        baselines = self.baselines or {}
+        for label, value in zip(baselines.get("labels", []),
+                                baselines.get("values", [])):
+            ax.axhline(value, linestyle="--", alpha=0.6, label=str(label))
+        ax.set_xlabel(self.xlabel)
+        ax.set_ylabel(self.ylabel)
+        ax.set_yscale(self.yscale)
+        if self.title:
+            ax.set_title(self.title)
+        if any(labels) or baselines.get("labels") or any(hist_labels):
+            ax.legend()
+        ax.grid(alpha=0.3)
+        return fig
+
+    def render_bokeh(self):
+        """Full-parity html renderer: series lines plus the baselines,
+        histogram overlays and dark mode that ``render_matplotlib``
+        renders — html is the DEFAULT export format
+        (``config/defaults.py``), so it must not silently drop data the
+        png would show."""
+        from bokeh.io import output_file, save
+        from bokeh.models import Span
+        from bokeh.plotting import figure
+        fig = figure(title=self.title or "", x_axis_label=self.xlabel,
+                     y_axis_label=self.ylabel,
+                     y_axis_type="log" if self.yscale == "log" else "linear")
+        hist = self.histogram or {}
+        hist_xs = hist.get("Xs", []) or []
+        hist_labels = hist.get("labels", []) or []
+        hist_colors = hist.get("colors") or ["grey"]
+        for i, xs_h in enumerate(hist_xs):
+            counts, edges = np.histogram(
+                np.asarray(list(xs_h), dtype=np.float64),
+                bins=int(hist.get("bins", 100) or 100),
+                density=bool(hist.get("density", True)))
+            kwargs = {}
+            if i < len(hist_labels) and hist_labels[i]:
+                kwargs["legend_label"] = str(hist_labels[i])
+            fig.quad(top=counts, bottom=0, left=edges[:-1],
+                     right=edges[1:],
+                     fill_color=hist_colors[i % len(hist_colors)],
+                     line_color=None,
+                     fill_alpha=float(hist.get("alpha", 0.5) or 0.5),
+                     **kwargs)
+        labels = (self.legend or {}).get("labels", []) or []
+        for i, ys in enumerate(self.Ys or []):
+            xs = list(self.x) if self.x is not None \
+                else list(range(1, len(ys) + 1))
+            if len(xs) != len(ys):
+                lo, hi = (min(xs), max(xs)) if xs else (0.0, 1.0)
+                xs = list(np.linspace(lo, hi, len(ys)))
+            kwargs = {"legend_label": labels[i]} if i < len(labels) else {}
+            style = self._series_style(i)
+            if "color" in style:
+                kwargs["line_color"] = style["color"]
+            if (self.dashes or []) and i < len(self.dashes) \
+                    and self.dashes[i]:
+                kwargs["line_dash"] = self.dashes[i]
+            fig.line(xs, list(ys), **kwargs)
+        baselines = self.baselines or {}
+        for label, value in zip(baselines.get("labels", []),
+                                baselines.get("values", [])):
+            # Span has no legend entry — draw an invisible legend proxy
+            # line so the baseline is labelled like the matplotlib axhline
+            fig.add_layout(Span(location=float(value), dimension="width",
+                                line_dash="dashed", line_alpha=0.6,
+                                line_color="grey"))
+            fig.line([], [], line_dash="dashed", line_alpha=0.6,
+                     line_color="grey", legend_label=str(label))
+        if self.dark:
+            fig.background_fill_color = "#17181c"
+            fig.border_fill_color = "#17181c"
+            fig.title.text_color = "#e0e0e0"
+            for axis in fig.axis:
+                axis.axis_label_text_color = "#e0e0e0"
+                axis.major_label_text_color = "#e0e0e0"
+                axis.axis_line_color = "#8a8a8a"
+                axis.major_tick_line_color = "#8a8a8a"
+                axis.minor_tick_line_color = "#555555"
+            for grid in fig.grid:
+                grid.grid_line_color = "#3a3b40"
+            if fig.legend:
+                for legend in fig.legend:
+                    legend.background_fill_color = "#17181c"
+                    legend.label_text_color = "#e0e0e0"
+        output_file(self._path("html"))
+        save(fig)
+
+
+def export_plot(plotter: BasePlotter, extensions: Iterable[str],
+                *args, **kwargs) -> None:
+    """Export a plotter to each requested format, non-fatally."""
+    # materialize up front: a generator argument would be exhausted by the
+    # `requested` set and the loop below would silently export nothing
+    normalized = [str(e).lower().strip(".") for e in extensions]
+    requested = set(normalized)
+    export_funcs = {
+        "json": plotter.export_json,
+        "png": lambda *a, **k: plotter.export_matplotlib("png", *a, **k),
+        "svg": lambda *a, **k: plotter.export_matplotlib("svg", *a, **k),
+        # don't render the png twice when it's already requested alongside
+        "html": lambda *a, **k: plotter.export_bokeh(
+            *a, png_fallback="png" not in requested, **k),
+    }
+    for ext in normalized:
+        func = export_funcs.get(ext)
+        if func is None:
+            warnings.warn(f"Unknown plot format {ext!r}")
+            continue
+        # one watchdog per format: SIGALRM is one-shot, so a single alarm
+        # around the whole loop would leave every format after the first
+        # timeout unprotected
+        try:
+            with _Timeout(_EXPORT_TIMEOUT_S):
+                func(*args, **kwargs)
+        except TimeoutError:
+            warnings.warn(f".{ext} plot export timed out; continuing.")
+        except Exception as exc:  # noqa: BLE001
+            handle_exception(exc, f"Exception exporting plot as .{ext}.")

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..config import ConfigDict, registry
+from ..data.warp import resize
 from ..utils.device import resolve_device
 from ..utils.errors import handle_exception
 
@@ -131,12 +132,8 @@ def _predict(config, checkpoint, input_path, output_path, batch_size,
     def host_batch(lo: int, hi: int) -> torch.Tensor:
         x = _to_nhwc(np.asarray(imgs[lo:hi]))
         if image_size is not None and tuple(x.shape[1:3]) != tuple(image_size):
-            import cv2
-            # cv2 dsize is (W, H); bilinear matches the readers' image path
-            x = np.stack([cv2.resize(img, (image_size[1], image_size[0]))
-                          for img in x])
-            if x.ndim == 3:  # cv2 drops a singleton channel axis
-                x = x[..., None]
+            # bilinear, the readers' image path (OpenCV's INTER_LINEAR)
+            x = np.stack([resize(img, image_size) for img in x])
         if repeat_channels:
             x = np.repeat(x, 3, axis=-1)
         if x.shape[0] < batch_size:  # zero-pad the last partial batch

@@ -134,6 +134,13 @@ def make_train_step(model, loss_fn: Callable, calculator, optimizer,
                          else type(pred)(p.detach() for p in pred))
             seen.append(fragment)
 
+        # a trainable parameter the loss does not reach has no gradient,
+        # and torch.optim would skip it; optax applies momentum and decay
+        # to its zero gradient, so give it one
+        for group in state.optimizer.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         grads = [p.grad for p in module.parameters() if p.grad is not None]
         if n_frag > 1:
             torch._foreach_mul_(grads, 1.0 / n_frag)

@@ -1,3 +1,3 @@
-from .errors import handle_exception
+from .errors import handle_exception, swallow
 
-__all__ = ["handle_exception"]
+__all__ = ["handle_exception", "swallow"]

@@ -11,8 +11,9 @@ import os
 import sys
 import time
 import traceback
+from contextlib import contextmanager
 
-__all__ = ["handle_exception"]
+__all__ = ["handle_exception", "swallow"]
 
 #: tracebacks longer than this (chars) are written to disk instead of stderr
 _MAX_INLINE = 1000
@@ -39,3 +40,13 @@ def handle_exception(exc: BaseException, message: str = "") -> None:
         print(f"  -> {path}", file=sys.stderr)
     except OSError:
         print(text, file=sys.stderr)
+
+
+@contextmanager
+def swallow(message: str = ""):
+    """Run the body under the non-fatal envelope.  Catches ``Exception``
+    only: KeyboardInterrupt, SystemExit and GeneratorExit propagate."""
+    try:
+        yield
+    except Exception as exc:  # noqa: BLE001 - envelope by design
+        handle_exception(exc, message)

@@ -1,0 +1,253 @@
+"""Both CLIs, the JAX package's and the port's, on a tiny COVID-QU config
+(a depth-1 U-Net at 16 x 16 on a synthetic tree, Dice loss and
+``metrics.DiceIndex``), on the CPU, from the same weights: a JAX msgpack
+checkpoint for the JAX CLI and its ``.pt`` translation for the port.  The
+two write the same CSV columns and the same run files (``.pt`` for
+``.msgpack``), and their loss and Dice columns agree within 1e-4.  The
+port's ``--continued`` grows epoch_logs.csv and writes the backups; a YAML
+list gives a grid with dedup-suffixed directories and comparisons; a bad
+component name does not stop the grid."""
+import csv
+import pathlib
+
+import jax
+import numpy as np
+import pytest
+import yaml
+
+from medsegpretrainimagenet_tpu.cli.experiment import main as jax_main
+from medsegpretrainimagenet_tpu.config import ConfigDict as JaxConfigDict
+from medsegpretrainimagenet_tpu.config import registry as jax_registry
+from medsegpretrainimagenet_tpu.models import Model as JaxModel
+from medsegpretrainimagenet_tpu.train import checkpoint as jax_ckpt
+from medsegpretrainimagenet_tpu_torch.cli.experiment import main
+from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
+from medsegpretrainimagenet_tpu_torch.models import Model
+from medsegpretrainimagenet_tpu_torch.train import checkpoint as ckpt
+from medsegpretrainimagenet_tpu_torch.transfer import state_dict_from_jax
+
+from torch_port_helpers import build_model
+
+TOL = 1e-4
+ARCH = {"in_channel_size": 3, "out_channel_size": 1, "channels": (4, 8),
+        "depth": 1}
+
+
+def _config(logs, weights, epochs=3, **technical):
+    """The verify skill's tiny COVID-QU config, DiceIndex only, in whole
+    batches: under the tests the JAX CLI sees eight virtual CPU devices and
+    would size its fragments for them."""
+    return {
+        "experiment": {"number_of_epochs": epochs, "number_of_trials": 1},
+        "meta": {"technical": {"seed": 777, "save_destination": str(logs),
+                               "export_plots_as": ["json"],
+                               "maximum_actual_batch_size": 4,
+                               **technical}},
+        "data": {"data": {"segmentation.datasets.COVIDQUDataset": {
+            "lung_or_infection": "inf", "image_sizes": 16,
+            "validate_on_test": True, "seed": 20231027}},
+            "sampling": {"batch_size": 4},
+            "transforms": {"train": "transform.RepeatChannels",
+                           "val": "transform.RepeatChannels",
+                           "casting": {"mask": "torch.LongTensor"}}},
+        "model": {"segmentation.models.UNet": {
+            "architecture": dict(ARCH),
+            "final_activation": "sigmoid",
+            "weight_init": {"weights": str(weights)}}},
+        "training": {
+            "loss": {"segmentation.losses.DiceLoss": {}},
+            "optimizer": {"sgd": {"learning_rate": {
+                "optim.scheduler.PolyLearningRateDecay": {
+                    "base": 0.01, "exponent": 0.9, "iteration_unit": "batch",
+                    "number_of_iterations": "auto"}}}}},
+        "metrics": {"metrics": ("metrics.DiceIndex",)},
+    }
+
+
+def _write(path, cfg):
+    path.write_text(yaml.dump(cfg))
+    return str(path)
+
+
+def _rows(path):
+    with open(path, newline="") as fh:
+        return list(csv.DictReader(fh))
+
+
+def _run_dir(logs: pathlib.Path, name="Experiment"):
+    (day,) = [d for d in logs.iterdir() if d.is_dir()]
+    return day / name
+
+
+@pytest.fixture(scope="module")
+def tree(tmp_path_factory):
+    """The synthetic data tree and the two weight files."""
+    root = tmp_path_factory.mktemp("cli")
+    rng = np.random.default_rng(0)
+    base = root / "data" / "COVID_QU" / "Inf_segm" / "data arrays" \
+        / "COVID-19"
+    for part, n in (("train and val", 12), ("test", 4)):
+        d = base / part
+        d.mkdir(parents=True)
+        np.save(d / "imgs.npy",
+                (rng.random((n, 1, 20, 20)) * 255).astype(np.uint8))
+        masks = np.zeros((n, 1, 20, 20), np.uint8)
+        masks[:, :, 6:14, 6:14] = 2
+        np.save(d / "inf_masks.npy", masks)
+    cfg = {"model": {"segmentation.models.UNet": {"architecture": ARCH}}}
+    jmodel = build_model(JaxConfigDict, jax_registry, JaxModel, cfg)
+    variables = jax.tree_util.tree_map(np.asarray, jmodel.init(
+        jax.random.key(0), {"x": np.zeros((1, 16, 16, 3), np.float32)}))
+    jax_weights = root / "weights.msgpack"
+    jax_ckpt.save_params_file(str(jax_weights), variables)
+    port_weights = root / "weights.pt"
+    module = build_model(ConfigDict, registry, Model, cfg).module
+    ckpt.save_params_file(str(port_weights),
+                          state_dict_from_jax(variables, module))
+    return root, jax_weights, port_weights
+
+
+@pytest.fixture(scope="module")
+def both_runs(tree):
+    root, jax_weights, port_weights = tree
+    mp = pytest.MonkeyPatch()
+    mp.setenv("MST_DATA_DIR", str(root / "data"))
+    try:
+        jax_main([_write(root / "jax.yaml",
+                         _config(root / "jax_logs", jax_weights))])
+        main([_write(root / "port.yaml",
+                     _config(root / "port_logs", port_weights)),
+              "--device", "cpu"])
+    finally:
+        mp.undo()
+    return (_run_dir(root / "jax_logs"), _run_dir(root / "port_logs"))
+
+
+def test_clis_write_the_same_columns_and_values(both_runs):
+    jax_dir, port_dir = both_runs
+    for name in ("epoch_logs.csv", "batch_logs.csv"):
+        got, want = _rows(port_dir / "run_1" / name), \
+            _rows(jax_dir / "run_1" / name)
+        assert len(got) == len(want) > 0, name
+        assert set(got[0]) == set(want[0]), name
+        for k, (a, b) in enumerate(zip(got, want)):
+            for key in b:
+                if "loss" in key or "dice" in key or key == "learning_rate":
+                    np.testing.assert_allclose(
+                        float(a[key]), float(b[key]), rtol=TOL, atol=TOL,
+                        err_msg=f"{name} row {k} {key}")
+    assert len(_rows(port_dir / "run_1" / "epoch_logs.csv")) == 3
+    # chip_smoke.py's [cli] holds the card's run to this column set
+    import chip_smoke
+    assert set(_rows(jax_dir / "run_1" / "epoch_logs.csv")[0]) \
+        == chip_smoke.CLI_EPOCH_COLUMNS
+    # COVID-QU has no test split (validate_on_test folds it into val), so
+    # neither CLI writes test_logs.csv
+    assert not (jax_dir / "run_1" / "test_logs.csv").exists()
+
+
+def test_clis_write_the_same_files(both_runs):
+    jax_dir, port_dir = both_runs
+
+    def files(d):
+        return sorted(str(p.relative_to(d)).replace(".msgpack", ".pt")
+                      for p in d.rglob("*") if p.is_file())
+    assert files(port_dir) == files(jax_dir)
+    written = yaml.full_load((port_dir / "config.yaml").read_text())
+    assert written["model"]["segmentation.models.UNet"]["architecture"][
+        "channels"] == (4, 8)
+    assert written["meta"]["technical"]["absolute_path"] == \
+        str(port_dir) + "/"
+    assert yaml.full_load((port_dir / "source_config.yaml").read_text()) \
+        == yaml.full_load((port_dir.parent.parent.parent
+                           / "port.yaml").read_text())
+
+
+def test_continued_resumes_and_backs_up(tree, both_runs, monkeypatch):
+    root, _, port_weights = tree
+    _, port_dir = both_runs
+    monkeypatch.setenv("MST_DATA_DIR", str(root / "data"))
+    cfg = _config(root / "port_logs", port_weights, epochs=4,
+                  absolute_path=str(port_dir) + "/")
+    main([_write(root / "resume.yaml", cfg), "--continued",
+          "--device", "cpu"])
+    run = port_dir / "run_1"
+    rows = _rows(run / "epoch_logs.csv")
+    assert [int(r["epoch"]) for r in rows] == [1, 2, 3, 4]
+    assert len(_rows(run / "batch_logs.csv")) == 4 * 3
+    for name in ("last_model_state_dict_checkpoint.pt",
+                 "optimizer_state_dict_checkpoint.pt"):
+        assert (run / name).is_file(), name
+    assert ckpt.load_params_file(run / "checkpoint_epoch.pt") == {"epoch": 4}
+    assert ckpt.load_state_file(run / "optimizer_state_dict.pt")["step"] \
+        == 4 * 3
+
+
+def test_grid_dirs_comparisons_and_a_bad_name(tree, monkeypatch, capsys):
+    """A YAML list over the model name: the misspelt one fails with a
+    RegistryError and suggestions, and the grid runs the two good ones
+    into ``Experiment`` and ``Experiment_2`` with cross-experiment
+    comparisons."""
+    root, _, port_weights = tree
+    monkeypatch.setenv("MST_DATA_DIR", str(root / "data"))
+    logs = root / "grid_logs"
+    cfg = _config(logs, port_weights, epochs=1)
+    model = cfg["model"]["segmentation.models.UNet"]
+    cfg["model"] = [{"segmentation.models.UNett": model},
+                    {"segmentation.models.UNet": model},
+                    {"segmentation.models.UNet": model}]
+    main([_write(root / "grid.yaml", cfg), "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert "Unknown component 'segmentation.models.UNett'" in err
+    assert "Did you mean" in err
+    (day,) = list(logs.iterdir())
+    assert sorted(p.name for p in day.iterdir()) == ["Experiment",
+                                                      "Experiment_2"]
+    for name in ("Experiment", "Experiment_2"):
+        run = day / name / "run_1"
+        assert len(_rows(run / "epoch_logs.csv")) == 1
+        assert (run / "comparisons" / "best_values_comparison.csv").is_file()
+        assert (run / "comparisons" / "last_values_comparison.csv").is_file()
+
+
+def test_device_augmentation_lifts_the_chain_like_jax(tree, monkeypatch):
+    """``device_augmentation: true`` lifts the leading rotation, flip and
+    channel repeat into the train step and leaves the rest on the host, as
+    the JAX CLI splits it; one epoch trains with the chain on the CPU."""
+    import torch
+
+    from medsegpretrainimagenet_tpu.cli import run_experiment as jax_run
+    from medsegpretrainimagenet_tpu_torch.cli import run_experiment
+
+    train = [{"segmentation.transforms.wrapped_transforms.RandomRotation":
+              {"limit": 30}},
+             {"segmentation.transforms.wrapped_transforms.RandomFlip": {}},
+             "transform.RepeatChannels",
+             {"segmentation.transforms.wrapped_transforms.CenterCrop":
+              {"size": 12}}]
+    splits = []
+    for cd_cls, module in ((JaxConfigDict, jax_run),
+                           (ConfigDict, run_experiment)):
+        cd = cd_cls({"data": {"transforms": {"train": train,
+                                             "val": []}}})
+        pipelines = module.build_transform_pipelines(
+            cd, 3, device_augmentation=True)
+        splits.append(([type(t).__name__
+                        for t in pipelines[0].transforms],
+                       pipelines[4] is not None))
+        augment = pipelines[4]
+    assert splits[0] == splits[1] == (["CenterCrop", "ConvertToType"], True)
+    out = augment(torch.Generator().manual_seed(0),
+                  {"x": torch.rand(2, 16, 16, 1),
+                   "mask": torch.zeros(2, 16, 16, dtype=torch.int32)})
+    assert out["x"].shape == (2, 16, 16, 3)
+
+    root, _, port_weights = tree
+    monkeypatch.setenv("MST_DATA_DIR", str(root / "data"))
+    cfg = _config(root / "augment_logs", port_weights, epochs=1,
+                  device_augmentation=True)
+    cfg["data"]["transforms"]["train"] = tuple(train[:3])  # not a grid
+    main([_write(root / "augment.yaml", cfg), "--device", "cpu"])
+    rows = _rows(_run_dir(root / "augment_logs") / "run_1"
+                 / "epoch_logs.csv")
+    assert len(rows) == 1 and 0 < float(rows[0]["dice_loss"]) < 1

@@ -1,6 +1,7 @@
-"""The PyTorch port stands alone: it imports no JAX, no flax and nothing of
-the JAX package, and its kernels are written by hand.  ``chip_smoke.py``
-refuses to run without a card or without the package beside it."""
+"""The PyTorch port stands alone: it imports no JAX, no flax, no optax, no
+OpenCV and nothing of the JAX package, and its kernels are written by hand.
+Its CLI trains on the CPU only when asked to.  ``chip_smoke.py`` refuses to
+run without a card or without the package beside it."""
 import ast
 import shutil
 import subprocess
@@ -11,11 +12,12 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "medsegpretrainimagenet_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "medsegpretrainimagenet_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "cv2",
+             "medsegpretrainimagenet_tpu"}
 
 _BLOCKED_RUN = """
 import sys
-for name in ("jax", "flax", "medsegpretrainimagenet_tpu"):
+for name in ("jax", "flax", "optax", "cv2", "medsegpretrainimagenet_tpu"):
     sys.modules[name] = None  # any import of them raises ImportError
 import numpy as np, torch
 from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
@@ -71,13 +73,48 @@ batch = {"x": torch.randint(0, 255, (2, 2, 16, 16, 3), dtype=torch.uint8),
 state, metrics, per_batch = step(state, calc.init_state("cpu"), batch)
 assert torch.isfinite(per_batch["dice_loss"]) and state.step == 1
 assert 0 <= calc.finalize_epoch(metrics)["metrics/dice_index_threshold_0.5"] <= 1
-assert not any(m.split(".")[0] in ("jax", "flax")
+# the experiment CLI, one epoch on the CPU on a tiny COVID-QU tree
+import csv, os, pathlib, tempfile
+from medsegpretrainimagenet_tpu_torch.cli import main
+root = pathlib.Path(tempfile.mkdtemp())
+rng = np.random.default_rng(0)
+for part, n in (("train and val", 8), ("test", 4)):
+    d = root / "COVID_QU" / "Inf_segm" / "data arrays" / "COVID-19" / part
+    d.mkdir(parents=True)
+    np.save(d / "imgs.npy", rng.integers(0, 255, (n, 1, 20, 20), np.uint8))
+    m = np.zeros((n, 1, 20, 20), np.uint8); m[:, :, 5:12, 6:14] = 2
+    np.save(d / "inf_masks.npy", m)
+os.environ["MST_DATA_DIR"] = str(root)
+(root / "cfg.yaml").write_text(f'''
+experiment: {{number_of_epochs: 1}}
+meta: {{technical: {{seed: 1, save_destination: {root}/logs,
+                    maximum_actual_batch_size: 4}}}}
+data:
+  data: {{covidqu: {{lung_or_infection: inf, image_sizes: 16,
+                    validate_on_test: true}}}}
+  sampling: {{batch_size: 4}}
+  transforms: {{train: transform.RepeatChannels,
+               val: transform.RepeatChannels}}
+model: {{segmentation.models.UNet: {{architecture: {{
+  in_channel_size: 3, out_channel_size: 1, depth: 1,
+  channels: !!python/tuple [4, 8]}}}}}}
+training: {{loss: {{segmentation.losses.DiceLoss: {{}}}}}}
+''')
+main([str(root / "cfg.yaml"), "--device", "cpu"])
+(run,) = (root / "logs").glob("*/Experiment/run_1")
+rows = list(csv.DictReader(open(run / "epoch_logs.csv")))
+assert len(rows) == 1 and 0 <= float(rows[0]["dice_loss"]) <= 1, rows
+assert (run / "last_model_state_dict.pt").is_file()
+assert not any(m.split(".")[0] in ("jax", "flax", "optax", "cv2")
                for m, v in sys.modules.items() if v is not None)
 print("OK")
 """
 
 
 def test_port_imports_and_runs_with_jax_blocked():
+    """Serving on both attention paths, a train step and one epoch of the
+    experiment CLI, with JAX, flax, optax, OpenCV and the JAX package
+    unimportable."""
     result = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=ROOT,
                             capture_output=True, text=True, timeout=300)
     assert result.returncode == 0, result.stderr
@@ -126,3 +163,18 @@ def test_chip_smoke_refuses_without_card_or_package(tmp_path):
             pytest.skip("a CUDA card is present: chip_smoke.py ran")
         assert result.returncode != 0
         assert '"ok"' not in result.stdout
+
+
+def test_cli_needs_a_card_or_device_cpu(tmp_path):
+    """Without a card and without ``--device``, the CLI exits non-zero
+    naming the missing device; it trains nothing."""
+    config = tmp_path / "cfg.yaml"
+    config.write_text("experiment: {number_of_epochs: 1}\n")
+    result = subprocess.run(
+        [sys.executable, "-m", "medsegpretrainimagenet_tpu_torch.cli",
+         str(config)], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    if result.returncode == 0:
+        pytest.skip("a CUDA card is present")
+    assert "no CUDA device found" in result.stderr
+    assert not (tmp_path / "logs").exists()

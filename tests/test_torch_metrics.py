@@ -128,3 +128,19 @@ def test_log_confusion_matrix_raises():
     with pytest.raises(NotImplementedError, match="M4"):
         MetricsCalculator(ConfigDict(_config(
             {"log_confusion_matrix": True}, names=("metrics.DiceIndex",))))
+
+
+def test_multilabel_target_broadcasts_like_jax():
+    """A (B, H, W, 1) target against a three-class prediction broadcasts
+    over the classes, as in JAX (the port used to raise)."""
+    rng = np.random.default_rng(4)
+    batches = [(rng.random((2, 6, 6, 3)).astype(np.float32),
+                (rng.random((2, 6, 6, 1)) < 0.4).astype(np.float32))
+               for _ in range(2)]
+    got, want = _run_both({"multilabel": True, "number_of_classes": 3},
+                          batches, names=("metrics.DiceIndex",
+                                          "metrics.Accuracy"))
+    assert got.keys() == want.keys() and want
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=TOL, atol=TOL,
+                                   err_msg=key)

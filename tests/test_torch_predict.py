@@ -104,3 +104,33 @@ def test_checkpoint_round_trip_and_suffix(tmp_path):
     assert all(torch.equal(state[k], back[k]) for k in state)
     with pytest.raises(ValueError, match="state_dict_from_jax"):
         ckpt.load_params_file(str(tmp_path / "s.msgpack"))
+
+
+def test_predict_resizes_like_jax(served):
+    """Serving a 48 x 48 stack at the model's 64 x 64: the port resizes
+    with its own bilinear map (no OpenCV), so its output equals the output
+    for the stack resized beforehand by ``data.warp.resize``; against the
+    JAX package, which resizes with OpenCV, within 5e-3 (on uint8
+    upscaling OpenCV's fixed-point rounding moves about 0.6 % of the
+    pixels by one gray level)."""
+    from medsegpretrainimagenet_tpu_torch.data.warp import resize
+
+    imgs = (np.random.default_rng(1).random((3, 1, 48, 48)) * 255) \
+        .astype(np.uint8)
+    np.save(served / "small.npy", imgs)
+    np.save(served / "resized.npy",
+            np.stack([resize(img[0], (64, 64))[None] for img in imgs]))
+    jax_predict.predict_from_config(
+        JaxConfigDict(model_config()), str(served / "w.msgpack"),
+        str(served / "small.npy"), str(served / "jax_small.npy"),
+        batch_size=2, image_size=64)
+    for name in ("small", "resized"):
+        predict.predict_from_config(
+            ConfigDict(model_config()), str(served / "w.pt"),
+            str(served / f"{name}.npy"), str(served / f"port_{name}.npy"),
+            batch_size=2, image_size=64, device="cpu")
+    out = np.load(served / "port_small.npy")
+    np.testing.assert_array_equal(out, np.load(served / "port_resized.npy"))
+    ref = np.load(served / "jax_small.npy")
+    assert out.shape == ref.shape == (3, 64, 64, 1)
+    np.testing.assert_allclose(out, ref, atol=5e-3)

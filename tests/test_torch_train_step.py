@@ -297,3 +297,38 @@ def test_step_random_stream_is_seeded(jax_model):
                                   for g in seen)
     assert torch.equal(results[0], results[1])
     assert not torch.equal(results[0], results[2])
+
+
+def test_parameter_without_gradient_follows_the_jax_rule(jax_model):
+    """A trainable parameter the loss does not reach: optax applies momentum
+    and weight decay to its zero gradient, and so does the port's step
+    (torch.optim alone would skip it).  Three steps, against the JAX
+    optimizer's transform on zero gradients."""
+    _, variables = jax_model
+    opt_cfg = {"sgd": {"momentum": 0.9, "weight decay": 0.1,
+                       "learning_rate": {"constant": {"base": 0.05}}}}
+    model = build_model(ConfigDict, registry, Model, unet_config())
+    transplant(variables, model.module)
+    model.module.register_parameter(
+        "unused", torch.nn.Parameter(torch.ones(3)))
+    optimizer = Optimizer(ConfigDict(opt_cfg), num_epochs=1,
+                          batches_per_epoch=STEPS)
+    state = TrainState.create(model.module, optimizer.init(model.module), 1)
+    loss = Loss(DiceLoss, ConfigDict({"label type": "mask"}))
+    step = make_train_step(model, loss, None, optimizer)
+    for batch in _batches():
+        state, _, _ = step(state, None, {k: torch.from_numpy(v)[None]
+                                         for k, v in batch.items()})
+
+    jopt = JaxOptimizer(JaxConfigDict(opt_cfg), num_epochs=1,
+                        batches_per_epoch=STEPS)
+    params = {"unused": np.ones(3, np.float32)}
+    opt_state = jopt.tx.init(params)
+    for _ in range(STEPS):
+        updates, opt_state = jopt.tx.update(
+            {"unused": np.zeros(3, np.float32)}, opt_state, params)
+        params = jax.tree_util.tree_map(lambda p, u: p + u, params, updates)
+    np.testing.assert_allclose(model.module.unused.detach().numpy(),
+                               np.asarray(params["unused"]), rtol=1e-6,
+                               atol=1e-7)
+    assert float(model.module.unused.detach()[0]) < 0.99
