@@ -46,7 +46,19 @@ Dice rising, and that the error envelope printed nothing; it prints the
 epochs' images/s beside ``[train]``'s, the val and checkpoint times and the
 device time per step.  In this process it counts the host syncs of
 ``run_epoch`` at two step counts, times host assembly and the copy to the
-card per batch, profiles the device's busy share and runs the test pass.
+card per batch, profiles the device's busy share and runs the test
+pass; ``[cli det]`` runs one epoch of the same config under
+deterministic algorithms and names any operation that has no
+deterministic CUDA kernel.  ``[metrics]`` holds every metric
+of the suite (HD95, AUROC and AP, the multiclass family) on one full-width
+batch against the same port on the CPU, under sync debug mode "error" and
+under deterministic algorithms, with its device ms and launches per update,
+and steps ``unet_256_train`` with the COVID-QU reference metric set folded
+into the step.  ``[cli acdc]`` trains the ACDC multiclass U-Net (the
+full-width U-Net with a 4-class softmax head, multiclass Dice loss, the
+multiclass Dice, Jaccard, HD95 and AUROC, the confusion-matrix export and
+a profiler trace) through the CLI on a synthetic NIfTI tree, three epochs
+and a fourth under ``--continued``.
 Any failure exits non-zero.  Without a CUDA
 card, or without the package beside it, it exits non-zero and prints no
 result.  It imports nothing of JAX.
@@ -1272,6 +1284,222 @@ def phase_train_full() -> float:
         blocks.set_compute_dtype(None)
 
 
+#: [metrics]: one full-width batch (16 at 256 x 256) of predictions drawn
+#: from a seed, binary (sigmoid) and 4-class (softmax)
+METRIC_BATCH, METRIC_SIZE, METRIC_CLASSES = 16, 256, 4
+#: the bar on the max |card - CPU| / max(1, |CPU|) of every metric's
+#: per-step values and epoch row.  On an H100 the worst read 2.0e-7 (HD95,
+#: 7.6e-6 on 37.7 pixels: the card and the CPU sum and interpolate in
+#: another order); AUROC and AP read 1e-9 or less (float64 sums), the rest
+#: 0
+METRIC_TOL = 2e-6
+MC = "metrics.multiclass_metrics."
+#: (what, the metric names that build it, binary or multiclass inputs)
+METRIC_CASES = (
+    ("HD95Spec", ("metrics.ModifiedHausdorffDistance",), "binary"),
+    ("AUCSpec area_under_roc", ("metrics.AUROC",), "binary"),
+    ("AUCSpec average_precision_score", ("metrics.AveragePrecision",),
+     "binary"),
+    ("MultiClassCMSpec + AverageBinaryCMSpec + ClasswiseBinaryCMSpec + "
+     "MCAccuracySpec", (MC + "DiceIndex", MC + "JaccardIndex",
+                        MC + "ClasswiseAccuracies", MC + "Accuracy"),
+     "multiclass"),
+    ("AverageContinuousSpec area_under_roc", (MC + "AUROC",), "multiclass"),
+    ("AverageContinuousSpec average_precision_score",
+     (MC + "AveragePrecision",), "multiclass"),
+    ("MCHD95Spec", (MC + "ModifiedHausdorffDistance",), "multiclass"))
+#: the COVID-QU reference metric set (SURVEY.md:453) on the train step
+COVIDQU_METRICS = ("metrics.DiceIndex", "metrics.JaccardIndex", "metrics.MCC",
+                   "metrics.ModifiedHausdorffDistance", "metrics.AUROC")
+
+
+def acdc_labels(rng, n: int, height: int, width: int):
+    """(n, height, width) uint8 cardiac-like label maps: an LV disc (3)
+    inside a myocardium ring (2), an RV crescent (1) beside it."""
+    import numpy as np
+
+    yy, xx = np.mgrid[:height, :width]
+    out = np.zeros((n, height, width), np.uint8)
+    for lab in out:
+        cy = rng.integers(height // 3, 2 * height // 3)
+        cx = rng.integers(width // 3, 2 * width // 3)
+        r = rng.uniform(height / 16, height / 8)
+        ring = rng.uniform(height / 40, height / 24)
+        d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+        lab[d2 < (r + ring) ** 2] = 2
+        lab[d2 < r * r] = 3
+        rv = (yy - cy) ** 2 + (xx - cx + r + ring) ** 2 < (r + ring) ** 2
+        lab[rv & (lab == 0)] = 1
+    return out
+
+
+def metric_inputs(seed: int = 0) -> dict:
+    """{'binary': (prediction, mask), 'multiclass': (...)} as numpy."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mask = segmentation_batch(1, METRIC_BATCH, METRIC_SIZE,
+                              seed=seed)["mask"][0].numpy()
+    logits = rng.normal(0, 1.5, mask.shape) + 3.0 * (2.0 * mask - 1.0)
+    binary = ((1 / (1 + np.exp(-logits)))[..., None].astype(np.float32),
+              mask.astype(np.float32))
+    labels = acdc_labels(rng, METRIC_BATCH, METRIC_SIZE, METRIC_SIZE)
+    raw = rng.normal(0, 1.5, labels.shape + (METRIC_CLASSES,)) \
+        + 3.0 * np.eye(METRIC_CLASSES)[labels]
+    probs = np.exp(raw) / np.exp(raw).sum(-1, keepdims=True)
+    return {"binary": binary,
+            "multiclass": (probs.astype(np.float32),
+                           labels.astype(np.int64))}
+
+
+def _metric_run(names, inputs, device):
+    """One update of a fresh calculator on *device*; (per-step values and
+    epoch row on the host, calculator, state, prediction, batch)."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict
+    from medsegpretrainimagenet_tpu_torch.metrics import MetricsCalculator
+    from medsegpretrainimagenet_tpu_torch.metrics.calculator import to_host
+
+    calc = MetricsCalculator(ConfigDict({"metrics": {
+        "metrics": names,
+        "calculation": {"number_of_classes": METRIC_CLASSES}}}))
+    pred = torch.from_numpy(inputs[0]).to(device)
+    batch = {"mask": torch.from_numpy(inputs[1]).to(device)}
+    state, per_batch = calc.update(calc.init_state(device), pred, batch)
+    return (to_host(per_batch), calc.finalize_epoch(state)), calc, pred, \
+        batch
+
+
+def _max_diff(a, b) -> float:
+    import numpy as np
+
+    (step_a, row_a), (step_b, row_b) = a, b
+    if step_a.keys() != step_b.keys() or row_a.keys() != row_b.keys():
+        fail(f"[metrics] the card and the CPU give different keys: "
+             f"{sorted(step_a)} {sorted(row_a)} / {sorted(step_b)} "
+             f"{sorted(row_b)}")
+    pairs = [(np.asarray(step_a[k], np.float64),
+              np.asarray(step_b[k], np.float64)) for k in step_a] \
+        + [(np.float64(row_a[k]), np.float64(row_b[k])) for k in row_a]
+    diffs = [float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(b))))
+             for a, b in pairs]
+    return max(diffs) if diffs else 0.0
+
+
+def phase_metrics(step_rate: float) -> None:
+    """[metrics]: each metric of the suite on one full-width batch on the
+    card against the same port on the CPU (max |card - CPU| under
+    METRIC_TOL), under sync debug mode "error" (an update may not wait for
+    the card) and under deterministic algorithms (the same values); its
+    device ms per update (CUDA events, median of 5) and launches per
+    update.  Then unet_256_train stepped with the COVID-QU reference
+    metric set folded into the step, beside [train]'s Dice-only rate."""
+    import statistics as stats
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from medsegpretrainimagenet_tpu_torch.models import blocks
+
+    inputs = metric_inputs()
+    for what, names, kind in METRIC_CASES:
+        cpu, _, _, _ = _metric_run(names, inputs[kind], "cpu")
+        card, calc, pred, batch = _metric_run(names, inputs[kind], "cuda")
+        err = _max_diff(card, cpu)
+        check(err <= METRIC_TOL, f"[metrics] {what}: max |card - CPU| / "
+                                 f"max(1, |CPU|) {err:.3g} (bar "
+                                 f"{METRIC_TOL})")
+        state0 = calc.init_state("cuda")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            calc.update(state0, pred, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.use_deterministic_algorithms(True)
+        try:
+            deterministic, _, _, _ = _metric_run(names, inputs[kind], "cuda")
+        finally:
+            torch.use_deterministic_algorithms(False)
+        det_err = _max_diff(deterministic, card)
+        check(det_err <= METRIC_TOL, f"[metrics] {what}: deterministic "
+                                     f"against default {det_err:.3g}")
+        times = []
+        for _ in range(5):
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            torch.cuda.synchronize()
+            start.record()
+            calc.update(state0, pred, batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            calc.update(state0, pred, batch)
+            torch.cuda.synchronize()
+        launches = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA)
+        print(f"[metrics] {what} ({kind}, {METRIC_BATCH}x{METRIC_SIZE}x"
+              f"{METRIC_SIZE}): max |card - CPU| / max(1, |CPU|) {err:.3g}"
+              f" (bar {METRIC_TOL}), deterministic against default "
+              f"{det_err:.3g}; "
+              f"{stats.median(times):.3f} ms per update (median of 5: "
+              f"{[round(t, 3) for t in sorted(times)]}), {launches} "
+              f"launches; no host sync (sync debug mode 'error')",
+              flush=True)
+        del calc, pred, batch, state0
+        torch.cuda.empty_cache()
+
+    # unet_256_train with the COVID-QU reference metric set in the step
+    cfg = unet_256_train_config()
+    cfg["metrics"] = {"metrics": COVIDQU_METRICS}
+    blocks.set_compute_dtype(torch.bfloat16)
+    try:
+        model, state, calculator, step = build_trainer(cfg, "cuda")
+        batch = {k: v.cuda() for k, v in segmentation_batch(
+            1, TRAIN_BATCH, TRAIN_SIZE, seed=0).items()}
+        metrics_state = calculator.init_state("cuda")
+        for _ in range(3):
+            state, metrics_state, per_batch = step(state, metrics_state,
+                                                   batch)
+        rates = []
+        for _ in range(TURNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for _ in range(TURN_STEPS):
+                    state, metrics_state, per_batch = step(
+                        state, metrics_state, batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            rates.append(TRAIN_BATCH * TURN_STEPS
+                         / (time.perf_counter() - t0))
+        values = calculator.finalize_epoch(metrics_state)
+        check(all(math.isfinite(v) for v in values.values())
+              and values["metrics/modified_hausdorff_distance_threshold_0.5"]
+              > 0, f"[metrics] epoch row with the COVID-QU set {values}")
+        rate = stats.median(rates)
+        print(f"[metrics] unet_256_train bf16 with the COVID-QU metric set "
+              f"{list(COVIDQU_METRICS)} in the step, no host sync: median "
+              f"{rate:.1f} images/s of {[round(r, 1) for r in sorted(rates)]}"
+              f" ({1e3 * TRAIN_BATCH / rate:.2f} ms per step) against "
+              f"[train]'s Dice-only {step_rate:.1f} images/s "
+              f"({1e3 * TRAIN_BATCH / step_rate:.2f} ms) in this call; "
+              f"epoch row {values}", flush=True)
+        profile_train(lambda n: [step(state, metrics_state, batch)
+                                 for _ in range(n)], 3,
+                      1e3 * TRAIN_BATCH / rate, tag="metrics step")
+    finally:
+        blocks.set_compute_dtype(None)
+    del model, state, calculator, step, metrics_state
+    torch.cuda.empty_cache()
+
+
 #: the [cli] run: COVID-QU-shaped synthetic data, 1024 training images (64
 #: steps of 16 per epoch) and 16 test images (the val split under
 #: validate_on_test), 3 epochs, then a 4th under --continued
@@ -1323,7 +1551,8 @@ def cli_config(workdir: Path, epochs: int, absolute_path=None) -> dict:
     }
 
 
-def write_covidqu_tree(root: Path, seed: int = 0) -> None:
+def write_covidqu_tree(root: Path, seed: int = 0,
+                       images: int = CLI_IMAGES) -> None:
     """A COVID-QU tree as ``bench.py:1061-1071`` writes it, with bright
     discs over noise as the images and the discs as the infection mask
     (values 0/2), so that the Dice has something to learn."""
@@ -1332,7 +1561,7 @@ def write_covidqu_tree(root: Path, seed: int = 0) -> None:
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[:CLI_SIZE, :CLI_SIZE]
     base = root / "COVID_QU" / "Inf_segm" / "data arrays" / "COVID-19"
-    for part, n in (("train and val", CLI_IMAGES), ("test", CLI_TEST)):
+    for part, n in (("train and val", images), ("test", CLI_TEST)):
         masks = np.zeros((n, 1, CLI_SIZE, CLI_SIZE), np.uint8)
         for m in masks[:, 0]:
             for _ in range(3):
@@ -1354,10 +1583,10 @@ def _csv_rows(path: Path) -> list:
         return list(csv.DictReader(fh))
 
 
-def _run_cli(workdir: Path, config: dict, *modifiers: str) -> float:
+def _cli_process(workdir: Path, config: dict, *modifiers: str):
     """``python3 -m medsegpretrainimagenet_tpu_torch.cli`` as a user runs
-    it, in a process of its own; fails on a non-zero exit or on anything
-    the error envelope printed.  Returns the wall seconds."""
+    it, in a process of its own.  Returns (wall seconds, the finished
+    process)."""
     import os
 
     from medsegpretrainimagenet_tpu_torch.config import dump_yaml
@@ -1372,10 +1601,16 @@ def _run_cli(workdir: Path, config: dict, *modifiers: str) -> float:
         [sys.executable, "-m", "medsegpretrainimagenet_tpu_torch.cli",
          str(path), *modifiers], cwd=workdir, env=env, capture_output=True,
         text=True, timeout=400)
-    seconds = time.perf_counter() - t0
+    return time.perf_counter() - t0, out
+
+
+def _run_cli(workdir: Path, config: dict, *modifiers: str) -> float:
+    """:func:`_cli_process`, failing on a non-zero exit or on anything
+    the error envelope printed.  Returns the wall seconds."""
+    seconds, out = _cli_process(workdir, config, *modifiers)
     marks = [m for m in ENVELOPE_MARKS if m in out.stderr]
     check(out.returncode == 0 and not marks,
-          f"[cli] {path.name} {' '.join(modifiers)}: exit {out.returncode}, "
+          f"[cli] {' '.join(out.args[3:])}: exit {out.returncode}, "
           f"envelope marks {marks}; stderr tail:\n{out.stderr[-4000:]}")
     return seconds
 
@@ -1636,6 +1871,224 @@ def phase_cli(step_rate: float) -> None:
     print(f"[cli] {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+#: [cli det]: the [cli] config under deterministic algorithms, one epoch
+DET_IMAGES = 256
+
+
+def phase_cli_deterministic() -> None:
+    """[cli det]: the [cli] config with ``use_deterministic_algorithms``
+    on, one epoch over DET_IMAGES images, in a process of its own: it must
+    exit 0; an operation without a deterministic CUDA kernel raises inside
+    the error envelope and is reported by name."""
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        workdir = Path(tmp)
+        write_covidqu_tree(workdir / "data", images=DET_IMAGES)
+        cfg = cli_config(workdir, 1)
+        cfg["meta"]["technical"]["use_deterministic_algorithms"] = True
+        seconds, out = _cli_process(workdir, cfg)
+        raised = sorted(set(re.findall(
+            r"(\S+) does not have a deterministic implementation",
+            out.stderr)))
+        marks = [m for m in ENVELOPE_MARKS if m in out.stderr]
+        check(out.returncode == 0 and (raised or not marks),
+              f"[cli det] exit {out.returncode}, envelope marks {marks}; "
+              f"stderr tail:\n{out.stderr[-4000:]}")
+        (run,) = (workdir / "logs").glob("*/Experiment/run_1")
+        rows = _csv_rows(run / "epoch_logs.csv")
+        steps = _csv_rows(run / "profile" / "step_times.csv")
+        check(len(rows) == 1 and len(steps) == 1,
+              f"[cli det] {len(rows)} epoch rows")
+        print(f"[cli det] the [cli] config under deterministic algorithms, "
+              f"1 epoch of {DET_IMAGES} images in {seconds:.1f} s of wall "
+              f"time (process and cuDNN autotuning included): operations "
+              f"without a deterministic CUDA kernel that raised: "
+              f"{raised or 'none'}; dice_loss {rows[0]['dice_loss']}, val "
+              f"Dice {rows[0]['val_metrics/dice_index_threshold_0.5']}; "
+              f"device time per step p50 {1e3 * float(steps[0]['p50_s']):.2f}"
+              f" ms", flush=True)
+    print(f"[cli det] {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+#: [cli acdc]: a synthetic ACDC tree, ACDC_TRAIN + ACDC_TEST patients of
+#: two frames of ACDC_SHAPE each (800 training and 200 validation slices
+#: of 256 x 256 after the resize), ACDC_EPOCHS epochs and one more under
+#: --continued
+ACDC_TRAIN, ACDC_TEST, ACDC_SHAPE, ACDC_EPOCHS = 40, 10, (232, 256, 10), 3
+ACDC_CLASSES = ("RV cavity", "myocardium", "LV cavity")
+ACDC_METRICS = (MC + "DiceIndex", MC + "JaccardIndex",
+                MC + "ModifiedHausdorffDistance", MC + "AUROC")
+#: epoch_logs.csv's columns of the ACDC run, the JAX CLI's set
+#: (tests/test_torch_cli.py holds the two CLIs' sets equal)
+ACDC_EPOCH_COLUMNS = {"epoch", "learning_rate", "dice_loss",
+                      "val_dice_loss"} | {
+    f"{prefix}metrics/{name}" for prefix in ("", "val_") for name in (
+        "dice_index_RV_cavity", "dice_index_myocardium",
+        "dice_index_LV_cavity", "mean_dice_index", "mean_jaccard_index",
+        "modified_hausdorff_distance", "area_under_roc")}
+
+
+def write_acdc_tree(root: Path, seed: int = 0) -> None:
+    """ACDC patient directories written with the port's save_nii: float32
+    image volumes of ACDC_SHAPE (an LV disc in a myocardium ring and an RV
+    crescent over noise) and their uint8 label volumes."""
+    import numpy as np
+
+    from medsegpretrainimagenet_tpu_torch.data.readers import save_nii
+
+    rng = np.random.default_rng(seed)
+    h, w, z = ACDC_SHAPE
+    for part, n in (("training", ACDC_TRAIN), ("testing", ACDC_TEST)):
+        for p in range(n):
+            d = root / "ACDC" / part / f"patient{p:03d}"
+            d.mkdir(parents=True)
+            for frame in (1, 12):
+                labels = acdc_labels(rng, z, h, w).transpose(1, 2, 0)
+                img = 60 + 50 * labels + rng.normal(0, 15, labels.shape)
+                stem = str(d / f"patient{p:03d}_frame{frame:02d}")
+                save_nii(stem + ".nii.gz", img.astype(np.float32),
+                         compresslevel=1)
+                save_nii(stem + "_gt.nii.gz", np.ascontiguousarray(labels),
+                         compresslevel=1)
+
+
+def acdc_config(workdir: Path, epochs: int, absolute_path=None) -> dict:
+    """The ACDC U-Net: the [train] U-Net at full width with a 4-channel
+    softmax head (``config/downstream/acdc/unet.yaml``'s shape), batchwise
+    multiclass Dice loss with the background, the multiclass Dice (with
+    classwise columns), Jaccard, HD95 and AUROC, the confusion-matrix
+    export, profiling and a watched val mean Dice; the rest as [cli]."""
+    cfg = cli_config(workdir, epochs, absolute_path)
+    cfg["meta"]["technical"]["model_evaluation"] = {
+        "metric": "val_metrics/mean_dice_index", "mode": "max"}
+    cfg["data"]["data"] = {"segmentation.datasets.ACDC": {
+        "image_sizes": CLI_SIZE, "validate_on_test": True}}
+    model = cfg["model"]["segmentation.models.UNet"]
+    model["architecture"]["out_channel_size"] = len(ACDC_CLASSES) + 1
+    model["final_activation"] = "softmax"
+    cfg["training"]["loss"] = {"segmentation.losses.DiceLoss": {
+        "batchwise": True, "include_background": True,
+        "apply_softmax": False, "smoothing_term": 1e-5}}
+    cfg["metrics"] = {"metrics": ACDC_METRICS, "calculation": {
+        "number_of_classes": len(ACDC_CLASSES) + 1,
+        "class_names": ACDC_CLASSES, "log_confusion_matrix": True}}
+    return cfg
+
+
+def _check_acdc_run(run: Path, epochs: int, module) -> list:
+    """The ACDC run directory after *epochs* epochs; returns the rows."""
+    import json
+
+    from medsegpretrainimagenet_tpu_torch.train import checkpoint as ckpt
+
+    rows = _csv_rows(run / "epoch_logs.csv")
+    check(len(rows) == epochs and set(rows[0]) == ACDC_EPOCH_COLUMNS,
+          f"[cli acdc] epoch_logs.csv: {len(rows)} rows (want {epochs}), "
+          f"columns {sorted(rows[0]) if rows else None}")
+    steps = math.ceil(ACDC_TRAIN * 2 * ACDC_SHAPE[2] / CLI_BATCH)
+    check(len(_csv_rows(run / "batch_logs.csv")) == steps * epochs,
+          "[cli acdc] batch_logs.csv rows")
+    for row in rows:
+        check(all(math.isfinite(float(v)) for v in row.values()),
+              f"[cli acdc] epoch row {row}")
+    for split in ("train", "val"):
+        path = run / "Confusion_matrices" / \
+            f"{split}_confusion_matrix_epoch_{epochs}.json"
+        check(path.is_file(), f"[cli acdc] {path.name} missing")
+        matrix = json.loads(path.read_text())["matrix"]
+        check(len(matrix) == 4 and sum(map(sum, matrix)) > 0,
+              f"[cli acdc] {path.name}: {matrix}")
+    plot = json.loads((run / "plots" / "dice_indices_plot.json")
+                      .read_text())
+    check(len(plot["Ys"]) == 3 and len(plot["Ys"][0]) == epochs,
+          f"[cli acdc] dice_indices_plot.json: {plot['Ys']}")
+    trace = run / "profile" / "trace" / "trace.json"
+    check(trace.is_file() and trace.stat().st_size > 0,
+          "[cli acdc] profile/trace/trace.json missing")
+    # ACDC's reader has no test split (validate_on_test makes the testing
+    # patients the val split): neither CLI writes test_logs.csv for it
+    check(not (run / "test_logs.csv").exists(),
+          "[cli acdc] test_logs.csv written for a reader without a test "
+          "split")
+    for name in ("last_model_state_dict.pt", "best_model_state_dict.pt"):
+        module.load_state_dict(ckpt.load_params_file(run / name))
+    return rows
+
+
+def phase_cli_acdc(step_rate: float) -> None:
+    """[cli acdc]: the ACDC multiclass U-Net through the experiment CLI in
+    a process of its own, ACDC_EPOCHS epochs and one more under
+    --continued, on a synthetic tree written with the port's save_nii."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
+    from medsegpretrainimagenet_tpu_torch.models import Model
+
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        workdir = Path(tmp)
+        write_acdc_tree(workdir / "data")
+        n_train = ACDC_TRAIN * 2 * ACDC_SHAPE[2]
+        print(f"[cli acdc] synthetic ACDC tree: {ACDC_TRAIN} + {ACDC_TEST} "
+              f"patients of two {ACDC_SHAPE} volumes ({n_train} + "
+              f"{ACDC_TEST * 2 * ACDC_SHAPE[2]} slices) in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        seconds = _run_cli(workdir, acdc_config(workdir, ACDC_EPOCHS))
+        (exp,) = (workdir / "logs").glob("*/Experiment")
+        run = exp / "run_1"
+        cd = ConfigDict({"model": acdc_config(workdir, 1)["model"]})
+        cd.expand()
+        registry.fill_spec(cd, "model")
+        module = registry.build(cd, key="model", wrapper=Model).module
+        rows = _check_acdc_run(run, ACDC_EPOCHS, module)
+        losses = [float(r["dice_loss"]) for r in rows]
+        dice = [float(r["val_metrics/mean_dice_index"]) for r in rows]
+        check(losses[-1] < losses[0] and dice[-1] > dice[0],
+              f"[cli acdc] dice_loss {losses}, val mean Dice {dice}")
+        last = rows[-1]
+        print(f"[cli acdc] {ACDC_EPOCHS} epochs in {seconds:.1f} s of wall "
+              f"time (process included): dice_loss {losses}, val mean Dice "
+              f"{dice}; epoch {ACDC_EPOCHS} val: "
+              + ", ".join(f"{k.split('/')[-1]} {float(v):.4f}"
+                          for k, v in last.items()
+                          if k.startswith("val_metrics/")), flush=True)
+        epoch_times = _csv_rows(run / "profile" / "epoch_times.csv")
+        step_times = _csv_rows(run / "profile" / "step_times.csv")
+        for row, steps in zip(epoch_times, step_times):
+            train_s = float(row["train_s"])
+            rate = n_train / train_s
+            print(f"[cli acdc] epoch {row['epoch']}: train {train_s:.3f} s "
+                  f"= {rate:.1f} images/s ({100 * rate / step_rate:.1f} % "
+                  f"of [train]'s {step_rate:.1f} step-only images/s), val "
+                  f"{float(row['val_s']):.3f} s, checkpoints "
+                  f"{float(row['ckpt_s']):.3f} s; device time per step "
+                  f"mean {1e3 * float(steps['mean_s']):.2f} ms, p50 "
+                  f"{1e3 * float(steps['p50_s']):.2f}, max "
+                  f"{1e3 * float(steps['max_s']):.2f}", flush=True)
+        trace = run / "profile" / "trace" / "trace.json"
+        matrices = sorted(p.name for p in
+                          (run / "Confusion_matrices").iterdir())
+        print(f"[cli acdc] files: Confusion_matrices {matrices}, "
+              f"plots/dice_indices_plot.json, profile/trace/trace.json "
+              f"({trace.stat().st_size / 2 ** 20:.1f} MiB)", flush=True)
+
+        seconds = _run_cli(workdir, acdc_config(
+            workdir, ACDC_EPOCHS + 1, absolute_path=str(exp) + "/"),
+            "--continued")
+        rows = _check_acdc_run(run, ACDC_EPOCHS + 1, module)
+        check([int(r["epoch"]) for r in rows]
+              == list(range(1, ACDC_EPOCHS + 2)), "[cli acdc] resumed epochs")
+        print(f"[cli acdc] --continued: epoch {ACDC_EPOCHS + 1} in "
+              f"{seconds:.1f} s of wall time: dice_loss "
+              f"{rows[-1]['dice_loss']}, val mean Dice "
+              f"{rows[-1]['val_metrics/mean_dice_index']}", flush=True)
+        del module
+        torch.cuda.empty_cache()
+    print(f"[cli acdc] {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not (ROOT / "medsegpretrainimagenet_tpu_torch").is_dir():
         fail("run from a checkout: the package medsegpretrainimagenet_tpu_"
@@ -1660,7 +2113,10 @@ def main() -> int:
     timed("train small", phase_train_small)
     timed("train bf16", phase_train_bf16)
     step_rate = timed("train", phase_train_full)
+    timed("metrics", phase_metrics, step_rate)
     timed("cli", phase_cli, step_rate)
+    timed("cli det", phase_cli_deterministic)
+    timed("cli acdc", phase_cli_acdc, step_rate)
 
     # per kernel: the 14 calls of one bf16 forward at batch 24, summed,
     # L2-cold (warm_ms: the same calls on warm inputs); launches from its

@@ -6,7 +6,11 @@ filling for every component, the effective batch size (the largest divisor
 of the virtual batch size within ``maximum_actual_batch_size``),
 experiment-name tagging from ``name_fields``, the ``config.yaml`` and
 ``source_config.yaml`` dumps, multi-trial variance statistics, history
-plots and an ``environment.txt`` module-version dump.
+plots and an ``environment.txt`` module-version dump.  The host switches of
+``meta/technical`` act as the reference's do (``run_experiment.py:53-65``):
+a memory limit, deterministic algorithms, cuDNN autotuning, the number of
+CPU threads; ``debug_nans`` makes the epoch loop check every step's scalars
+(``train/loop.py``).
 
 The port trains on one device: the card unless the caller names another.
 Data parallelism, spatial sharding and tensor parallelism are ROADMAP queue
@@ -24,7 +28,7 @@ import socket
 import sys
 import warnings
 from datetime import datetime
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +39,7 @@ from ..config.config_dict import unescape
 from ..data import BalancedDataLoader, Dataset
 from ..data.transforms import Compose, ConvertToType, build_transform
 from ..losses import Loss
-from ..metrics import MetricsCalculator
+from ..metrics import MetricsCalculator, build_host_loggers
 from ..models import Model
 from ..models.blocks import set_compute_dtype
 from ..optim import Optimizer
@@ -48,7 +52,11 @@ from ..utils.device import resolve_device
 __all__ = ["experiment", "run_exp", "check_for_continued",
            "plot_and_save_history", "compare_experiments",
            "get_logs_from_path", "fill_dict_with_name_fields",
-           "effective_batch_size", "build_transform_pipelines"]
+           "effective_batch_size", "build_transform_pipelines",
+           "apply_host_switches"]
+
+#: cuBLAS's workspace setting for deterministic results
+_CUBLAS_DETERMINISTIC = ":4096:8"
 
 
 def _divisors(n: int) -> List[int]:
@@ -281,6 +289,46 @@ def _refuse_parallelism(tech: ConfigDict) -> None:
             f"visible with CUDA_VISIBLE_DEVICES")
 
 
+def apply_host_switches(tech: ConfigDict, device: torch.device) -> None:
+    """The process-wide switches of ``meta/technical``, as the reference
+    applies them (``run_experiment.py:53-65``): an RLIMIT memory cap
+    (``memory_usage_limit``, a scalar or a (soft, hard) pair in GiB, -1
+    off), ``use_deterministic_algorithms`` (torch's deterministic mode and
+    cuDNN's deterministic algorithms; an operation without a deterministic
+    CUDA kernel then raises), ``use_cudnn_benchmarking`` and
+    ``number_of_cpu_threads``.  Deterministic cuBLAS needs
+    ``CUBLAS_WORKSPACE_CONFIG`` before its first call: it is set when
+    unset, with a warning if CUDA is already initialised in this
+    process."""
+    mem_limit = tech.get("memory_usage_limit", -1)
+    if isinstance(mem_limit, (int, float)):
+        mem_limit = (mem_limit, mem_limit)
+    mem_limit = [float(limit) for limit in mem_limit]
+    if any(limit > 0 for limit in mem_limit):
+        with swallow("Could not set the memory limit."):
+            import resource
+            resource.setrlimit(resource.RLIMIT_DATA, tuple(
+                int(limit * 2 ** 30) if limit > 0 else resource.RLIM_INFINITY
+                for limit in mem_limit))
+    deterministic = bool(tech.get("use_deterministic_algorithms", False))
+    if deterministic and "CUBLAS_WORKSPACE_CONFIG" not in os.environ:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = _CUBLAS_DETERMINISTIC
+        if torch.cuda.is_initialized():
+            warnings.warn("use_deterministic_algorithms: CUDA was initialised "
+                          "before CUBLAS_WORKSPACE_CONFIG was set; cuBLAS "
+                          "may not be deterministic in this process. Set "
+                          f"CUBLAS_WORKSPACE_CONFIG={_CUBLAS_DETERMINISTIC} "
+                          "before starting it.")
+    torch.use_deterministic_algorithms(deterministic)
+    torch.backends.cudnn.deterministic = deterministic
+    if device.type == "cuda":
+        torch.backends.cudnn.benchmark = bool(
+            tech.get("use_cudnn_benchmarking", True))
+    threads = int(tech.get("number_of_cpu_threads", 0) or 0)
+    if threads > 0:
+        torch.set_num_threads(threads)
+
+
 def experiment(config_dict: ConfigDict, original: Optional[dict] = None,
                series_id: Optional[str] = None,
                modifiers: Optional[List[str]] = None, device=None,
@@ -297,22 +345,7 @@ def experiment(config_dict: ConfigDict, original: Optional[dict] = None,
     tech = config_dict["meta/technical"].trim()
     config_dict["meta/technical"] = tech
     _refuse_parallelism(tech)
-
-    # host resource guard (reference run_experiment.py:53-65): an RLIMIT
-    # memory cap, given as a scalar or a (soft, hard) pair; -1 disables
-    mem_limit = tech.get("memory_usage_limit", -1)
-    if isinstance(mem_limit, (int, float)):
-        mem_limit = (mem_limit, mem_limit)
-    mem_limit = [float(limit) for limit in mem_limit]
-    if any(limit > 0 for limit in mem_limit):
-        with swallow("Could not set the memory limit."):
-            import resource
-            resource.setrlimit(resource.RLIMIT_DATA, tuple(
-                int(limit * 2 ** 30) if limit > 0 else resource.RLIM_INFINITY
-                for limit in mem_limit))
-    if device.type == "cuda":
-        torch.backends.cudnn.benchmark = bool(
-            tech.get("use_cudnn_benchmarking", True))
+    apply_host_switches(tech, device)
 
     BalancedDataLoader.fill_kwargs(
         config_dict.get_or_update("data/sampling", ConfigDict()))
@@ -384,6 +417,12 @@ def experiment(config_dict: ConfigDict, original: Optional[dict] = None,
             val_data = getattr(ds_object, "val", {})
             test_data = getattr(ds_object, "test", {})
             load_function = getattr(ds_object, "load_function", None)
+            class_names = getattr(
+                ds_object, "CLASSES",
+                config_dict.get_str_tuple(
+                    "metrics/calculation/class_names",
+                    tuple(f"class_{j}" for j in range(config_dict.get(
+                        "metrics/calculation/number_of_classes", 0) or 0))))
 
             # reference number_of_data_loader_workers: the loader's
             # parallel lazy-load pool; batches stay bit-identical
@@ -412,6 +451,7 @@ def experiment(config_dict: ConfigDict, original: Optional[dict] = None,
             run_exp(train_ds, val_ds, test_ds, curr_destination,
                     curr_seed + epoch_start * (run_start != i),
                     config_dict.trim(), batch_size, bs, idx=i,
+                    class_names=class_names,
                     epoch_start=epoch_start * (i == run_start),
                     continued=continued and i == run_start,
                     device_augment=device_augment, device=device)
@@ -449,7 +489,8 @@ def experiment(config_dict: ConfigDict, original: Optional[dict] = None,
 
 def run_exp(train_data, val_data, test_data, destination: str,
             curr_seed: int, config_dict: ConfigDict, batch_size: int,
-            bs: int, idx: Optional[int] = None, continued: bool = False,
+            bs: int, idx: Optional[int] = None,
+            class_names: Tuple[str, ...] = (), continued: bool = False,
             epoch_start: int = 0, device_augment=None, device=None,
             **kwargs):
     """One trial: build model, optimizer, loss and metrics, train, plot the
@@ -518,8 +559,15 @@ def run_exp(train_data, val_data, test_data, destination: str,
                            or 0)
     loss_fn = registry.build(config_dict, key="training/loss", wrapper=Loss,
                              default_prediction_index=prediction_index)
-    calculator = MetricsCalculator(config_dict, loss=loss_fn)
     to_validate = len(val_data) > 0
+    calculator = MetricsCalculator(config_dict, loss=loss_fn,
+                                   class_names=class_names,
+                                   validate=to_validate)
+    host_loggers = []
+    if log_to_device:
+        with swallow("Exception while building host loggers."):
+            host_loggers = build_host_loggers(config_dict, destination,
+                                              class_names=class_names)
 
     train_model(model, train_data, val_data if to_validate else None,
                 test_data, config_dict, optimizer, state, loss=loss_fn,
@@ -532,7 +580,7 @@ def run_exp(train_data, val_data, test_data, destination: str,
                 grad_clip_norm_type=config_dict.get(
                     "training/gradient_clipping/norm", 2.0) or 2.0,
                 device=device, device_augment=device_augment,
-                prediction_index=prediction_index)
+                prediction_index=prediction_index, host_loggers=host_loggers)
 
     if log_to_device and tech.get("log metric and loss plots", False):
         plot_destination = destination + "plots/"

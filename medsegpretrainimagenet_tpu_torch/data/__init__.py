@@ -1,5 +1,6 @@
-"""Data layer: the COVID-QU reader, balanced sampling, the segmentation
-transforms, host resampling (``warp``) and loading with device prefetch.
+"""Data layer: the COVID-QU and ACDC readers, balanced sampling, the
+segmentation transforms, host resampling (``warp``) and loading with
+device prefetch.
 The other readers and ``MixedDataset`` are ROADMAP queue M5's rest."""
 from ..config.registry import register_not_ported
 from .dataset import Dataset  # noqa: F401

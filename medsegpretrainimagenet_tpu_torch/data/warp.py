@@ -6,7 +6,8 @@ where OpenCV is not installed:
 
 * :func:`resize`: bilinear with half-pixel centres and no antialiasing,
   edge pixels clamped, as ``cv2.INTER_LINEAR``.  Float images follow
-  OpenCV's float32 arithmetic; uint8 images its 11-bit fixed-point weights
+  OpenCV's arithmetic (float32; float64 for a float64 image, its weights
+  in float32 past 4 channels); uint8 images its 11-bit fixed-point weights
   and rounding, so both give OpenCV's values: floats to rounding, uint8
   bit for bit when shrinking (on enlarging OpenCV rounds about one pixel
   in a hundred the other way, by one gray level).  Nearest takes
@@ -14,10 +15,12 @@ where OpenCV is not installed:
   rounds that product in fixed point, so a pixel can differ on upscaling).
 * :func:`warp_affine`: the inverse map ``dst(x, y) = src(M^-1 (x, y))``
   of ``cv2.warpAffine``, bilinear or nearest (round half to even), with a
-  constant border (OpenCV 5 warps in float here, so the two agree to
-  float rounding), or a replicated, reflected or wrapped one (there OpenCV
-  quantises the coordinates to 1/32 pixel, this map does not);
-  :func:`rotation_matrix` is ``cv2.getRotationMatrix2D``.
+  constant, replicated, reflected or wrapped border.  OpenCV 5 warps a
+  float image in float on every border (OpenCV 4 quantised the source
+  coordinates to 1/32 pixel; 5 does not), so the two agree to float
+  rounding: within 3e-6 on [0, 1] images, and every nearest pixel equal,
+  on all five borders; :func:`rotation_matrix` is
+  ``cv2.getRotationMatrix2D``.
 
 Images are (H, W) or (H, W, C) arrays.
 """
@@ -50,12 +53,13 @@ def border_name(mode) -> str:
     return mode if mode in BORDER_MODES else "BORDER_CONSTANT"
 
 
-def _linear_taps(out: int, size: int):
+def _linear_taps(out: int, size: int, dtype=np.float32):
     """Source index pairs and the weight of the second, per output index,
-    in float32 as OpenCV computes them."""
-    f = ((np.arange(out) + 0.5) * (size / out) - 0.5).astype(np.float32)
+    in *dtype* as OpenCV computes them (float32, float64 for a float64
+    image)."""
+    f = ((np.arange(out) + 0.5) * (size / out) - 0.5).astype(dtype)
     lo = np.floor(f)
-    frac = (f - lo).astype(np.float32)
+    frac = (f - lo).astype(dtype)
     lo = lo.astype(np.int64)
     under, over = lo < 0, lo >= size - 1
     frac[under | over] = 0
@@ -77,8 +81,12 @@ def resize(img: np.ndarray, size: Tuple[int, int],
         return img[ys][:, xs]
     if interpolation != "linear":
         raise ValueError(f"unknown interpolation {interpolation!r}")
-    y0, y1, fy = _linear_taps(oh, h)
-    x0, x1, fx = _linear_taps(ow, w)
+    work = np.float64 if img.dtype == np.float64 else np.float32
+    # OpenCV weighs a float64 image of up to 4 channels in double, one of
+    # more channels in float32 (and interpolates in double either way)
+    weights = np.float32 if img.ndim > 2 and img.shape[2] > 4 else work
+    y0, y1, fy = _linear_taps(oh, h, weights)
+    x0, x1, fx = _linear_taps(ow, w, weights)
     extra = (None,) * (img.ndim - 2)
     if img.dtype == np.uint8:
         one = 1 << _COEF_BITS
@@ -93,11 +101,11 @@ def resize(img: np.ndarray, size: Tuple[int, int],
         # OpenCV's vectorised vertical pass: 16-bit high products, +2 >> 2
         out = ((by0 * (rows0 >> 4)) >> 16) + ((by1 * (rows1 >> 4)) >> 16)
         return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
-    src = img.astype(np.float32)
-    ax1 = fx[(slice(None),) + extra]
-    ax0 = (np.float32(1) - fx)[(slice(None),) + extra]
-    by1 = fy[(slice(None), None) + extra]
-    by0 = (np.float32(1) - fy)[(slice(None), None) + extra]
+    src = img.astype(work)
+    ax1 = fx.astype(work)[(slice(None),) + extra]
+    ax0 = (weights(1) - fx).astype(work)[(slice(None),) + extra]
+    by1 = fy.astype(work)[(slice(None), None) + extra]
+    by0 = (weights(1) - fy).astype(work)[(slice(None), None) + extra]
     rows0 = src[y0][:, x0] * ax0 + src[y0][:, x1] * ax1
     rows1 = src[y1][:, x0] * ax0 + src[y1][:, x1] * ax1
     return (rows0 * by0 + rows1 * by1).astype(img.dtype)

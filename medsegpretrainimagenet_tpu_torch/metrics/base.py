@@ -12,7 +12,7 @@ seeds.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 from ..utils.naming import snake_name
 
@@ -38,6 +38,10 @@ class MetricSpec:
     """
 
     key: str = "metric"
+    #: the trainer's extra no-grad pass over train and val after training
+    requires_last_pass: bool = False
+    #: optional end-of-training export hook (save_path, extensions)
+    evaluate_at_end: Optional[Callable] = None
 
     def init_state(self, device):
         raise NotImplementedError

@@ -1,14 +1,15 @@
 """Plot/export framework (host-side).
 
 The port's own copy of the part of ``medsegpretrainimagenet_tpu/plotting/
-plotters.py`` that the CLI uses: ``BasePlotter`` and ``GeneralPlotter``
-(multi-line metric curves with legends, baselines, log scale), exporting to
+plotters.py`` that the CLI uses: ``BasePlotter``, ``GeneralPlotter``
+(multi-line metric curves with legends, baselines, log scale) and
+``ConfMtxPlotter`` (the confusion-matrix export), exporting to
 json / png / svg / html.  JSON export writes the full parameter tree (so
 plots can be re-rendered later) and needs nothing installed; png/svg use
 matplotlib and html uses bokeh, each imported only when its format is
 asked for (html falls back to png with a warning without bokeh).
-``ScatterPlotter``, ``ConfMtxPlotter`` and ``PCAPlotter`` are ROADMAP
-queues M4 and M10.
+``ScatterPlotter`` and ``PCAPlotter`` are ROADMAP queue M (the remaining
+plotters).
 
 ``export_plot`` fans one plotter out to the configured formats under a
 watchdog timeout, mirroring ``utils/_utils.py:169-182``.
@@ -25,7 +26,8 @@ import numpy as np
 
 from ..utils import handle_exception
 
-__all__ = ["BasePlotter", "GeneralPlotter", "export_plot"]
+__all__ = ["BasePlotter", "GeneralPlotter", "ConfMtxPlotter",
+           "export_plot"]
 
 _EXPORT_TIMEOUT_S = 300
 
@@ -282,6 +284,102 @@ class GeneralPlotter(BasePlotter):
                 for legend in fig.legend:
                     legend.background_fill_color = "#17181c"
                     legend.label_text_color = "#e0e0e0"
+        output_file(self._path("html"))
+        save(fig)
+
+
+class ConfMtxPlotter(BasePlotter):
+    """A K x K confusion matrix (rows: ground truth, columns: prediction),
+    row-normalised unless ``normalise`` is off; its json holds the raw
+    matrix."""
+
+    DEFAULTS = {
+        "matrix": [], "labels": None, "title": "", "dirname": ".",
+        "fname": "confusion_matrix", "normalise": True,
+    }
+
+    def _normalised(self) -> np.ndarray:
+        matrix = np.asarray(self.matrix, dtype=np.float64)
+        if self.normalise and matrix.size:
+            rows = matrix.sum(axis=1, keepdims=True)
+            matrix = np.divide(matrix, rows, out=np.zeros_like(matrix),
+                               where=rows > 0)
+        return matrix
+
+    def _vmax(self, matrix: np.ndarray) -> float:
+        # raw counts scale the colour map to their own maximum
+        if self.normalise or not matrix.size:
+            return 1.0
+        return float(max(matrix.max(), 1.0))
+
+    def _cell_text(self, value: float) -> str:
+        return f"{value:.2f}" if self.normalise else f"{value:g}"
+
+    def render_matplotlib(self, plt):
+        matrix = self._normalised()
+        fig, ax = plt.subplots(figsize=(7, 6))
+        im = ax.imshow(matrix, cmap="Blues", vmin=0, vmax=self._vmax(matrix))
+        fig.colorbar(im, ax=ax)
+        labels = self.labels
+        if labels and len(labels) <= 10:
+            ax.set_xticks(range(len(labels)))
+            ax.set_yticks(range(len(labels)))
+            ax.set_xticklabels(labels, rotation=45, ha="right")
+            ax.set_yticklabels(labels)
+            for i in range(matrix.shape[0]):
+                for j in range(matrix.shape[1]):
+                    ax.text(j, i, self._cell_text(matrix[i, j]),
+                            ha="center", va="center", fontsize=8)
+        ax.set_xlabel("prediction")
+        ax.set_ylabel("ground truth")
+        if self.title:
+            ax.set_title(self.title)
+        return fig
+
+    @staticmethod
+    def _blues_hex(frac: float) -> str:
+        """White-to-blue ramp (in place of the reference's colorcet
+        palette, ``plotters.py:929``)."""
+        frac = min(1.0, max(0.0, float(frac)))
+        r = int(247 - frac * (247 - 8))
+        g = int(251 - frac * (251 - 48))
+        b = int(255 - frac * (255 - 107))
+        return f"#{r:02x}{g:02x}{b:02x}"
+
+    def render_bokeh(self):
+        """Annotated heatmap: one coloured rect per cell with its value on
+        top, row 0 at the top like the matplotlib image."""
+        from bokeh.io import output_file, save
+        from bokeh.plotting import figure
+        matrix = self._normalised()
+        n_rows, n_cols = matrix.shape if matrix.size else (0, 0)
+        labels = self.labels or [str(i) for i in range(max(n_rows,
+                                                          n_cols))]
+        vmax = self._vmax(matrix)
+        xs, ys, fills, texts, colors = [], [], [], [], []
+        for i in range(n_rows):
+            for j in range(n_cols):
+                xs.append(j)
+                ys.append(n_rows - 1 - i)
+                fills.append(self._blues_hex(matrix[i, j] / vmax))
+                texts.append(self._cell_text(matrix[i, j]))
+                colors.append("#000000" if matrix[i, j] / vmax < 0.6
+                              else "#ffffff")
+        fig = figure(title=self.title or "", x_axis_label="prediction",
+                     y_axis_label="ground truth")
+        fig.rect(x=xs, y=ys, width=1, height=1, fill_color=fills,
+                 line_color="#cccccc")
+        fig.text(x=xs, y=ys, text=texts, text_color=colors,
+                 text_align="center", text_baseline="middle",
+                 text_font_size="9pt")
+        if n_cols and len(labels) >= n_cols:
+            fig.xaxis.ticker = list(range(n_cols))
+            fig.xaxis.major_label_overrides = {
+                j: str(labels[j]) for j in range(n_cols)}
+        if n_rows and len(labels) >= n_rows:
+            fig.yaxis.ticker = list(range(n_rows))
+            fig.yaxis.major_label_overrides = {
+                n_rows - 1 - i: str(labels[i]) for i in range(n_rows)}
         output_file(self._path("html"))
         save(fig)
 

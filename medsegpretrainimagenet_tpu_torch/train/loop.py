@@ -5,23 +5,27 @@ Per epoch: the train pass, the validation pass, one ``epoch_logs.csv`` row
 (``val_``-prefixed validation columns, the learning rate, an ``epoch``
 column), ``batch_logs.csv`` rows per optimizer step, the last, best and
 epoch-tagged model files, the optimizer and scheduler files and the
-durable-epoch stamp; then the test pass into ``test_logs.csv``.  Every batch
+durable-epoch stamp; the confusion-matrix export at the configured epochs
+and the host loggers (sample images, ROC and PR curves) at theirs; after the
+epochs the metrics' last pass over train and val when a metric asks for
+it, the metrics' end-of-training exports, then the test pass into
+``test_logs.csv``.  Every batch
 and every epoch runs inside the catch-log-continue error envelope of the
 reference, except a CUDA error, which is sticky (every later launch would
 fail the same way): it ends the run.  With ``meta/technical/profile: true``
 the loop writes ``profile/epoch_times.csv`` (host wall time per phase) and
-``profile/step_times.csv`` (per-step device time, from CUDA events).
+``profile/step_times.csv`` (per-step device time, from CUDA events) and a
+``torch.profiler`` trace of the first epoch it runs under ``profile/trace/``.
 
 Batches are regrouped on the host into ``(n_fragments, fragment_bs, ...)``
 stacks (the step accumulates gradients over the fragments) and copied to
 the card ahead of the step through pinned memory.  The loop reads the card
 only at window boundaries: the step's scalars stay on the card and a whole
 ``batch_log_flush`` window of them comes back in one copy, the epoch's
-metrics in one more, the step timings once per epoch.
-
-Not ported yet (ROADMAP queue M4): the host loggers, the confusion-matrix
-export and the metrics' last pass; a config that asks for them raises
-NotImplementedError when the calculator is built.
+metrics in one more, the step timings once per epoch.  With
+``meta/technical/debug_nans`` the loop also reads, with each window, a flag
+per step that says whether a scalar of the step (loss, gradient norm,
+metrics) is not finite, and raises FloatingPointError naming the steps.
 """
 from __future__ import annotations
 
@@ -30,19 +34,63 @@ import math
 import os
 import sys
 import time
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
 
 from ..config import ConfigDict
+from ..metrics.calculator import cm_log_epochs, to_host
 from ..utils import handle_exception, swallow
 from ..utils.device import resolve_device
 from . import checkpoint as ckpt
 from .state import TrainState
-from .step import make_eval_step, make_train_step
+from .step import (_dequantize_inputs, _select_prediction, make_eval_step,
+                   make_train_step)
 
 __all__ = ["train_model", "run_epoch", "append_csv_row"]
+
+
+def _export_confusion_matrix(calculator, metrics_state, destination: str,
+                             epoch: int, config_dict,
+                             train: bool = False) -> None:
+    """The K x K confusion matrix at an active epoch
+    (``multiclass_metrics.py:124-153``): the train and the validation pass
+    each export a row-normalised matrix as
+    ``Confusion_matrices/{train_|val_}confusion_matrix_epoch_{i}``."""
+    cm = calculator.epoch_confusion_matrix(metrics_state)
+    if cm is None:
+        return
+    from ..plotting import ConfMtxPlotter, export_plot
+    labels = config_dict.get_str_tuple("metrics/calculation/class_names") \
+        or None
+    kind, prefix = ("Train", "train_") if train else ("Validation", "val_")
+    plotter = ConfMtxPlotter({
+        "matrix": cm, "labels": list(labels) if labels else None,
+        "title": f"{kind} confusion matrix at epoch {epoch}",
+        "dirname": os.path.join(destination, "Confusion_matrices"),
+        "fname": f"{prefix}confusion_matrix_epoch_{epoch}"})
+    export_plot(plotter, config_dict.get_str_tuple(
+        "meta/technical/export_plots_as") or ("png",))
+
+
+def _start_trace(device: torch.device):
+    """A started ``torch.profiler`` trace of the host and, on the card, of
+    its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    trace = profile(activities=activities)
+    trace.start()
+    return trace
+
+
+def _stop_trace(trace, directory: str) -> None:
+    """Stop *trace* and write it as a Chrome trace into *directory*."""
+    trace.stop()
+    os.makedirs(directory, exist_ok=True)
+    trace.export_chrome_trace(os.path.join(directory, "trace.json"))
 
 
 def append_csv_row(path: str, row: Dict[str, Any]) -> None:
@@ -153,28 +201,56 @@ def _prefetched(iterator, device: torch.device, depth: int = 2,
                               on_error=on_error, threaded=threaded)
 
 
+def _nonfinite(per_batch: Dict[str, Any]) -> Optional[torch.Tensor]:
+    """A 0-d bool tensor: is any floating scalar of the step not finite?"""
+    scalars = [v.float() for v in per_batch.values()
+               if isinstance(v, torch.Tensor) and v.ndim == 0
+               and v.is_floating_point()]
+    if not scalars:
+        return None
+    return torch.isfinite(torch.stack(scalars)).all().logical_not()
+
+
 def run_epoch(step_fn, state, metrics_state, loader,
               accumulation_scale: int = 1, train: bool = True,
               device=None, log_path: Optional[str] = None,
               calculator=None, on_batch: Optional[Callable] = None,
-              threaded_prefetch=None, log_flush: int = 512):
+              threaded_prefetch=None, log_flush: int = 512,
+              debug_nans: bool = False):
     """One pass over *loader*.  Returns (state, metrics_state).
 
     The step's scalars are not read back per step: a read waits for the
     card.  They stay on the card, and a window of ``log_flush`` steps comes
-    back in one copy (``calculator.batch_values_window``); the same
-    per-step CSV rows are then written in order.  ``log_flush=1`` writes
-    each row as its step ends."""
+    back in one copy; the same per-step CSV rows are then written in order.
+    ``log_flush=1`` writes each row as its step ends.  With *debug_nans*
+    each step also leaves a flag on the card that says whether one of its
+    scalars is not finite; the flags come back with the window, and a set
+    one raises FloatingPointError naming the steps."""
     device = resolve_device(device)
+    keep_rows = log_path is not None and calculator is not None
     rows: list = []  # per-step scalar dicts on the card, awaiting read-back
+    flags: list = []  # per-step non-finite flags under debug_nans
+    flushed = 0       # steps read back so far
 
     def _flush_rows():
-        if not rows:
+        nonlocal flushed
+        if not rows and not flags:
             return
-        window = calculator.batch_values_window(rows)
+        host = to_host({"rows": {str(i): r for i, r in enumerate(rows)},
+                        "flags": {str(i): f for i, f in enumerate(flags)}})
+        first, count = flushed, max(len(rows), len(flags))
+        flushed += count
         rows.clear()
-        for values in window:
-            append_csv_row(log_path, values)
+        flags.clear()
+        for i in range(len(host["rows"])):
+            append_csv_row(log_path,
+                           calculator.batch_values_host(host["rows"][str(i)]))
+        bad = [first + int(i) for i, f in host["flags"].items() if f]
+        if bad:
+            raise FloatingPointError(
+                f"debug_nans: a non-finite loss, gradient norm or metric in "
+                f"step(s) {bad} of this pass (the window of steps {first} "
+                f"to {first + count - 1})")
 
     for i, batch_stack in enumerate(_prefetched(
             _virtual_batches(loader, accumulation_scale), device,
@@ -186,17 +262,24 @@ def run_epoch(step_fn, state, metrics_state, loader,
             else:
                 metrics_state, per_batch = step_fn(
                     state, metrics_state, batch_stack)
-            if log_path is not None and calculator is not None:
+            if keep_rows:
                 rows.append(per_batch)
-                if len(rows) >= max(1, int(log_flush)):
-                    _flush_rows()
+            if debug_nans:
+                flag = _nonfinite(per_batch)
+                if flag is not None:
+                    flags.append(flag)
+            if max(len(rows), len(flags)) >= max(1, int(log_flush)):
+                _flush_rows()
             if on_batch is not None:
                 on_batch(i, per_batch)
         except Exception as exc:  # noqa: BLE001 - reference error envelope
-            if is_sticky_cuda_error(exc):
+            if is_sticky_cuda_error(exc) \
+                    or isinstance(exc, FloatingPointError):
                 raise
             handle_exception(exc, f"Exception occured in batch {i}.")
-    if rows:
+    if flags:
+        _flush_rows()  # a non-finite step raises past the envelope
+    elif rows:
         with swallow("Exception writing the batch log rows."):
             _flush_rows()
     return state, metrics_state
@@ -238,12 +321,14 @@ def train_model(model, train_data, val_data, test_data,
                 grad_clip_value: Optional[float] = None,
                 grad_clip_norm_type: float = 2.0, device=None,
                 on_epoch: Optional[Callable] = None,
+                host_loggers: Iterable = (),
                 device_augment=None, prediction_index: int = 0,
                 **kwargs) -> TrainState:
     """Train for the configured number of epochs.  Returns the final state.
 
     *model*'s module and the metric state live on *device* (the card
-    unless named); batches are copied there by the loop."""
+    unless named); batches are copied there by the loop.  *host_loggers*
+    (``metrics.build_host_loggers``) run at their active epochs."""
     if virtual_batch_size % true_batch_size != 0:
         raise ValueError("true batch size must divide the virtual batch "
                          "size")
@@ -262,6 +347,8 @@ def train_model(model, train_data, val_data, test_data,
     log_flush = int(tech.get("batch_log_flush", 512) or 512)
     threaded_prefetch = tech.get("threaded prefetch", None)
     checkpoints = tech.get_tuple("model_log_checkpoints", [])
+    debug_nans = bool(tech.get("debug_nans", False))
+    extensions = tech.get_str_tuple("export_plots_as") or ("png",)
 
     watched_metric, best_value, pick = None, None, max
     if log_best:
@@ -280,6 +367,8 @@ def train_model(model, train_data, val_data, test_data,
             best_value = resumed
 
     calculator = metrics_and_loss
+    cm_active_epochs, cm_do_last = cm_log_epochs(
+        config_dict.get("metrics/calculation", ConfigDict()))
     train_step = make_train_step(model, loss, calculator, optimizer,
                                  grad_clip_value=grad_clip_value,
                                  grad_clip_norm_type=grad_clip_norm_type,
@@ -330,6 +419,58 @@ def train_model(model, train_data, val_data, test_data,
         return calculator.finalize_epoch(ms) if calculator is not None \
             else {}
 
+    def _evaluate(data):
+        """An eval pass over *data*; returns the metric state."""
+        _, metrics_state = run_epoch(
+            eval_step, state, _init_metrics(), data, accumulation_scale,
+            train=False, device=device, threaded_prefetch=threaded_prefetch,
+            debug_nans=debug_nans)
+        return metrics_state
+
+    def _export_cm(metrics_state, epoch_1idx: int, train: bool) -> None:
+        with swallow("Exception logging the confusion matrix."):
+            _export_confusion_matrix(calculator, metrics_state, destination,
+                                     epoch_1idx, config_dict, train=train)
+
+    def _host_forward(x):
+        """The metric-side prediction of the current weights for a host
+        batch, back on the host (the loggers' forward)."""
+        module.eval()
+        with torch.inference_mode():
+            batch = _dequantize_inputs(
+                {"x": torch.as_tensor(np.asarray(x)).to(device)})
+            pred = _select_prediction(module(batch["x"]), prediction_index)
+            return pred.float().cpu().numpy()
+
+    def _augmented_loader(loader):
+        """*loader*'s batches through the device augmentation (its draws
+        seeded by the batch index), back on the host."""
+        if device_augment is None:
+            return loader
+
+        def gen():
+            for i, batch in enumerate(loader):
+                fragment = _dequantize_inputs(
+                    {k: torch.as_tensor(np.asarray(v)).to(device)
+                     for k, v in batch.items() if hasattr(v, "shape")})
+                generator = torch.Generator(device=device).manual_seed(i)
+                yield {k: v.cpu().numpy() for k, v in
+                       device_augment(generator, fragment).items()}
+        return gen()
+
+    host_loggers = list(host_loggers or ())
+
+    def run_host_loggers(epoch_1idx: int, last: bool = False) -> None:
+        for logger in host_loggers:
+            if not logger.active(epoch_1idx, last=last):
+                continue
+            with swallow("Exception in a host epoch logger."):
+                logger.log(epoch_1idx, _augmented_loader(train_data),
+                           _host_forward, train=True, last=last)
+                if val_data:
+                    logger.log(epoch_1idx, val_data, _host_forward,
+                               train=False, last=last)
+
     try:
         epochs = range(epoch_start, num_epochs)
         if verbose:
@@ -356,6 +497,12 @@ def train_model(model, train_data, val_data, test_data,
                         seg[phase] = seg.get(phase, 0.0) + now - seg_t[0]
                         seg_t[0] = now
 
+                # a torch.profiler trace of the first profiled epoch,
+                # stopped however the train pass ends
+                trace = None
+                if profile_cfg and epoch == epoch_start:
+                    with swallow("Could not start the profiler trace."):
+                        trace = _start_trace(device)
                 try:
                     metrics_state = _init_metrics()
                     state, metrics_state = run_epoch(
@@ -364,22 +511,29 @@ def train_model(model, train_data, val_data, test_data,
                         log_path=destination + "batch_logs.csv"
                         if log_batches else None, calculator=calculator,
                         on_batch=timer, threaded_prefetch=threaded_prefetch,
-                        log_flush=log_flush)
+                        log_flush=log_flush, debug_nans=debug_nans)
                 finally:
+                    if trace is not None:
+                        with swallow("Could not stop the profiler trace."):
+                            _stop_trace(trace, profile_dir + "trace")
                     with swallow("Exception writing step_times.csv."):
                         _dump_step_times()
                 row.update(_finalize(metrics_state))
                 _mark("train_s")
+                if log_to_device and calculator is not None \
+                        and (epoch + 1) in cm_active_epochs:
+                    _export_cm(metrics_state, epoch + 1, train=True)
+                _mark("cm_export_s")
 
                 if val_data:
-                    metrics_state = _init_metrics()
-                    _, metrics_state = run_epoch(
-                        eval_step, state, metrics_state, val_data,
-                        accumulation_scale, train=False, device=device,
-                        threaded_prefetch=threaded_prefetch)
+                    metrics_state = _evaluate(val_data)
                     row.update({f"val_{k}": v for k, v in
                                 _finalize(metrics_state).items()})
                     _mark("val_s")
+                    if log_to_device and calculator is not None \
+                            and (epoch + 1) in cm_active_epochs:
+                        _export_cm(metrics_state, epoch + 1, train=False)
+                    _mark("cm_export_s")
 
                 if log_to_device:
                     append_csv_row(destination + "epoch_logs.csv", row)
@@ -419,6 +573,8 @@ def train_model(model, train_data, val_data, test_data,
                     # epoch envelope, one epoch later
                     async_writer.poll()
                 _mark("ckpt_s")
+                run_host_loggers(epoch + 1)
+                _mark("loggers_s")
                 if profile_cfg:
                     with swallow("Exception writing epoch_times.csv."):
                         append_csv_row(profile_dir + "epoch_times.csv", {
@@ -432,13 +588,31 @@ def train_model(model, train_data, val_data, test_data,
                     raise
                 handle_exception(exc, f"Exception occured in epoch {epoch}.")
 
+        if any(logger.do_last for logger in host_loggers):
+            run_host_loggers(num_epochs, last=True)
+
+        if calculator is not None and calculator.requires_last_pass:
+            # the extra no-grad pass over train and val with the final
+            # weights; its 'last' CM export
+            with swallow("Exception in last pass."):
+                metrics_state = _evaluate(_augmented_loader(train_data))
+                if log_to_device and cm_do_last:
+                    _export_cm(metrics_state, num_epochs, train=True)
+                if val_data:
+                    metrics_state = _evaluate(val_data)
+                    if log_to_device and cm_do_last:
+                        _export_cm(metrics_state, num_epochs, train=False)
+
+        if calculator is not None:
+            # end-of-training metric exports (train_model.py:294), e.g. the
+            # classwise history plots read back from epoch_logs.csv
+            with swallow("Exception in the end-of-training metric hooks."):
+                calculator.evaluate_at_end(save_path=destination,
+                                           extensions=extensions)
+
         if test_data:
             try:
-                metrics_state = _init_metrics()
-                _, metrics_state = run_epoch(
-                    eval_step, state, metrics_state, test_data,
-                    accumulation_scale, train=False, device=device,
-                    threaded_prefetch=threaded_prefetch)
+                metrics_state = _evaluate(test_data)
                 test_row = _finalize(metrics_state)
                 if log_to_device:
                     append_csv_row(destination + "test_logs.csv", test_row)

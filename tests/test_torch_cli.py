@@ -6,8 +6,12 @@ two write the same CSV columns and the same run files (``.pt`` for
 ``.msgpack``), and their loss and Dice columns agree within 1e-4.  The
 port's ``--continued`` grows epoch_logs.csv and writes the backups; a YAML
 list gives a grid with dedup-suffixed directories and comparisons; a bad
-component name does not stop the grid."""
+component name does not stop the grid.  The same holds for a tiny ACDC
+config of the multiclass U-Net (softmax head, the multiclass metrics, the
+confusion-matrix export, profiling), and the ``meta/technical`` switches
+(deterministic algorithms, CPU threads, the NaN check) reach torch."""
 import csv
+import json
 import pathlib
 
 import jax
@@ -250,4 +254,211 @@ def test_device_augmentation_lifts_the_chain_like_jax(tree, monkeypatch):
     main([_write(root / "augment.yaml", cfg), "--device", "cpu"])
     rows = _rows(_run_dir(root / "augment_logs") / "run_1"
                  / "epoch_logs.csv")
+    assert len(rows) == 1 and 0 < float(rows[0]["dice_loss"]) < 1
+
+
+# ---------------------------------------------------------------------------
+# the ACDC multiclass U-Net through both CLIs
+# ---------------------------------------------------------------------------
+
+ACDC_CLASSES = ("RV cavity", "myocardium", "LV cavity")
+ACDC_ARCH = dict(ARCH, out_channel_size=4)
+ACDC_METRICS = ("metrics.multiclass_metrics.DiceIndex",
+                "metrics.multiclass_metrics.JaccardIndex",
+                "metrics.multiclass_metrics.ModifiedHausdorffDistance",
+                "metrics.multiclass_metrics.AUROC")
+
+
+def acdc_config(logs, weights, epochs=3, **technical):
+    """A tiny ACDC config of the ``config/downstream/acdc/unet.yaml`` shape:
+    a 4-channel softmax head, batchwise multiclass Dice loss with the
+    background, the multiclass metrics with classwise columns, the
+    confusion-matrix export, profiling and a watched mean Dice."""
+    cfg = _config(logs, weights, epochs, profile=True,
+                  model_evaluation={"metric": "val_metrics/mean_dice_index",
+                                    "mode": "max"}, **technical)
+    cfg["data"]["data"] = {"segmentation.datasets.ACDC": {
+        "image_sizes": 16, "validate_on_test": True}}
+    model = cfg["model"]["segmentation.models.UNet"]
+    model["architecture"] = dict(ACDC_ARCH)
+    model["final_activation"] = "softmax"
+    cfg["training"]["loss"] = {"segmentation.losses.DiceLoss": {
+        "batchwise": True, "include_background": True,
+        "apply_softmax": False, "smoothing_term": 1e-5}}
+    cfg["metrics"] = {"metrics": ACDC_METRICS, "calculation": {
+        "number_of_classes": 4, "class_names": ACDC_CLASSES,
+        "log_confusion_matrix": True}}
+    return cfg
+
+
+def write_acdc_tree(root, n_train=3, n_test=2, shape=(18, 20, 2), seed=0):
+    """ACDC patient directories of two frames each: noisy images with an
+    LV disc inside a myocardium ring and an RV crescent beside it."""
+    from medsegpretrainimagenet_tpu_torch.data.readers import save_nii
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:shape[0], :shape[1]]
+    for part, n in (("training", n_train), ("testing", n_test)):
+        for p in range(n):
+            d = root / "ACDC" / part / f"patient{p:03d}"
+            d.mkdir(parents=True)
+            for frame in (1, 12):
+                labels = np.zeros(shape, np.uint8)
+                for z in range(shape[2]):
+                    cy, cx = rng.integers(6, shape[0] - 6), \
+                        rng.integers(6, shape[1] - 6)
+                    r = rng.uniform(2, 4)
+                    d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+                    lab = labels[..., z]
+                    lab[d2 < (r + 3) ** 2] = 2
+                    lab[d2 < r * r] = 3
+                    rv = ((yy - cy) ** 2 + (xx - cx + r + 3) ** 2
+                          < (r + 2) ** 2) & (lab == 0)
+                    lab[rv] = 1
+                img = 40 * labels + rng.normal(0, 10, shape)
+                stem = str(d / f"patient{p:03d}_frame{frame:02d}")
+                save_nii(stem + ".nii.gz", img.astype(np.float32))
+                save_nii(stem + "_gt.nii.gz", labels)
+
+
+@pytest.fixture(scope="module")
+def acdc_runs(tmp_path_factory):
+    """Both CLIs on the tiny ACDC config from the same weights."""
+    root = tmp_path_factory.mktemp("acdc")
+    write_acdc_tree(root / "data")
+    cfg = {"model": {"segmentation.models.UNet": {
+        "architecture": ACDC_ARCH}}}
+    jmodel = build_model(JaxConfigDict, jax_registry, JaxModel, cfg)
+    variables = jax.tree_util.tree_map(np.asarray, jmodel.init(
+        jax.random.key(0), {"x": np.zeros((1, 16, 16, 3), np.float32)}))
+    jax_ckpt.save_params_file(str(root / "w.msgpack"), variables)
+    module = build_model(ConfigDict, registry, Model, cfg).module
+    ckpt.save_params_file(str(root / "w.pt"),
+                          state_dict_from_jax(variables, module))
+    mp = pytest.MonkeyPatch()
+    mp.setenv("MST_DATA_DIR", str(root / "data"))
+    try:
+        jax_main([_write(root / "jax.yaml", acdc_config(
+            root / "jax_logs", root / "w.msgpack"))])
+        main([_write(root / "port.yaml", acdc_config(
+            root / "port_logs", root / "w.pt")), "--device", "cpu"])
+    finally:
+        mp.undo()
+    return (_run_dir(root / "jax_logs") / "run_1",
+            _run_dir(root / "port_logs") / "run_1")
+
+
+def test_acdc_clis_write_the_same_columns_and_values(acdc_runs):
+    jax_run, port_run = acdc_runs
+    for name in ("epoch_logs.csv", "batch_logs.csv"):
+        got, want = _rows(port_run / name), _rows(jax_run / name)
+        assert len(got) == len(want) > 0, name
+        assert set(got[0]) == set(want[0]), name
+        for k, (a, b) in enumerate(zip(got, want)):
+            for key in b:
+                np.testing.assert_allclose(float(a[key]), float(b[key]),
+                                           rtol=TOL, atol=TOL,
+                                           err_msg=f"{name} row {k} {key}")
+    rows = _rows(port_run / "epoch_logs.csv")
+    assert len(rows) == 3
+    for column in ("val_metrics/dice_index_RV_cavity",
+                   "val_metrics/dice_index_myocardium",
+                   "val_metrics/dice_index_LV_cavity",
+                   "val_metrics/mean_dice_index",
+                   "val_metrics/mean_jaccard_index",
+                   "val_metrics/modified_hausdorff_distance",
+                   "val_metrics/area_under_roc"):
+        assert column in rows[0], column
+    assert float(rows[-1]["val_metrics/modified_hausdorff_distance"]) > 0
+    # chip_smoke.py's [cli acdc] holds the card's run to this column set
+    import chip_smoke
+    assert set(_rows(jax_run / "epoch_logs.csv")[0]) \
+        == chip_smoke.ACDC_EPOCH_COLUMNS
+
+
+def test_acdc_clis_write_the_same_files(acdc_runs):
+    """The same run files (``.pt`` for ``.msgpack``): the confusion
+    matrices of the last pass, the classwise Dice plot, the profile; the
+    trace is a ``torch.profiler`` Chrome trace in the port and an XLA
+    profile in JAX, so only its presence is compared."""
+    jax_run, port_run = acdc_runs
+
+    def files(d):
+        out = sorted(str(p.relative_to(d)).replace(".msgpack", ".pt")
+                     for p in d.rglob("*") if p.is_file())
+        traces = [f for f in out if f.startswith("profile/trace/")]
+        return [f for f in out if f not in traces], traces
+    (got, got_trace), (want, want_trace) = files(port_run), files(jax_run)
+    assert got == want
+    assert got_trace == ["profile/trace/trace.json"] and want_trace
+    assert json.loads((port_run / "profile" / "trace" / "trace.json")
+                      .read_text())["traceEvents"]
+    for name in ("Confusion_matrices/train_confusion_matrix_epoch_3.json",
+                 "Confusion_matrices/val_confusion_matrix_epoch_3.json",
+                 "plots/dice_indices_plot.json"):
+        got_json, want_json = (json.loads((d / name).read_text())
+                               for d in (port_run, jax_run))
+        got_json.pop("dirname"), want_json.pop("dirname")
+        if "matrix" in want_json:
+            np.testing.assert_array_equal(got_json.pop("matrix"),
+                                          want_json.pop("matrix"))
+        else:
+            np.testing.assert_allclose(got_json.pop("Ys"),
+                                       want_json.pop("Ys"), atol=TOL)
+        assert got_json == want_json, name
+    assert not (port_run / "test_logs.csv").exists()
+
+
+# ---------------------------------------------------------------------------
+# meta/technical switches
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def restore_torch_switches():
+    import torch
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic, torch.get_num_threads())
+    yield
+    torch.use_deterministic_algorithms(saved[0])
+    torch.backends.cudnn.deterministic = saved[1]
+    torch.set_num_threads(saved[2])
+
+
+@pytest.mark.parametrize("deterministic", [True, False])
+def test_host_switches_apply(restore_torch_switches, monkeypatch,
+                             deterministic):
+    """``use_deterministic_algorithms``, cuDNN's deterministic flag, the
+    cuBLAS workspace setting and ``number_of_cpu_threads`` reach torch."""
+    import os
+
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.cli.run_experiment import \
+        apply_host_switches
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    apply_host_switches(ConfigDict({
+        "use_deterministic_algorithms": deterministic,
+        "number_of_cpu_threads": 2}), torch.device("cpu"))
+    assert torch.are_deterministic_algorithms_enabled() == deterministic
+    assert torch.backends.cudnn.deterministic == deterministic
+    assert torch.get_num_threads() == 2
+    assert (os.environ.get("CUBLAS_WORKSPACE_CONFIG") == ":4096:8") \
+        == deterministic
+
+
+def test_cli_under_determinism_and_debug_nans(tree, monkeypatch,
+                                              restore_torch_switches):
+    """One epoch with deterministic algorithms, three CPU threads and the
+    NaN check on trains as before and sets the switches."""
+    import torch
+    root, _, port_weights = tree
+    monkeypatch.setenv("MST_DATA_DIR", str(root / "data"))
+    monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    cfg = _config(root / "det_logs", port_weights, epochs=1,
+                  use_deterministic_algorithms=True,
+                  number_of_cpu_threads=3, debug_nans=True)
+    main([_write(root / "det.yaml", cfg), "--device", "cpu"])
+    assert torch.are_deterministic_algorithms_enabled()
+    assert torch.get_num_threads() == 3
+    rows = _rows(_run_dir(root / "det_logs") / "run_1" / "epoch_logs.csv")
     assert len(rows) == 1 and 0 < float(rows[0]["dice_loss"]) < 1

@@ -99,12 +99,52 @@ model: {{segmentation.models.UNet: {{architecture: {{
   in_channel_size: 3, out_channel_size: 1, depth: 1,
   channels: !!python/tuple [4, 8]}}}}}}
 training: {{loss: {{segmentation.losses.DiceLoss: {{}}}}}}
+metrics: {{metrics: !!python/tuple [metrics.DiceIndex, metrics.AUROC,
+                                   metrics.ModifiedHausdorffDistance]}}
 ''')
 main([str(root / "cfg.yaml"), "--device", "cpu"])
 (run,) = (root / "logs").glob("*/Experiment/run_1")
 rows = list(csv.DictReader(open(run / "epoch_logs.csv")))
 assert len(rows) == 1 and 0 <= float(rows[0]["dice_loss"]) <= 1, rows
+assert 0 <= float(rows[0]["val_metrics/area_under_roc_pooled"]) <= 1, rows
 assert (run / "last_model_state_dict.pt").is_file()
+# the ACDC multiclass U-Net: NIfTI tree, softmax head, multiclass metrics
+from medsegpretrainimagenet_tpu_torch.data.readers import save_nii
+for part, n in (("training", 2), ("testing", 1)):
+    for p in range(n):
+        d = root / "ACDC" / part / f"patient{p:03d}"
+        d.mkdir(parents=True)
+        for frame in (1, 12):
+            lab = rng.integers(0, 4, (18, 20, 2)).astype(np.uint8)
+            stem = str(d / f"patient{p:03d}_frame{frame:02d}")
+            save_nii(stem + ".nii.gz", (40.0 * lab).astype(np.float32))
+            save_nii(stem + "_gt.nii.gz", lab)
+(root / "acdc.yaml").write_text(f'''
+experiment: {{number_of_epochs: 1}}
+meta: {{technical: {{seed: 1, save_destination: {root}/acdc_logs,
+                    maximum_actual_batch_size: 4, profile: true}}}}
+data:
+  data: {{acdc: {{image_sizes: 16, validate_on_test: true}}}}
+  sampling: {{batch_size: 4}}
+  transforms: {{casting: {{mask: torch.LongTensor}}}}
+model: {{segmentation.models.UNet: {{architecture: {{
+  in_channel_size: 1, out_channel_size: 4, depth: 1,
+  channels: !!python/tuple [4, 8]}}, final_activation: softmax}}}}
+training: {{loss: {{segmentation.losses.DiceLoss: {{}}}}}}
+metrics:
+  metrics: !!python/tuple [metrics.multiclass_metrics.DiceIndex,
+    metrics.multiclass_metrics.ModifiedHausdorffDistance,
+    metrics.multiclass_metrics.AUROC]
+  calculation: {{number_of_classes: 4, log_confusion_matrix: true}}
+''')
+main([str(root / "acdc.yaml"), "--device", "cpu"])
+(run,) = (root / "acdc_logs").glob("*/Experiment/run_1")
+rows = list(csv.DictReader(open(run / "epoch_logs.csv")))
+assert len(rows) == 1 and "val_metrics/mean_dice_index" in rows[0], rows
+assert float(rows[0]["val_metrics/modified_hausdorff_distance"]) >= 0
+assert (run / "Confusion_matrices" / "val_confusion_matrix_epoch_1.json"
+        ).is_file()
+assert (run / "profile" / "trace" / "trace.json").is_file()
 assert not any(m.split(".")[0] in ("jax", "flax", "optax", "cv2")
                for m, v in sys.modules.items() if v is not None)
 print("OK")
@@ -112,9 +152,11 @@ print("OK")
 
 
 def test_port_imports_and_runs_with_jax_blocked():
-    """Serving on both attention paths, a train step and one epoch of the
-    experiment CLI, with JAX, flax, optax, OpenCV and the JAX package
-    unimportable."""
+    """Serving on both attention paths, a train step, one epoch of the
+    experiment CLI on COVID-QU with Dice, AUROC and HD95, and one of the
+    ACDC multiclass U-Net with the multiclass metrics, the
+    confusion-matrix export and the profiler trace, with JAX, flax, optax,
+    OpenCV and the JAX package unimportable."""
     result = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=ROOT,
                             capture_output=True, text=True, timeout=300)
     assert result.returncode == 0, result.stderr

@@ -4,7 +4,10 @@ batches) for three epochs in float32 from transplanted weights, with
 gradient accumulation over two fragments, a validation and a test pass;
 the per-epoch loss and Dice, train and val, and the test row agree within
 1e-4.  Also ``_virtual_batches``' ragged tails, ``AsyncCheckpointer``'s
-error surfacing and snapshots, and ``_resume_best_value``."""
+error surfacing and snapshots, and ``_resume_best_value``.  A 3-class U-Net
+through both loops exports the same confusion matrices (at an epoch and
+after the last pass) and writes a ``torch.profiler`` trace, stopped even
+when the pass raises; ``debug_nans`` names the non-finite steps."""
 import csv
 
 import jax
@@ -239,3 +242,174 @@ def test_resume_best_value_matches_jax(tmp_path):
                                                epoch_start)
     assert loop._resume_best_value(str(tmp_path / "none.csv"), "val_loss",
                                    min, 2) is None
+
+
+# ---------------------------------------------------------------------------
+# the multiclass loop: confusion-matrix export, last pass, end hooks, trace
+# ---------------------------------------------------------------------------
+
+MC = "metrics.multiclass_metrics."
+MC_METRICS = {"metrics": (MC + "DiceIndex", MC + "ModifiedHausdorffDistance"),
+              "calculation": {"number_of_classes": 3,
+                              "class_names": ("left", "right"),
+                              "log_confusion_matrix": True,
+                              "log_confusion_matrix_at": (1, "last")}}
+
+
+def _mc_loaders(cd_cls, loader_cls, compose, convert, repeat):
+    """The binary loaders' images with 3-class masks: the square is class
+    1 on its left half and class 2 on its right."""
+    pipeline = compose(repeat(), convert({"mask": "torch.LongTensor",
+                                          "x": "uint8"}))
+    sampling = cd_cls({"sampling": {"batch size": 4}})
+    loader_cls.fill_kwargs(sampling["sampling"])
+    out = []
+    for n, seed, split in ((8, 1, "train"), (4, 2, "val")):
+        columns = _columns(n, seed)
+        half = np.arange(SIZE) >= SIZE // 2
+        columns["mask"] = (columns["mask"] * (1 + half[None, None, :])
+                           ).astype(np.uint8)
+        out.append(loader_cls(columns, sampling[f"sampling/{split}"], bs=4,
+                              actual_bs=4, transforms=pipeline, seed=seed))
+    return out
+
+
+@pytest.fixture(scope="module")
+def mc_runs(tmp_path_factory):
+    """Both packages' train_model, two epochs of a 3-class U-Net with the
+    confusion-matrix export at epoch 1 and 'last', classwise Dice (so a
+    last pass) and profiling."""
+    root = tmp_path_factory.mktemp("mc_loops")
+    cfg = unet_config(out_channel_size=3,
+                      **{"activation function": {"final": "softmax"}})
+    jmodel = build_model(JaxConfigDict, jax_registry, JaxModel, cfg)
+    variables = jmodel.init(jax.random.key(0),
+                            {"x": np.zeros((1, SIZE, SIZE, 3), np.float32)})
+    model = build_model(ConfigDict, registry, Model, cfg)
+    transplant(variables, model.module)
+    dirs = []
+    for pkg in ("jax", "port"):
+        cd_cls = JaxConfigDict if pkg == "jax" else ConfigDict
+        train, val = _mc_loaders(
+            cd_cls, *((JaxLoader, JaxCompose, JaxConvert, JaxRepeat)
+                      if pkg == "jax" else (BalancedDataLoader, Compose,
+                                            ConvertToType, RepeatChannels)))
+        config = cd_cls({"experiment": {"number of epochs": 2},
+                         "meta": {"technical": {
+                             "absolute path": str(root / pkg) + "/",
+                             "log_best_model": False, "profile": True,
+                             "export_plots_as": ("json",)}},
+                         "metrics": MC_METRICS})
+        loss_cfg = cd_cls({"label type": "mask"})
+        if pkg == "jax":
+            optimizer = JaxOptimizer(JaxConfigDict(OPTIMIZER), num_epochs=2,
+                                     batches_per_epoch=2)
+            state = JaxTrainState.create(variables, optimizer.tx.init(
+                variables["params"]), jax.random.key(1))
+            loss = JaxLoss(JaxDiceLoss, loss_cfg)
+            jax_loop.train_model(
+                jmodel, train, val, None, config, optimizer, state,
+                loss=loss, metrics_and_loss=JaxCalculator(
+                    JaxConfigDict({"metrics": MC_METRICS}), loss=loss),
+                name="run_1", virtual_batch_size=4, true_batch_size=4,
+                verbose=False)
+        else:
+            optimizer = Optimizer(ConfigDict(OPTIMIZER), num_epochs=2,
+                                  batches_per_epoch=2)
+            state = TrainState.create(model.module,
+                                      optimizer.init(model.module), 1)
+            loss = Loss(DiceLoss, loss_cfg)
+            loop.train_model(
+                model, train, val, None, config, optimizer, state,
+                loss=loss, metrics_and_loss=MetricsCalculator(
+                    ConfigDict({"metrics": MC_METRICS}), loss=loss),
+                name="run_1", virtual_batch_size=4, true_batch_size=4,
+                verbose=False, device="cpu")
+        dirs.append(root / pkg / "run_1")
+    return dirs
+
+
+def test_confusion_matrix_export_and_last_pass_match_jax(mc_runs):
+    """The epoch-1 and 'last' confusion matrices (the last pass's), train
+    and val, equal; the epoch rows within 1e-4; the classwise plot; the
+    torch.profiler trace of the first epoch."""
+    import json
+    jax_dir, port_dir = mc_runs
+    names = sorted(p.name for p in (port_dir / "Confusion_matrices")
+                   .iterdir())
+    assert names == sorted(p.name for p in (jax_dir / "Confusion_matrices")
+                           .iterdir()) == [
+        f"{s}_confusion_matrix_epoch_{e}.json"
+        for s in ("train", "val") for e in (1, 2)]
+    for name in names:
+        got, want = (json.loads((d / "Confusion_matrices" / name)
+                                .read_text()) for d in (port_dir, jax_dir))
+        assert got["title"] == want["title"]
+        np.testing.assert_array_equal(got["matrix"], want["matrix"])
+    got, want = (_epoch_rows(d / "epoch_logs.csv")
+                 for d in (port_dir, jax_dir))
+    assert list(got[0]) == list(want[0])
+    for a, b in zip(got, want):
+        for key in b:
+            np.testing.assert_allclose(float(a[key]), float(b[key]),
+                                       rtol=TOL, atol=TOL, err_msg=key)
+    # the CLI passes the class names to the calculator; unnamed, the
+    # classwise columns go by index
+    assert "val_metrics/dice_index_class_1" in got[0]
+    assert (port_dir / "plots" / "dice_indices_plot.json").is_file()
+    trace = json.loads((port_dir / "profile" / "trace" / "trace.json")
+                       .read_text())
+    assert trace["traceEvents"]
+    assert list(_epoch_rows(port_dir / "profile" / "epoch_times.csv")[0]) \
+        == list(_epoch_rows(jax_dir / "profile" / "epoch_times.csv")[0])
+
+
+def test_trace_stops_when_the_train_pass_raises(tmp_path, monkeypatch):
+    """A train pass that raises inside the first profiled epoch still
+    stops the profiler and writes the trace; the envelope goes on."""
+    def failing_epoch(*args, **kwargs):
+        raise RuntimeError("train pass failed")
+    monkeypatch.setattr(loop, "run_epoch", failing_epoch)
+    model = build_model(ConfigDict, registry, Model, unet_config())
+    optimizer = Optimizer(ConfigDict(OPTIMIZER), num_epochs=1,
+                          batches_per_epoch=1)
+    state = TrainState.create(model.module, optimizer.init(model.module), 1)
+    config = ConfigDict({"experiment": {"number of epochs": 1},
+                         "meta": {"technical": {
+                             "absolute path": str(tmp_path) + "/",
+                             "profile": True}}})
+    loop.train_model(model, [], None, None, config, optimizer, state,
+                     name="run", verbose=False, device="cpu")
+    assert not torch.autograd.profiler._is_profiler_enabled
+    assert (tmp_path / "run" / "profile" / "trace" / "trace.json").is_file()
+
+
+def _fake_step(losses):
+    """A train step that returns the next of *losses* as its loss."""
+    values = iter(losses)
+
+    def step(state, metrics_state, batch):
+        loss = torch.tensor(next(values))
+        return state, metrics_state, {"dice_loss": loss,
+                                      "gradient_magnitude": loss * 2}
+    return step
+
+
+@pytest.mark.parametrize("log_path", [False, True], ids=["no_log", "log"])
+def test_debug_nans_names_the_steps(tmp_path, log_path):
+    """Under debug_nans a non-finite scalar raises FloatingPointError at
+    the read-back of its window, naming the step; without it the pass goes
+    on.  The window's batch-log rows are written first."""
+    losses = [0.5, 0.4, float("nan"), 0.3, 0.2]
+    batches = [{"x": np.zeros((1, 2), np.float32)}] * len(losses)
+    path = str(tmp_path / "batch_logs.csv") if log_path else None
+    calculator = MetricsCalculator(ConfigDict({"metrics": {"metrics": ()}}),
+                                   loss=DiceLoss())
+    kwargs = dict(device="cpu", log_path=path, calculator=calculator,
+                  log_flush=2)
+    with pytest.raises(FloatingPointError, match=r"step\(s\) \[2\].*2 to 3"):
+        loop.run_epoch(_fake_step(losses), None, None, batches,
+                       debug_nans=True, **kwargs)
+    if log_path:
+        assert len(_epoch_rows(path)) == 4
+    loop.run_epoch(_fake_step(losses), None, None, batches, **kwargs)

@@ -2,7 +2,7 @@
 the same predictions and targets (NaN targets, several thresholds, the
 multilabel CM, empty classes) through both MetricsCalculators give the same
 per-step counts and derived values and the same epoch row, within 1e-6.
-The metrics this slice does not port raise NotImplementedError."""
+The rest of the suite is held in tests/test_torch_metrics_suite.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -119,15 +119,24 @@ def test_bf16_prediction_is_counted_in_float32():
     "metrics.ModifiedHausdorffDistance",
     "metrics.multiclass_metrics.DiceIndex", "metrics.ROCCurve"])
 def test_unported_metrics_raise(name):
-    with pytest.raises(NotImplementedError, match="M4"):
-        MetricsCalculator(ConfigDict(_config({}, names=(
-            "metrics.DiceIndex", name))))
+    """The names the port refused before the metric suite came over now
+    build the same specs as JAX's calculator (a host logger's name builds
+    none: the trainer builds the logger)."""
+    cfg = _config({"number_of_classes": 3}, names=("metrics.DiceIndex",
+                                                     name))
+    port = MetricsCalculator(ConfigDict(cfg))
+    assert port.specs.keys() == JaxCalculator(JaxConfigDict(cfg)).specs.keys()
+    assert (len(port.specs) > 2) == (name != "metrics.ROCCurve")
 
 
 def test_log_confusion_matrix_raises():
-    with pytest.raises(NotImplementedError, match="M4"):
-        MetricsCalculator(ConfigDict(_config(
-            {"log_confusion_matrix": True}, names=("metrics.DiceIndex",))))
+    """``log_confusion_matrix`` builds the K x K accumulator and asks for
+    the last pass, as in JAX."""
+    cfg = _config({"log_confusion_matrix": True, "number_of_classes": 3},
+                  names=("metrics.DiceIndex",))
+    port = MetricsCalculator(ConfigDict(cfg))
+    assert "multiclass_cm" in port.specs and port.requires_last_pass
+    assert port.specs.keys() == JaxCalculator(JaxConfigDict(cfg)).specs.keys()
 
 
 def test_multilabel_target_broadcasts_like_jax():

@@ -1,0 +1,102 @@
+"""The port's NIfTI codec and ACDC reader against the JAX package's, on
+the CPU: volumes written by either package read back bit-equal through
+either; ACDC on a tree the test writes, both splits, a random and the
+official validation split, square and non-square sizes, gives the same
+slices: labels bit-equal, images within IMAGE_TOL relative (the port
+resizes the float64 volumes in double as OpenCV does, within 6e-14; a
+pixel then differs at most by the float32 rounding of the result, on
+these trees 0.06 % of them by one step).  IDRiD and ImageNet still raise
+NotImplementedError naming their ROADMAP item."""
+import numpy as np
+import pytest
+
+from medsegpretrainimagenet_tpu.config import ConfigDict as JaxConfigDict
+from medsegpretrainimagenet_tpu.data.readers import ACDC as JaxACDC
+from medsegpretrainimagenet_tpu.data.readers import load_nii as jax_load
+from medsegpretrainimagenet_tpu.data.readers import save_nii as jax_save
+from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
+from medsegpretrainimagenet_tpu_torch.data import Dataset
+from medsegpretrainimagenet_tpu_torch.data.readers import (ACDC, load_nii,
+                                                           save_nii)
+
+#: relative tolerance of the resized ACDC images against OpenCV's
+IMAGE_TOL = 1e-6
+
+
+@pytest.mark.parametrize("suffix", [".nii", ".nii.gz"])
+@pytest.mark.parametrize("dtype", [np.uint8, np.int16, np.float32,
+                                   np.float64])
+def test_nifti_round_trips_between_the_packages(tmp_path, suffix, dtype):
+    vol = (np.random.default_rng(0).random((7, 5, 3)) * 100).astype(dtype)
+    affine = np.diag([1.5, 0.75, 2.0, 1.0])
+    for name, save, load in (("p2j", save_nii, jax_load),
+                             ("j2p", jax_save, load_nii),
+                             ("p2p", save_nii, load_nii)):
+        path = str(tmp_path / f"{name}{suffix}")
+        save(path, vol, affine)
+        data, got_affine, header = load(path)
+        want = jax_load(path) if load is load_nii else load_nii(path)
+        np.testing.assert_array_equal(data, vol.astype(np.float64))
+        np.testing.assert_array_equal(data, want[0])
+        np.testing.assert_array_equal(got_affine, want[1])
+        assert header == want[2] and header["dim"][:4] == (3, 7, 5, 3)
+
+
+def _acdc_tree(root, hw=(12, 14), zs=(3, 6)):
+    rng = np.random.default_rng(0)
+    for part, n in (("training", 4), ("testing", 2)):
+        for p in range(n):
+            d = root / "ACDC" / part / f"patient{p:03d}"
+            d.mkdir(parents=True)
+            for frame in (1, 12):
+                z = zs[frame % 2]
+                stem = str(d / f"patient{p:03d}_frame{frame:02d}")
+                save_nii(stem + ".nii.gz",
+                         (rng.random((*hw, z)) * 300).astype(np.float32))
+                jax_save(stem + "_gt.nii.gz",
+                         rng.integers(0, 4, (*hw, z)).astype(np.uint8))
+
+
+@pytest.mark.parametrize("cfg", [
+    {"image_sizes": 16, "validate_on_test": True},
+    {"image_sizes": 8, "val_split_percentage": 0.25},
+    {"image_sizes": (10, 13), "validate_on_test": True}],
+    ids=["official_split", "random_split", "non_square"])
+def test_acdc_matches_jax(tmp_path, monkeypatch, cfg):
+    _acdc_tree(tmp_path)
+    monkeypatch.setenv("MST_DATA_DIR", str(tmp_path))
+    port = ACDC(ConfigDict(cfg), seed=3)
+    ref = JaxACDC(JaxConfigDict(cfg), seed=3)
+    size = cfg["image_sizes"]
+    rows, cols = (size, size) if isinstance(size, int) else size[::-1]
+    for split in ("train", "val"):
+        got, want = getattr(port, split), getattr(ref, split)
+        assert got.keys() == want.keys() == {"x", "mask"}
+        assert got["x"].shape == want["x"].shape
+        assert got["x"].shape[1:] == (rows, cols, 1)
+        assert got["x"].dtype == np.float32 and got["mask"].dtype == np.int32
+        np.testing.assert_array_equal(got["mask"], want["mask"])
+        np.testing.assert_allclose(got["x"], want["x"], rtol=IMAGE_TOL)
+    assert ACDC.CLASSES == JaxACDC.CLASSES
+
+
+def test_acdc_builds_from_its_registry_names(tmp_path, monkeypatch):
+    _acdc_tree(tmp_path)
+    monkeypatch.setenv("MST_DATA_DIR", str(tmp_path))
+    for name in ("segmentation.datasets.ACDC", "acdc"):
+        cd = ConfigDict({"data": {name: {"image_sizes": 8,
+                                         "validate_on_test": True}}})
+        cd.expand()
+        registry.fill_spec(cd, "data")
+        ds = registry.build(cd["data"].trim(), wrapper=Dataset, seed=0)
+        assert len(ds.train["x"]) == 4 * 9 and len(ds.val["x"]) == 2 * 9
+
+
+@pytest.mark.parametrize("name, item", [
+    ("segmentation.datasets.IDRiD", "M5"),
+    ("classification.datasets.ImageNet", "M5"),
+    ("data.MixedDataset", "M5"),
+    ("classification.transforms.CutMix", "M5")])
+def test_unported_components_still_raise(name, item):
+    with pytest.raises(NotImplementedError, match=item):
+        registry.build(ConfigDict({name: {}}), wrapper=Dataset)
