@@ -58,7 +58,21 @@ into the step.  ``[cli acdc]`` trains the ACDC multiclass U-Net (the
 full-width U-Net with a 4-class softmax head, multiclass Dice loss, the
 multiclass Dice, Jaccard, HD95 and AUROC, the confusion-matrix export and
 a profiler trace) through the CLI on a synthetic NIfTI tree, three epochs
-and a fourth under ``--continued``.
+and a fourth under ``--continued`` (the --continued runs, ``[cli det]``
+and ``[cli transfer]`` are not measured: no profiling, so no trace, and
+no cuDNN autotuning).  ``[pretrain small]`` holds a
+small float32 pretraining classifier (a ``FeedForwardModel`` of the U-Net
+encoder, pooling, flatten and a Linear head) card against CPU over three
+cross-entropy + AdamW steps; ``[pretrain]`` times
+``unet_encoder_224_pretrain`` (the JAX package's pretraining headline: the
+U-Net encoder 64 -> 1024 with a 1000-way head, 64 images of 224 x 224,
+bf16) as ``[train]`` times its step, then the same step with the on-card
+classification chain inside it; ``[cli pretrain]`` pretrains it through
+the CLI for two epochs on a synthetic ImageNet store with the host chain
+(RandomResizedCrop, flip, RandAugment, one-hot, MixupOrCutMix,
+RandomErasing), and ``[cli transfer]`` trains the ``[cli]`` U-Net for one
+epoch from that run's epoch-1 checkpoint, its encoder checked against the
+checkpoint before the first step.
 Any failure exits non-zero.  Without a CUDA
 card, or without the package beside it, it exits non-zero and prints no
 result.  It imports nothing of JAX.
@@ -811,12 +825,12 @@ def unet_256_train_config(channels=None) -> dict:
 
 
 def build_trainer(cfg: dict, device, seed: int = 0,
-                  batches_per_epoch: int = 1000):
+                  batches_per_epoch: int = 1000, device_augment=None):
     """The framework's own objects from a config: ``Model`` with its
-    kaiming-normal ``weight_init``, ``Loss(DiceLoss)``, the ``sgd``
-    ``Optimizer`` with its schedule, ``MetricsCalculator``,
-    ``TrainState`` and ``make_train_step``.  Returns (model, state,
-    calculator, step)."""
+    kaiming-normal ``weight_init``, the config's ``Loss``, ``Optimizer``
+    with its schedule, ``MetricsCalculator``, ``TrainState`` and
+    ``make_train_step`` (with *device_augment* in the step).  Returns
+    (model, state, calculator, step)."""
     import torch
 
     from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
@@ -831,8 +845,9 @@ def build_trainer(cfg: dict, device, seed: int = 0,
     cd.expand()
     for key in ("model", "training/loss"):
         registry.fill_spec(cd, key)
+    Model.fill_weight_init_kwargs(cd["model"].value())
+    cd = cd.trim()  # as the CLI hands it on: {name: {}} back to name
     model_cfg = cd["model"].value()
-    Model.fill_weight_init_kwargs(model_cfg)
     model = registry.build(cd, key="model", wrapper=Model)
     model.init(seed)
     model.init_weight(model_cfg, torch.Generator().manual_seed(seed + 1))
@@ -843,8 +858,8 @@ def build_trainer(cfg: dict, device, seed: int = 0,
                               seed)
     loss = registry.build(cd, key="training/loss", wrapper=Loss)
     calculator = MetricsCalculator(cd, loss=loss)
-    return model, state, calculator, make_train_step(model, loss, calculator,
-                                                     optimizer)
+    return model, state, calculator, make_train_step(
+        model, loss, calculator, optimizer, device_augment=device_augment)
 
 
 def segmentation_batch(n_frag: int, frag_bs: int, size: int, seed: int):
@@ -1054,23 +1069,23 @@ def phase_train_bf16(seed: int = 0):
 
 def conv_macs(module, x) -> tuple:
     """Multiply-adds of one forward of *module* on *x*, summed over the
-    port's convolutions from their output shapes: (all convolutions, the
-    convolutions whose input is *x*, which need no input gradient)."""
+    port's convolutions and dense layers from their output shapes: (all of
+    them, those whose input is *x*, which need no input gradient)."""
     import torch
 
-    from medsegpretrainimagenet_tpu_torch.models.blocks import Conv
+    from medsegpretrainimagenet_tpu_torch.models.blocks import Conv, Dense
 
     counts = [0, 0]
     module.eval()  # no running-statistics update; the step sets train()
 
-    def hook(conv, args, out):
-        macs = out.numel() * conv.weight[0].numel()
+    def hook(layer, args, out):
+        macs = out.numel() * layer.weight[0].numel()
         counts[0] += macs
         if args[0] is x:
             counts[1] += macs
 
     handles = [m.register_forward_hook(hook) for m in module.modules()
-               if isinstance(m, Conv)]
+               if isinstance(m, (Conv, Dense))]
     try:
         with torch.no_grad():
             module(x)
@@ -1151,6 +1166,27 @@ def profile_train(run_steps, steps: int, wall_ms: float,
     sys.stdout.flush()
 
 
+def _timed_turns(run_steps, label: str) -> list:
+    """TURNS turns of TURN_STEPS steps, each under sync debug mode
+    "error" (a host sync in a step raises); the seconds of each."""
+    import torch
+
+    turns = []
+    for _ in range(TURNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run_steps(TURN_STEPS)
+        except RuntimeError as exc:
+            fail(f"{label}: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        turns.append(time.perf_counter() - t0)
+    return turns
+
+
 def phase_train_full() -> float:
     """(b) and (c): unet_256_train at full width in bf16.  Returns the
     median images/s of the one-fragment turns."""
@@ -1203,18 +1239,7 @@ def phase_train_full() -> float:
         for values in log.values():
             values.clear()
         torch.cuda.reset_peak_memory_stats()
-        turns = []
-        for _ in range(TURNS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            # any synchronising call inside a step raises here
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                run_steps(TURN_STEPS)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            torch.cuda.synchronize()
-            turns.append(time.perf_counter() - t0)
+        turns = _timed_turns(run_steps, "[train] a host sync in a step")
         peak = torch.cuda.max_memory_allocated()
         losses = torch.stack(log["dice_loss"]).cpu()
         norms = torch.stack(log["gradient_magnitude"]).cpu()
@@ -1251,18 +1276,9 @@ def phase_train_full() -> float:
         split = {k: v.reshape((2, TRAIN_BATCH // 2) + v.shape[2:])
                  for k, v in batch.items()}
         run_steps(2, split)  # autotuning of the batch-8 shapes
-        split_rates = []
-        for _ in range(TURNS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                run_steps(TURN_STEPS, split)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            torch.cuda.synchronize()
-            split_rates.append(TRAIN_BATCH * TURN_STEPS
-                               / (time.perf_counter() - t0))
+        split_rates = [TRAIN_BATCH * TURN_STEPS / t for t in _timed_turns(
+            lambda n: run_steps(n, split),
+            "[train] a host sync in a two-fragment step")]
         tail = torch.stack(log["dice_loss"][-TURNS * TURN_STEPS:]).cpu()
         check(bool(torch.isfinite(tail).all()),
               f"two-fragment losses {tail.tolist()}")
@@ -1514,17 +1530,22 @@ CLI_EPOCH_COLUMNS = {"epoch", "learning_rate", "dice_loss",
 ENVELOPE_MARKS = ("Exception occured", "Traceback")
 
 
-def cli_config(workdir: Path, epochs: int, absolute_path=None) -> dict:
+def cli_config(workdir: Path, epochs: int, absolute_path=None,
+               measured: bool = True) -> dict:
     """The port's counterpart of the JAX package's CLI-epoch config
     (``bench.py:1072-1109``): UNet depth 4 with the default channels 64 ->
     1024, 256 x 256, batch 16, bf16, async checkpoints, profiling, Dice loss
     and metrics.DiceIndex, SGD momentum 0.9 at a constant lr of 0.01,
     validate_on_test.  Added: RepeatChannels for train and val, the mask
-    cast, and the watched metric, so that a best model is written."""
+    cast, and the watched metric, so that a best model is written.
+    A run that is not *measured* (the --continued runs, [cli det] and
+    [cli transfer]) writes no timing files and no profiler trace and skips
+    cuDNN's autotuning, a large part of a process's first epoch."""
     technical = {"seed": 777, "save_destination": str(workdir / "logs"),
                  "maximum_actual_batch_size": CLI_BATCH,
                  "mixed_precision": True, "async_checkpointing": True,
-                 "profile": True, "export_plots_as": ("json",),
+                 "profile": measured, "use_cudnn_benchmarking": measured,
+                 "export_plots_as": ("json",),
                  "model_evaluation": {
                      "metric": "val_metrics/dice_index_threshold_0.5",
                      "mode": "max"}}
@@ -1853,8 +1874,8 @@ def phase_cli(step_rate: float) -> None:
                   f"{1e3 * float(steps['max_s']):.2f}", flush=True)
 
         seconds = _run_cli(workdir, cli_config(
-            workdir, CLI_EPOCHS + 1, absolute_path=str(exp) + "/"),
-            "--continued")
+            workdir, CLI_EPOCHS + 1, absolute_path=str(exp) + "/",
+            measured=False), "--continued")
         rows = _check_run(run, CLI_EPOCHS + 1, module)
         check([int(r["epoch"]) for r in rows]
               == list(range(1, CLI_EPOCHS + 2)), "[cli] resumed epochs")
@@ -1871,8 +1892,9 @@ def phase_cli(step_rate: float) -> None:
     print(f"[cli] {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-#: [cli det]: the [cli] config under deterministic algorithms, one epoch
-DET_IMAGES = 256
+#: [cli det]: the [cli] config under deterministic algorithms, one epoch,
+#: not measured (no trace, no autotuning)
+DET_IMAGES = 128
 
 
 def phase_cli_deterministic() -> None:
@@ -1885,7 +1907,7 @@ def phase_cli_deterministic() -> None:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         workdir = Path(tmp)
         write_covidqu_tree(workdir / "data", images=DET_IMAGES)
-        cfg = cli_config(workdir, 1)
+        cfg = cli_config(workdir, 1, measured=False)
         cfg["meta"]["technical"]["use_deterministic_algorithms"] = True
         seconds, out = _cli_process(workdir, cfg)
         raised = sorted(set(re.findall(
@@ -1897,25 +1919,22 @@ def phase_cli_deterministic() -> None:
               f"stderr tail:\n{out.stderr[-4000:]}")
         (run,) = (workdir / "logs").glob("*/Experiment/run_1")
         rows = _csv_rows(run / "epoch_logs.csv")
-        steps = _csv_rows(run / "profile" / "step_times.csv")
-        check(len(rows) == 1 and len(steps) == 1,
-              f"[cli det] {len(rows)} epoch rows")
+        check(len(rows) == 1, f"[cli det] {len(rows)} epoch rows")
         print(f"[cli det] the [cli] config under deterministic algorithms, "
               f"1 epoch of {DET_IMAGES} images in {seconds:.1f} s of wall "
               f"time (process and cuDNN autotuning included): operations "
               f"without a deterministic CUDA kernel that raised: "
               f"{raised or 'none'}; dice_loss {rows[0]['dice_loss']}, val "
-              f"Dice {rows[0]['val_metrics/dice_index_threshold_0.5']}; "
-              f"device time per step p50 {1e3 * float(steps[0]['p50_s']):.2f}"
-              f" ms", flush=True)
+              f"Dice {rows[0]['val_metrics/dice_index_threshold_0.5']}",
+              flush=True)
     print(f"[cli det] {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 #: [cli acdc]: a synthetic ACDC tree, ACDC_TRAIN + ACDC_TEST patients of
-#: two frames of ACDC_SHAPE each (800 training and 200 validation slices
+#: two frames of ACDC_SHAPE each (400 training and 200 validation slices
 #: of 256 x 256 after the resize), ACDC_EPOCHS epochs and one more under
 #: --continued
-ACDC_TRAIN, ACDC_TEST, ACDC_SHAPE, ACDC_EPOCHS = 40, 10, (232, 256, 10), 3
+ACDC_TRAIN, ACDC_TEST, ACDC_SHAPE, ACDC_EPOCHS = 20, 10, (232, 256, 10), 3
 ACDC_CLASSES = ("RV cavity", "myocardium", "LV cavity")
 ACDC_METRICS = (MC + "DiceIndex", MC + "JaccardIndex",
                 MC + "ModifiedHausdorffDistance", MC + "AUROC")
@@ -1953,13 +1972,14 @@ def write_acdc_tree(root: Path, seed: int = 0) -> None:
                          compresslevel=1)
 
 
-def acdc_config(workdir: Path, epochs: int, absolute_path=None) -> dict:
+def acdc_config(workdir: Path, epochs: int, absolute_path=None,
+                measured: bool = True) -> dict:
     """The ACDC U-Net: the [train] U-Net at full width with a 4-channel
     softmax head (``config/downstream/acdc/unet.yaml``'s shape), batchwise
     multiclass Dice loss with the background, the multiclass Dice (with
     classwise columns), Jaccard, HD95 and AUROC, the confusion-matrix
     export, profiling and a watched val mean Dice; the rest as [cli]."""
-    cfg = cli_config(workdir, epochs, absolute_path)
+    cfg = cli_config(workdir, epochs, absolute_path, measured)
     cfg["meta"]["technical"]["model_evaluation"] = {
         "metric": "val_metrics/mean_dice_index", "mode": "max"}
     cfg["data"]["data"] = {"segmentation.datasets.ACDC": {
@@ -2075,8 +2095,8 @@ def phase_cli_acdc(step_rate: float) -> None:
               f"({trace.stat().st_size / 2 ** 20:.1f} MiB)", flush=True)
 
         seconds = _run_cli(workdir, acdc_config(
-            workdir, ACDC_EPOCHS + 1, absolute_path=str(exp) + "/"),
-            "--continued")
+            workdir, ACDC_EPOCHS + 1, absolute_path=str(exp) + "/",
+            measured=False), "--continued")
         rows = _check_acdc_run(run, ACDC_EPOCHS + 1, module)
         check([int(r["epoch"]) for r in rows]
               == list(range(1, ACDC_EPOCHS + 2)), "[cli acdc] resumed epochs")
@@ -2087,6 +2107,484 @@ def phase_cli_acdc(step_rate: float) -> None:
         del module
         torch.cuda.empty_cache()
     print(f"[cli acdc] {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# ImageNet pretraining of the U-Net encoder, and its transfer downstream
+# ---------------------------------------------------------------------------
+
+#: unet_encoder_224_pretrain, the JAX package's pretraining headline
+#: (bench.py:575-632, :699-737): batch, crop side, stored side, classes
+PRETRAIN_BATCH, PRETRAIN_SIZE, PRETRAIN_STORED, PRETRAIN_CLASSES = \
+    64, 224, 256, 1000
+#: [pretrain small]: AdamW's epsilon.  The gradient of a conv bias that
+#: feeds a BatchNorm is zero up to rounding noise, which differs between
+#: the card and the CPU; AdamW divides it by its own root mean square, so
+#: at the default 1e-8 that noise moves those biases (and the running
+#: means) by up to the learning rate per step on one device and not the
+#: other.  1e-4 keeps the noise still and the real updates as they are.
+PRETRAIN_SMALL_EPS = 1e-4
+#: [cli pretrain]: a synthetic ImageNet store of 3 x 256 x 256 uint8 npy
+#: files, PRETRAIN_CLI_CLASSES of the 1000 classes used, each with its own
+#: tint, so that the loss has something to learn in two epochs
+PRETRAIN_TRAIN, PRETRAIN_VAL, PRETRAIN_EPOCHS, PRETRAIN_CLI_CLASSES = \
+    640, 128, 2, 20
+#: epoch_logs.csv's columns for the pretraining config, the JAX CLI's set
+#: (tests/test_torch_cli.py holds the two CLIs' sets equal)
+PRETRAIN_EPOCH_COLUMNS = {
+    "epoch", "learning_rate", "cross_entropy_loss", "metrics/accuracy",
+    "metrics/area_under_roc", "val_cross_entropy_loss",
+    "val_metrics/accuracy", "val_metrics/area_under_roc"}
+#: [cli transfer]: the [cli] config, one epoch over this many images
+TRANSFER_IMAGES = 256
+
+
+def pretrain_config(classes: int = PRETRAIN_CLASSES, channels=None,
+                    eps=None) -> dict:
+    """``unet_encoder_224_pretrain``'s model, training and metrics: a
+    ``FeedForwardModel`` of the U-Net encoder (depth 4, 64 -> 1024),
+    adaptive average pooling, flatten and a 1000-way Linear; cross entropy
+    with label smoothing 0.1; AdamW (0.9, 0.999), weight decay 0.05, its
+    lr a linear warm-up to 0.004 into a cosine decay
+    (``tests/test_pretrain_transfer_e2e.py:62-70``); Accuracy and AUROC on
+    the labels.  *channels* cuts the width and depth."""
+    encoder = {"in_channel_size": 3, "depth": 4}
+    if channels:
+        encoder.update(channels=tuple(channels), depth=len(channels) - 1)
+    features = channels[-1] if channels else 1024
+    adamw = {"betas": (0.9, 0.999), "weight_decay": 0.05, "learning_rate": {
+        "optim.scheduler.LinearWarmupScheduler": {
+            "base": 0.004, "warmup_length": 2, "iteration_unit": "batch",
+            "main_scheduler": {"torch.optim.lr_scheduler.CosineAnnealingLR":
+                               {"eta_min": 1e-6, "T_max": "auto"}}}}}
+    if eps is not None:
+        adamw["eps"] = eps
+    return {
+        "model": {"model.FeedForwardModel": {"layers": (
+            {"segmentation.models.UNet_encoder": encoder},
+            {"torch.nn.AdaptiveAvgPool2d": {"output_size": 1}},
+            "torch.nn.Flatten",
+            {"torch.nn.Linear": {"in_features": features,
+                                 "out_features": classes}})}},
+        "training": {
+            "loss": {"classification.losses.CrossEntropyLoss": {
+                "label_smoothing": 0.1, "label_type": "label"}},
+            "optimizer": {"torch.optim.AdamW": adamw}},
+        "metrics": {
+            "metrics": (MC + "Accuracy", MC + "AUROC"),
+            "calculation": {"number_of_classes": classes,
+                            "label_type": "label", "apply_softmax": True,
+                            "include_background_in_averages": True}},
+    }
+
+
+def classification_batch(n: int, size: int, classes: int, seed: int):
+    """A fixed uint8 batch stack: random images and labels, (1, n, size,
+    size, 3) and (1, n)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, (1, n, size, size, 3), dtype=np.uint8)
+    label = rng.integers(0, classes, (1, n)).astype(np.int32)
+    return {"x": torch.from_numpy(x), "label": torch.from_numpy(label)}
+
+
+def phase_pretrain_small():
+    """A small float32 pretraining classifier (encoder depth 2, channels
+    8-16-32, 10 classes) at 32 x 32: three cross-entropy + AdamW steps of
+    one batch of 4 on the card and on the CPU from the same weights; loss,
+    parameters and running statistics within TRAIN_TOL, TF32 off."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = pretrain_config(classes=10, channels=(8, 16, 32),
+                          eps=PRETRAIN_SMALL_EPS)
+    batch = classification_batch(4, 32, 10, seed=0)
+    runs = []
+    for device in ("cpu", "cuda"):
+        model, state, calculator, step = build_trainer(cfg, device)
+        metrics_state = calculator.init_state(device)
+        losses = []
+        for _ in range(3):
+            state, metrics_state, per_batch = step(
+                state, metrics_state, {k: v.to(device)
+                                       for k, v in batch.items()})
+            losses.append(per_batch["cross_entropy_loss"].item())
+        runs.append((losses, {k: v.double().cpu() for k, v in
+                              model.module.state_dict().items()}))
+    (cpu_losses, cpu_state), (losses, state) = runs
+    loss_err = max(abs(a - b) for a, b in zip(losses, cpu_losses))
+    state_err = {k: (v - cpu_state[k]).abs().max().item()
+                 for k, v in state.items()}
+    worst = max(state_err, key=state_err.get)
+    stats_err = max(v for k, v in state_err.items() if "running" in k)
+    check(loss_err < TRAIN_TOL and state_err[worst] < TRAIN_TOL,
+          f"[pretrain small] card vs CPU: loss {loss_err}, {worst} "
+          f"{state_err[worst]} (bar {TRAIN_TOL})")
+    check(losses[-1] < losses[0], f"[pretrain small] losses {losses}")
+    print(f"[pretrain small] f32 FeedForwardModel (encoder 8-16-32, 10 "
+          f"classes), 3 CE + AdamW steps at 32x32, card vs CPU: max |diff| "
+          f"loss {loss_err:.3g}, parameters and running statistics "
+          f"{state_err[worst]:.3g} (running statistics {stats_err:.3g}; "
+          f"bar {TRAIN_TOL}); loss {losses[0]:.4f} -> {losses[-1]:.4f}",
+          flush=True)
+
+
+def phase_pretrain_full() -> float:
+    """unet_encoder_224_pretrain's train step at full width in bf16 on one
+    fixed uint8 batch, as [train] times unet_256_train; then the same step
+    with the on-card classification chain inside it, on a batch of the
+    stored size.  Returns the plain step's median images/s."""
+    import statistics as stats
+
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.models import blocks
+    from medsegpretrainimagenet_tpu_torch.ops.augment import \
+        make_classification_device_augment
+
+    torch.backends.cudnn.benchmark = True
+    blocks.set_compute_dtype(torch.bfloat16)
+    try:
+        model, state, calculator, step = build_trainer(pretrain_config(),
+                                                       "cuda")
+        n_params = sum(p.numel() for p in model.module.parameters())
+        batch = {k: v.cuda() for k, v in classification_batch(
+            PRETRAIN_BATCH, PRETRAIN_SIZE, PRETRAIN_CLASSES, 0).items()}
+        x0 = batch["x"][0, :1].float() / 255.0
+        macs, first_macs = conv_macs(model.module, x0)
+        flops = 2 * PRETRAIN_BATCH * (3 * macs - first_macs)
+        bound_ms = 1e3 * flops / PEAK_OPS_PER_S["torch.bfloat16"]
+        print(f"[pretrain] unet_encoder_224_pretrain: {n_params} parameters,"
+              f" forward {macs / 1e9:.2f} GMAC per image (convs and the "
+              f"Linear), train step {flops / 1e12:.3f} TFLOP at batch "
+              f"{PRETRAIN_BATCH}: bound {bound_ms:.3f} ms (operations, bf16 "
+              f"at 989 TFLOP/s)", flush=True)
+
+        metrics_state = calculator.init_state("cuda")
+        losses = []
+
+        def run_steps(n, stack=batch, stepper=None):
+            nonlocal state, metrics_state
+            for _ in range(n):
+                state, metrics_state, per_batch = (stepper or step)(
+                    state, metrics_state, stack)
+                losses.append(per_batch["cross_entropy_loss"])
+
+        t0 = time.perf_counter()
+        run_steps(3)
+        torch.cuda.synchronize()
+        print(f"[pretrain] warm-up, 3 steps: {time.perf_counter() - t0:.2f} "
+              f"s", flush=True)
+        losses.clear()
+        torch.cuda.reset_peak_memory_stats()
+        turns = _timed_turns(run_steps, "[pretrain] a host sync in a step")
+        peak = torch.cuda.max_memory_allocated()
+        values = torch.stack(losses).float().cpu()
+        check(bool(torch.isfinite(values).all())
+              and bool(values[-1] < values[0]),
+              f"[pretrain] cross entropy {values.tolist()}")
+        step_ms = [1e3 * t / TURN_STEPS for t in turns]
+        rates = [PRETRAIN_BATCH * TURN_STEPS / t for t in turns]
+        wall_ms = stats.median(step_ms)
+        rate = stats.median(rates)
+        print(f"[pretrain] bf16, batch {PRETRAIN_BATCH}, {PRETRAIN_SIZE}x"
+              f"{PRETRAIN_SIZE}, {len(values)} steps on one batch with no "
+              f"host sync (sync debug mode 'error'): cross entropy step 1 "
+              f"{values[0].item():.4f}, step {len(values)} "
+              f"{values[-1].item():.4f}", flush=True)
+        print(f"[pretrain] images/s: median {rate:.1f} of "
+              f"{[round(r, 1) for r in sorted(rates)]} ({TURNS} turns of "
+              f"{TURN_STEPS} steps); {wall_ms:.3f} ms per step, "
+              f"{100 * bound_ms / wall_ms:.1f} % of the {bound_ms:.3f} ms "
+              f"bound; peak memory {peak / 2 ** 30:.2f} GiB", flush=True)
+        profile_train(run_steps, 5, wall_ms, tag="pretrain")
+        del model, state, metrics_state, step
+        torch.cuda.empty_cache()
+
+        # the on-card chain inside the step, from stored-size uint8 images
+        chain = make_classification_device_augment(
+            out_size=PRETRAIN_SIZE, n_classes=PRETRAIN_CLASSES,
+            crop_scale=(0.8, 1.0), flip_probability=0.5,
+            mixup_switch_probability=0.5, mixup_probability=0.8,
+            erasing_probability=0.25)
+        model, state, calculator, step = build_trainer(
+            pretrain_config(), "cuda", device_augment=chain)
+        metrics_state = calculator.init_state("cuda")
+        stored = {k: v.cuda() for k, v in classification_batch(
+            PRETRAIN_BATCH, PRETRAIN_STORED, PRETRAIN_CLASSES, 1).items()}
+        run_steps(3, stored)
+        losses.clear()
+        turns = _timed_turns(lambda n: run_steps(n, stored),
+                             "[pretrain] a host sync in the chain's step")
+        chain_rates = [PRETRAIN_BATCH * TURN_STEPS / t for t in turns]
+        values = torch.stack(losses).float().cpu()
+        check(bool(torch.isfinite(values).all()),
+              f"[pretrain] chain cross entropy {values.tolist()}")
+        chain_rate = stats.median(chain_rates)
+        print(f"[pretrain] with make_classification_device_augment in the "
+              f"step (crop {PRETRAIN_STORED} -> {PRETRAIN_SIZE}, flip, "
+              f"one-hot, mixup or cutmix, erasing), no host sync: median "
+              f"{chain_rate:.1f} images/s of "
+              f"{[round(r, 1) for r in sorted(chain_rates)]} against "
+              f"{rate:.1f} plain ({100 * chain_rate / rate:.1f} %); cross "
+              f"entropy {values[0].item():.4f} -> {values[-1].item():.4f}",
+              flush=True)
+        profile_train(lambda n: run_steps(n, stored), 5,
+                      1e3 * PRETRAIN_BATCH / chain_rate,
+                      tag="pretrain chain")
+        return rate
+    finally:
+        blocks.set_compute_dtype(None)
+
+
+def write_imagenet_store(root: Path, seed: int = 0) -> None:
+    """An ImageNet store in the reader's layout (``bench.py:704-713``):
+    channels-first uint8 ``.npy`` files and ``labels.json`` with classes
+    1..1000, the validation files named ``val_*``.  PRETRAIN_CLI_CLASSES
+    classes spread over the 1000 are used, each image noise under its
+    class's tint."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    store = root / "imagenet"
+    store.mkdir(parents=True)
+    classes = rng.choice(PRETRAIN_CLASSES, PRETRAIN_CLI_CLASSES,
+                         replace=False) + 1
+    tints = rng.integers(0, 128, (PRETRAIN_CLI_CLASSES, 3, 1, 1))
+    labels = {}
+    for i in range(PRETRAIN_TRAIN + PRETRAIN_VAL):
+        name = (f"train_{i:05d}.npy" if i < PRETRAIN_TRAIN
+                else f"val_{i:05d}.npy")
+        c = int(rng.integers(0, PRETRAIN_CLI_CLASSES))
+        noise = rng.integers(0, 128, (3, PRETRAIN_STORED, PRETRAIN_STORED))
+        np.save(store / name, (noise + tints[c]).astype(np.uint8))
+        labels[name] = int(classes[c])
+    (store / "labels.json").write_text(json.dumps(labels))
+
+
+def pretrain_cli_config(workdir: Path, epochs: int) -> dict:
+    """unet_encoder_224_pretrain through the CLI: the store read uint8
+    (``uint8_transfer``), the train chain of ``bench.py:720-737``
+    (RandomResizedCrop 224 of scale 0.8 to 1, flip, RandAugment, one-hot,
+    MixupOrCutMix, RandomErasing), a 224 center crop for val, batch 64,
+    bf16, the epoch-1 checkpoint and the confusion matrices of both
+    epochs, profiling."""
+    cfg = pretrain_config()
+    cfg["metrics"]["calculation"].update(log_confusion_matrix=True,
+                                         log_confusion_matrix_at=(1, 2))
+    cfg.update({
+        "experiment": {"number_of_epochs": epochs, "number_of_trials": 1},
+        "meta": {"technical": {
+            "seed": 777, "save_destination": str(workdir / "pretrain_logs"),
+            "maximum_actual_batch_size": PRETRAIN_BATCH,
+            "mixed_precision": True, "async_checkpointing": True,
+            "profile": True, "export_plots_as": ("json",),
+            "model_log_checkpoints": (1,)}},
+        "data": {
+            "data": {"classification.datasets.ImageNet": {
+                "uint8_transfer": True}},
+            "sampling": {"batch_size": PRETRAIN_BATCH},
+            "transforms": {
+                "train": (
+                    {"torchvision.transforms.RandomResizedCrop": {
+                        "size": PRETRAIN_SIZE, "scale": (0.8, 1.0)}},
+                    "torchvision.transforms.RandomHorizontalFlip",
+                    "classification.transforms.RandAugment",
+                    {"classification.transforms.OneHotEncoding": {
+                        "num_classes": PRETRAIN_CLASSES}},
+                    {"classification.transforms.MixupOrCutMix": {
+                        "mixup_params": {"distribution": "uniform",
+                                         "probability": 0.8}}},
+                    {"torchvision.transforms.RandomErasing": {"p": 0.25}}),
+                "val": ({"torchvision.transforms.CenterCrop": {
+                    "size": PRETRAIN_SIZE}},)}},
+    })
+    return cfg
+
+
+def _pretrain_host_assembly(workdir: Path) -> float:
+    """Host ms per assembled train batch of the CLI's own reader, chain and
+    loader (lazy loads, the pairs' transforms, mixing, stacking)."""
+    import itertools
+    import os
+
+    from medsegpretrainimagenet_tpu_torch.cli.run_experiment import \
+        build_transform_pipelines
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict
+    from medsegpretrainimagenet_tpu_torch.data import BalancedDataLoader
+    from medsegpretrainimagenet_tpu_torch.data.readers import ImageNet
+
+    os.environ["MST_DATA_DIR"] = str(workdir / "data")
+    cd = ConfigDict(pretrain_cli_config(workdir, 1))
+    cd.expand()
+    pipeline, _, _, datapoints, _ = build_transform_pipelines(cd, seed=1)
+    dataset = ImageNet(ConfigDict({"uint8_transfer": True}), seed=1)
+    sampling = ConfigDict({"sampling": {"batch size": PRETRAIN_BATCH}})
+    BalancedDataLoader.fill_kwargs(sampling["sampling"])
+    loader = BalancedDataLoader(
+        dataset.train, sampling["sampling/train"], bs=PRETRAIN_BATCH,
+        actual_bs=PRETRAIN_BATCH, transforms=pipeline, seed=1,
+        load_function=dataset.load_function,
+        datapoints_per_sample=datapoints["train"])
+    batches = iter(loader)
+    next(batches)
+    t0 = time.perf_counter()
+    got = list(itertools.islice(batches, 3))
+    ms = 1e3 * (time.perf_counter() - t0) / len(got)
+    batch = got[0]
+    check(batch["x"].shape == (PRETRAIN_BATCH, PRETRAIN_SIZE, PRETRAIN_SIZE,
+                               3) and str(batch["x"].dtype) == "uint8"
+          and batch["label"].shape == (PRETRAIN_BATCH, PRETRAIN_CLASSES),
+          f"[cli pretrain] assembled batch {[(k, v.shape, v.dtype) for k, v in batch.items()]}")
+    return ms
+
+
+def phase_cli_pretrain(workdir: Path, step_rate: float) -> Path:
+    """unet_encoder_224_pretrain through the experiment CLI in a process of
+    its own, PRETRAIN_EPOCHS epochs on a synthetic store; the columns, the
+    epoch checkpoint, the confusion matrices and the loss; the epochs'
+    rates and the host's assembly time.  Returns the epoch-1 checkpoint."""
+    import numpy as np
+
+    from medsegpretrainimagenet_tpu_torch.train import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    write_imagenet_store(workdir / "data")
+    print(f"[cli pretrain] synthetic ImageNet store: {PRETRAIN_TRAIN} + "
+          f"{PRETRAIN_VAL} images of 3x{PRETRAIN_STORED}x{PRETRAIN_STORED} "
+          f"uint8, {PRETRAIN_CLI_CLASSES} of {PRETRAIN_CLASSES} classes, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    seconds = _run_cli(workdir, pretrain_cli_config(workdir,
+                                                    PRETRAIN_EPOCHS))
+    (run,) = (workdir / "pretrain_logs").glob("*/Experiment/run_1")
+    rows = _csv_rows(run / "epoch_logs.csv")
+    check(len(rows) == PRETRAIN_EPOCHS
+          and set(rows[0]) == PRETRAIN_EPOCH_COLUMNS,
+          f"[cli pretrain] epoch_logs.csv: {len(rows)} rows, columns "
+          f"{sorted(rows[0]) if rows else None}")
+    for row in rows:
+        check(all(math.isfinite(float(v)) for v in row.values()),
+              f"[cli pretrain] epoch row {row}")
+    losses = [float(r["cross_entropy_loss"]) for r in rows]
+    check(losses[-1] < losses[0], f"[cli pretrain] cross entropy {losses}")
+    encoder = run / "model_state_dict_epoch_1.pt"
+    params, stats = ckpt.load_encoder_variables(str(encoder))
+    check("stem_block.Conv_0.weight" in params and bool(stats),
+          f"[cli pretrain] {encoder.name}: {len(params)} parameters, "
+          f"statistics {bool(stats)}")
+    for split in ("train", "val"):
+        for epoch in range(1, PRETRAIN_EPOCHS + 1):
+            path = run / "Confusion_matrices" / \
+                f"{split}_confusion_matrix_epoch_{epoch}.json"
+            check(path.is_file(), f"[cli pretrain] {path.name} missing")
+            matrix = np.asarray(json.loads(path.read_text())["matrix"])
+            check(matrix.shape == (PRETRAIN_CLASSES, PRETRAIN_CLASSES)
+                  and matrix.sum() > 0,
+                  f"[cli pretrain] {path.name}: {matrix.shape}")
+    print(f"[cli pretrain] {PRETRAIN_EPOCHS} epochs in {seconds:.1f} s of "
+          f"wall time (process included): cross entropy {losses}, accuracy "
+          f"{[r['metrics/accuracy'] for r in rows]}, val accuracy "
+          f"{[r['val_metrics/accuracy'] for r in rows]}, val AUROC "
+          f"{[r['val_metrics/area_under_roc'] for r in rows]}; "
+          f"{encoder.name} with {len(params)} encoder parameters and "
+          f"{len(stats)} statistics; confusion matrices of epochs 1 and 2",
+          flush=True)
+    epoch_times = _csv_rows(run / "profile" / "epoch_times.csv")
+    step_times = _csv_rows(run / "profile" / "step_times.csv")
+    for row, steps in zip(epoch_times, step_times):
+        train_s = float(row["train_s"])
+        rate = PRETRAIN_TRAIN / train_s
+        print(f"[cli pretrain] epoch {row['epoch']}: train {train_s:.3f} s = "
+              f"{rate:.1f} images/s ({100 * rate / step_rate:.1f} % of "
+              f"[pretrain]'s {step_rate:.1f} step-only images/s), val "
+              f"{float(row['val_s']):.3f} s, checkpoints "
+              f"{float(row['ckpt_s']):.3f} s, confusion matrices "
+              f"{float(row.get('cm_export_s', 'nan')):.3f} s; device time per"
+              f" step mean {1e3 * float(steps['mean_s']):.2f} ms, p50 "
+              f"{1e3 * float(steps['p50_s']):.2f}", flush=True)
+    assembly_ms = _pretrain_host_assembly(workdir)
+    print(f"[cli pretrain] host assembly {assembly_ms:.1f} ms per batch of "
+          f"{PRETRAIN_BATCH} ({2 * PRETRAIN_BATCH} lazy loads and chains up "
+          f"to MixupOrCutMix, mixing, erasing, stacking), "
+          f"{1e3 * PRETRAIN_BATCH / assembly_ms:.1f} images/s of host "
+          f"supply", flush=True)
+    return encoder
+
+
+def phase_cli_transfer(workdir: Path, encoder: Path) -> None:
+    """The [cli] COVID-QU config, one epoch over TRANSFER_IMAGES images,
+    its U-Net's encoder from [cli pretrain]'s epoch-1 checkpoint
+    (``weight_init/encoder``, not strict).  In this process, before any
+    step: the encoder's parameters and BatchNorm statistics equal the
+    checkpoint's and the decoder is the random init's.  Then the CLI in a
+    process of its own: exit 0, the load announced, the loss falling."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
+    from medsegpretrainimagenet_tpu_torch.models import Model
+    from medsegpretrainimagenet_tpu_torch.train import checkpoint as ckpt
+
+    write_covidqu_tree(workdir / "data", images=TRANSFER_IMAGES)
+    cfg = cli_config(workdir, 1, measured=False)
+    cfg["meta"]["technical"]["save_destination"] = str(
+        workdir / "transfer_logs")
+    random_init = {"torch.nn.init.kaiming_normal_": {"nonlinearity": "relu"}}
+    cfg["model"]["segmentation.models.UNet"]["weight_init"] = {
+        "random": random_init,
+        "encoder": {"weights": str(encoder), "strict": False,
+                    "pretrained_encoder": True}}
+
+    def built(model_cfg):
+        cd = ConfigDict({"model": model_cfg})
+        cd.expand()
+        registry.fill_spec(cd, "model")
+        inner = cd["model"].value()
+        Model.fill_weight_init_kwargs(inner)
+        model = registry.build(cd, key="model", wrapper=Model)
+        model.init(777)
+        model.init_weight(inner, torch.Generator().manual_seed(778))
+        return model.module.state_dict()
+
+    got = built(cfg["model"])
+    plain = json.loads(json.dumps(cfg["model"]))
+    plain["segmentation.models.UNet"]["weight_init"] = random_init
+    fresh = built(plain)
+    params, stats = ckpt.load_encoder_variables(str(encoder))
+    loaded = {**params, **stats}
+    enc = [k for k in got if k.startswith("enc.")
+           and not k.endswith("num_batches_tracked")]
+    dec = [k for k in got if k.startswith("dec.")]
+    check(all(torch.equal(got[k], loaded[k[4:]]) for k in enc),
+          "[cli transfer] the U-Net's encoder differs from the checkpoint's")
+    check(any(not torch.equal(got[k], fresh[k]) for k in enc)
+          and all(torch.equal(got[k], fresh[k]) for k in dec),
+          "[cli transfer] the decoder changed, or the encoder did not")
+    print(f"[cli transfer] before the first step: {len(enc)} encoder "
+          f"tensors (parameters and BatchNorm statistics) equal "
+          f"{encoder.name}'s; the {len(dec)} decoder tensors are the random "
+          f"init's", flush=True)
+
+    seconds, out = _cli_process(workdir, cfg)
+    marks = [m for m in ENVELOPE_MARKS if m in out.stderr]
+    check(out.returncode == 0 and not marks
+          and "Successfully initialised encoder" in out.stdout,
+          f"[cli transfer] exit {out.returncode}, envelope marks {marks}; "
+          f"stderr tail:\n{out.stderr[-4000:]}")
+    (run,) = (workdir / "transfer_logs").glob("*/Experiment/run_1")
+    batches = [float(r["dice_loss"])
+               for r in _csv_rows(run / "batch_logs.csv")]
+    head, tail = statistics.mean(batches[:4]), statistics.mean(batches[-4:])
+    check(len(batches) == TRANSFER_IMAGES // CLI_BATCH and tail < head,
+          f"[cli transfer] dice_loss per batch {batches}")
+    rows = _csv_rows(run / "epoch_logs.csv")
+    print(f"[cli transfer] 1 epoch of {TRANSFER_IMAGES} images in "
+          f"{seconds:.1f} s of wall time (process and cuDNN autotuning "
+          f"included), encoder from {encoder.name}: dice_loss over the first "
+          f"4 batches {head:.4f}, the last 4 {tail:.4f}; val Dice "
+          f"{rows[0]['val_metrics/dice_index_threshold_0.5']}", flush=True)
 
 
 def main() -> int:
@@ -2117,6 +2615,13 @@ def main() -> int:
     timed("cli", phase_cli, step_rate)
     timed("cli det", phase_cli_deterministic)
     timed("cli acdc", phase_cli_acdc, step_rate)
+    timed("pretrain small", phase_pretrain_small)
+    pretrain_rate = timed("pretrain", phase_pretrain_full)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        encoder = timed("cli pretrain", phase_cli_pretrain, Path(tmp),
+                        pretrain_rate)
+        timed("cli transfer", phase_cli_transfer, Path(tmp), encoder)
 
     # per kernel: the 14 calls of one bf16 forward at batch 24, summed,
     # L2-cold (warm_ms: the same calls on warm inputs); launches from its

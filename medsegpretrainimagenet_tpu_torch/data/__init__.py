@@ -1,7 +1,7 @@
-"""Data layer: the COVID-QU and ACDC readers, balanced sampling, the
-segmentation transforms, host resampling (``warp``) and loading with
-device prefetch.
-The other readers and ``MixedDataset`` are ROADMAP queue M5's rest."""
+"""Data layer: the COVID-QU, ACDC and ImageNet readers, balanced
+sampling, the segmentation and classification transforms, host resampling
+(``warp``) and loading with device prefetch.
+IDRiD and ``MixedDataset`` are ROADMAP queue M5's rest."""
 from ..config.registry import register_not_ported
 from .dataset import Dataset  # noqa: F401
 from .loader import BalancedDataLoader, prefetch_to_device  # noqa: F401

@@ -6,8 +6,9 @@ where OpenCV is not installed:
 
 * :func:`resize`: bilinear with half-pixel centres and no antialiasing,
   edge pixels clamped, as ``cv2.INTER_LINEAR``.  Float images follow
-  OpenCV's arithmetic (float32; float64 for a float64 image, its weights
-  in float32 past 4 channels); uint8 images its 11-bit fixed-point weights
+  OpenCV 5's arithmetic (double weights and sums for 1, 3 or 4 channels;
+  float32 weights for 2 or more than 4, summed in the image's precision);
+  uint8 images its 11-bit fixed-point weights
   and rounding, so both give OpenCV's values: floats to rounding, uint8
   bit for bit when shrinking (on enlarging OpenCV rounds about one pixel
   in a hundred the other way, by one gray level).  Nearest takes
@@ -21,6 +22,10 @@ where OpenCV is not installed:
   rounding: within 3e-6 on [0, 1] images, and every nearest pixel equal,
   on all five borders; :func:`rotation_matrix` is
   ``cv2.getRotationMatrix2D``.
+* :func:`warp_affine_fixed`: ``cv2.warpAffine`` of a float64 image with a
+  constant border, which OpenCV 5 still runs through its fixed-point map
+  (source coordinates in 1/1024 pixel, bilinear weights at 1/32 pixel):
+  equal to OpenCV's to double rounding.
 
 Images are (H, W) or (H, W, C) arrays.
 """
@@ -30,8 +35,8 @@ from typing import Tuple
 
 import numpy as np
 
-__all__ = ["resize", "warp_affine", "rotation_matrix", "border_name",
-           "BORDER_MODES"]
+__all__ = ["resize", "warp_affine", "warp_affine_fixed", "rotation_matrix",
+           "border_name", "BORDER_MODES"]
 
 #: border mode names of the configs (OpenCV's constant names)
 BORDER_MODES = ("BORDER_CONSTANT", "BORDER_REPLICATE", "BORDER_REFLECT",
@@ -43,6 +48,7 @@ _BORDER_CODES = {0: "BORDER_CONSTANT", 1: "BORDER_REPLICATE",
                  4: "BORDER_REFLECT_101"}
 
 _COEF_BITS = 11  # OpenCV's INTER_RESIZE_COEF_BITS
+_AB_BITS, _INTER_BITS = 10, 5  # OpenCV's fixed-point warp: 1/1024, 1/32
 
 
 def border_name(mode) -> str:
@@ -55,8 +61,7 @@ def border_name(mode) -> str:
 
 def _linear_taps(out: int, size: int, dtype=np.float32):
     """Source index pairs and the weight of the second, per output index,
-    in *dtype* as OpenCV computes them (float32, float64 for a float64
-    image)."""
+    in *dtype* as OpenCV computes them."""
     f = ((np.arange(out) + 0.5) * (size / out) - 0.5).astype(dtype)
     lo = np.floor(f)
     frac = (f - lo).astype(dtype)
@@ -81,10 +86,13 @@ def resize(img: np.ndarray, size: Tuple[int, int],
         return img[ys][:, xs]
     if interpolation != "linear":
         raise ValueError(f"unknown interpolation {interpolation!r}")
-    work = np.float64 if img.dtype == np.float64 else np.float32
-    # OpenCV weighs a float64 image of up to 4 channels in double, one of
-    # more channels in float32 (and interpolates in double either way)
-    weights = np.float32 if img.ndim > 2 and img.shape[2] > 4 else work
+    # OpenCV 5 weighs a float image of 1, 3 or 4 channels in double and
+    # sums it in double; one of 2 or more than 4 channels has float32
+    # weights, summed in the image's own precision (uint8: float32 weights)
+    double = img.dtype != np.uint8 \
+        and (img.shape[2] if img.ndim > 2 else 1) in (1, 3, 4)
+    weights = np.float64 if double else np.float32
+    work = np.float64 if double or img.dtype == np.float64 else np.float32
     y0, y1, fy = _linear_taps(oh, h, weights)
     x0, x1, fx = _linear_taps(ow, w, weights)
     extra = (None,) * (img.ndim - 2)
@@ -137,6 +145,17 @@ def _border_index(i: np.ndarray, n: int, mode: str) -> np.ndarray:
     raise ValueError(f"unknown border mode {mode!r}")
 
 
+def _inverse_affine(matrix) -> np.ndarray:
+    """OpenCV's inverse of a 2 x 3 affine map, in double."""
+    m = np.asarray(matrix, np.float64)
+    det = m[0, 0] * m[1, 1] - m[0, 1] * m[1, 0]
+    det = 1.0 / det if det else 0.0
+    a11, a22 = m[1, 1] * det, m[0, 0] * det
+    a12, a21 = -m[0, 1] * det, -m[1, 0] * det
+    return np.array([[a11, a12, -a11 * m[0, 2] - a12 * m[1, 2]],
+                     [a21, a22, -a21 * m[0, 2] - a22 * m[1, 2]]])
+
+
 def warp_affine(img: np.ndarray, matrix: np.ndarray,
                 dsize: Tuple[int, int], nearest: bool = False,
                 border: str = "BORDER_CONSTANT",
@@ -153,12 +172,10 @@ def warp_affine(img: np.ndarray, matrix: np.ndarray,
         img = img[..., None]
     h, w = img.shape[:2]
     ow, oh = int(dsize[0]), int(dsize[1])
-    m = np.asarray(matrix, np.float64)
-    inv = np.linalg.inv(m[:, :2])
-    shift = -inv @ m[:, 2]
+    inv = _inverse_affine(matrix)
     ys, xs = np.mgrid[:oh, :ow].astype(np.float64)
-    sx = inv[0, 0] * xs + inv[0, 1] * ys + shift[0]
-    sy = inv[1, 0] * xs + inv[1, 1] * ys + shift[1]
+    sx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
+    sy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
 
     def tap(yi, xi):
         if border == "BORDER_CONSTANT":
@@ -176,4 +193,52 @@ def warp_affine(img: np.ndarray, matrix: np.ndarray,
         out = ((1 - fy) * ((1 - fx) * tap(y0, x0) + fx * tap(y0, x0 + 1))
                + fy * ((1 - fx) * tap(y0 + 1, x0) + fx * tap(y0 + 1, x0 + 1)))
     out = out.astype(np.float32)
+    return out[..., 0] if squeeze else out
+
+
+def warp_affine_fixed(img: np.ndarray, matrix: np.ndarray,
+                      dsize: Tuple[int, int], nearest: bool = False,
+                      fill=0.0) -> np.ndarray:
+    """``cv2.warpAffine(img, matrix, dsize=(width, height))`` of a float64
+    image with a constant border of *fill* (a scalar or one value per
+    channel), in OpenCV's fixed-point arithmetic: per output row and
+    column the inverse map's terms are rounded to 1/1024 pixel; nearest
+    takes the tap those sums round to, bilinear the 1/32-pixel cell below
+    them with its exact weights, summed in double.  The dtype is kept."""
+    img = np.asarray(img)
+    squeeze = img.ndim == 2
+    if squeeze:
+        img = img[..., None]
+    h, w = img.shape[:2]
+    ow, oh = int(dsize[0]), int(dsize[1])
+    inv = _inverse_affine(matrix)
+    scale = 1 << _AB_BITS
+    xs, ys = np.arange(ow), np.arange(oh)
+    half = scale // 2 if nearest else scale >> (_INTER_BITS + 1)
+    sx = (np.rint((inv[0, 1] * ys + inv[0, 2]) * scale).astype(np.int64)
+          + half)[:, None] + np.rint(inv[0, 0] * xs * scale).astype(
+              np.int64)[None]
+    sy = (np.rint((inv[1, 1] * ys + inv[1, 2]) * scale).astype(np.int64)
+          + half)[:, None] + np.rint(inv[1, 0] * xs * scale).astype(
+              np.int64)[None]
+    border = np.broadcast_to(np.asarray(fill, img.dtype), (img.shape[2],))
+
+    def tap(yi, xi):
+        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        vals = img[np.clip(yi, 0, h - 1), np.clip(xi, 0, w - 1)]
+        return np.where(valid[..., None], vals, border)
+
+    if nearest:
+        out = tap(sy >> _AB_BITS, sx >> _AB_BITS)
+    else:
+        sx, sy = sx >> (_AB_BITS - _INTER_BITS), sy >> (_AB_BITS - _INTER_BITS)
+        cell = 1 << _INTER_BITS
+        fx = ((sx & (cell - 1)) / cell)[..., None]
+        fy = ((sy & (cell - 1)) / cell)[..., None]
+        x0, y0 = sx >> _INTER_BITS, sy >> _INTER_BITS
+        out = (tap(y0, x0) * ((1 - fy) * (1 - fx))
+               + tap(y0, x0 + 1) * ((1 - fy) * fx)
+               + tap(y0 + 1, x0) * (fy * (1 - fx))
+               + tap(y0 + 1, x0 + 1) * (fy * fx))
+    out = out.astype(img.dtype)
     return out[..., 0] if squeeze else out

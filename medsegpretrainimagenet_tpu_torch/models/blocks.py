@@ -5,8 +5,10 @@ Layout is the JAX package's: NHWC images and (B, L, C) token sequences,
 parameter paths (``Dense_0``, ``Conv_0``, ``BatchNorm_0``, ...), so a JAX
 checkpoint maps onto a state dict key by key
 (``transfer.state_dict_from_jax``).  The ``torch.nn.*`` aliases the
-configs name (``Conv2d``, ``MaxPool2d``, ``Upsample``) are modules of
-their own with the JAX package's semantics, not torch's layers.
+configs name (``Conv2d``, ``MaxPool2d``, ``Upsample``, and the pretraining
+head's ``AvgPool2d``, ``AdaptiveAvgPool2d``, ``Flatten``, ``Linear``,
+``LayerNorm``) are modules of their own with the JAX package's semantics,
+not torch's layers.
 
 Mixed precision follows flax's ``dtype=`` convention rather than
 ``torch.autocast``: parameters stay float32 masters, a :class:`Dense` or
@@ -39,7 +41,8 @@ from .init import lecun_normal_
 __all__ = [
     "set_compute_dtype", "compute_dtype", "Dense", "Conv", "LayerNorm",
     "make_layer_norm", "drop_path", "Identity", "Conv2d", "MaxPool2d",
-    "Upsample", "BatchNorm", "ConvBlock", "UpConvBlock", "ConcatBlock",
+    "Upsample", "AvgPool2d", "AdaptiveAvgPool2d", "Flatten", "Linear",
+    "TorchLayerNorm", "BatchNorm", "ConvBlock", "UpConvBlock", "ConcatBlock",
     "ConcatLinearBlock", "set_dropout_generator", "mixing_out_channels",
     "block_accepts", "make_block_builder",
 ]
@@ -298,6 +301,99 @@ class Upsample(nn.Module):
         return F.interpolate(x.permute(0, 3, 1, 2),
                              scale_factor=self.scale_factor,
                              mode="nearest").permute(0, 2, 3, 1)
+
+
+@register("torch.nn.AvgPool2d", "avg_pool2d")
+class AvgPool2d(nn.Module):
+    """Average pooling over H and W of an NHWC tensor; the stride defaults
+    to the window.  Padding adds zeros that count in the mean (flax's
+    ``avg_pool``)."""
+
+    def __init__(self, kernel_size: Union[int, Tuple[int, int]] = 2,
+                 stride: Optional[Union[int, Tuple[int, int]]] = None,
+                 padding: Any = 0):
+        super().__init__()
+        self.kernel_size = _pair(kernel_size)
+        self.stride = _pair(stride) if stride is not None \
+            else self.kernel_size
+        self.padding = "VALID" if padding == 0 else _padding(padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (top, bottom), (left, right) = _axis_pads(
+            self.padding, x.shape[1:3], self.kernel_size, self.stride,
+            (1, 1))
+        x = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
+        return F.avg_pool2d(x, self.kernel_size,
+                            self.stride).permute(0, 2, 3, 1)
+
+
+def _adaptive_pool_axis(x: torch.Tensor, dim: int, out: int) -> torch.Tensor:
+    """Adaptive average pooling of one axis to *out* bins (torch's bins:
+    bin i covers [floor(i n / out), ceil((i + 1) n / out)))."""
+    n = x.shape[dim]
+    if n == out:
+        return x
+    if n % out == 0:
+        shape = x.shape[:dim] + (out, n // out) + x.shape[dim + 1:]
+        return x.reshape(shape).mean(dim=dim + 1)
+    return torch.cat([x.narrow(dim, (i * n) // out,
+                               -(-((i + 1) * n) // out) - (i * n) // out)
+                      .mean(dim=dim, keepdim=True) for i in range(out)],
+                     dim=dim)
+
+
+@register("torch.nn.AdaptiveAvgPool2d", "adaptive_avg_pool2d")
+class AdaptiveAvgPool2d(nn.Module):
+    """Adaptive average pooling of the two spatial axes of an NHWC tensor.
+    A (B, L, C) tensor is read as torch reads an unbatched (C, H, W) one:
+    its last two axes are pooled (``output_size (1, C)`` is the mean over
+    the tokens, as the Swin pretraining head uses it)."""
+
+    def __init__(self, output_size: Any = 1):
+        super().__init__()
+        self.output_size = output_size
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.ndim == 4 and self.output_size in (1, (1, 1), [1, 1]):
+            return x.mean(dim=(1, 2), keepdim=True)
+        out_h, out_w = _pair(self.output_size)
+        return _adaptive_pool_axis(_adaptive_pool_axis(x, 1, out_h), 2, out_w)
+
+
+@register("torch.nn.Flatten", "flatten")
+class Flatten(nn.Module):
+    def __init__(self):
+        super().__init__()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(x.shape[0], -1)
+
+
+@register("torch.nn.Linear", "linear_layer")
+class Linear(nn.Module):
+    """The JAX package's ``Linear``: a flax ``nn.Dense`` (``Dense_0``) in
+    the compute dtype, with torch's argument names."""
+
+    def __init__(self, in_features: int = 0, out_features: int = 0,
+                 bias: bool = True):
+        super().__init__()
+        self.Dense_0 = Dense(in_features, out_features, use_bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Dense_0(x)
+
+
+@register("torch.nn.LayerNorm", "layer_norm")
+class TorchLayerNorm(nn.Module):
+    """The JAX package's ``torch.nn.LayerNorm``: a flax ``nn.LayerNorm``
+    (``LayerNorm_0``) with torch's epsilon, 1e-5."""
+
+    def __init__(self, normalized_shape: int = 0, eps: float = 1e-5):
+        super().__init__()
+        self.LayerNorm_0 = LayerNorm(normalized_shape, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.LayerNorm_0(x)
 
 
 # ---------------------------------------------------------------------------

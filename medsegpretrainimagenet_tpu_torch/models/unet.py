@@ -90,7 +90,33 @@ class UNetEncoder(nn.Module):
     """General U-Net encoder: ``depth`` levels of ``width`` basic blocks
     with a downsampling block between levels (or stride-in-block when
     ``downsampling`` is None), plus a bottom level.  ``forward`` optionally
-    returns the per-level skip tensors."""
+    returns the per-level skip tensors.  Registered on its own as
+    ``segmentation.models.UNet_encoder``, the first layer of the
+    pretraining ``FeedForwardModel``."""
+
+    PARAMS = {
+        "in_channel_size": 3,
+        "basic_block": "segmentation.models.blocks.ConvBlock",
+        "stem": {"torch.nn.Conv2d": {"kernel_size": 3, "padding": "same"}},
+        "downsampling": {"torch.nn.MaxPool2d": {"kernel_size": 2}},
+        "depth": 4,
+        "width": 1,
+        "channels": "default",
+        "residual_connections": False,
+        "change_channel_in_block": True,
+        "trainable_downsampling": False,
+        "stochastic_depth_rate": 0.0,
+        "layer_scaling": False,
+    }
+
+    @staticmethod
+    def fill_kwargs(config_dict: ConfigDict):
+        for key in ("basic_block", "downsampling", "stem"):
+            value = config_dict.get(key)
+            if isinstance(value, str):
+                config_dict[key] = ConfigDict({value: {}})
+            if isinstance(config_dict.get(key), ConfigDict):
+                fill_spec(config_dict[key])
 
     def __init__(self, in_channel_size: int = 3,
                  basic_block: Any = "segmentation.models.blocks.ConvBlock",
@@ -382,3 +408,4 @@ class UNet(nn.Module):
 
 
 register("segmentation.models.UNet", "unet")(UNet)
+register("segmentation.models.UNet_encoder", "unet_encoder")(UNetEncoder)

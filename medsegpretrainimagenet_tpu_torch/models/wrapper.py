@@ -4,10 +4,11 @@ The port of ``models/wrapper.py``'s ``Model``: construction from a
 constructor and a config, seeded ``init``, ``apply``, the random
 weight-init schemes of the config (``init_weight``), pretrained-weight
 loading of the port's ``.pt`` state dicts (``load_weights``: parameters
-strict or warned, BatchNorm statistics warned), freezing, and parameter
-counts.  Where the JAX wrapper returns new variables, this one changes
-the module in place and returns its state dict.  Encoder transfer from a
-pretraining checkpoint waits for the ResNet slice (ROADMAP queue M9).
+strict or warned, BatchNorm statistics warned), the U-Net's encoder
+transfer from a pretraining checkpoint (``weight_init/encoder``),
+freezing, and parameter counts.  Where the JAX wrapper returns new
+variables, this one changes the module in place and returns its state
+dict.
 """
 from __future__ import annotations
 
@@ -19,17 +20,11 @@ import torch
 
 from ..config import ConfigDict
 from ..config.registry import get_kwargs
+from ..utils.errors import handle_exception
 from .blocks import block_accepts
 from .init import apply_init, init_module, init_spec_defaults
 
 __all__ = ["Model"]
-
-#: state-dict leaves that are BatchNorm statistics, not parameters
-_STAT_LEAVES = ("running_mean", "running_var", "num_batches_tracked")
-
-
-def _is_stat(name: str) -> bool:
-    return name.rsplit(".", 1)[-1] in _STAT_LEAVES
 
 
 def _graft(target: Dict[str, torch.Tensor], loaded: Dict[str, torch.Tensor],
@@ -136,7 +131,6 @@ class Model:
             "weight_initialisation", config_dict.get("weight_init", None))
         if weight_init is None:
             return self.module.state_dict()
-        self._refuse_encoder_transfer(config_dict)
 
         # path form: the single config key IS a checkpoint path, loaded as
         # full-model weights; no random scheme applies
@@ -150,7 +144,8 @@ class Model:
             if os.path.isfile(key) or key.endswith(".pt"):
                 path_form = key
         if path_form is not None:
-            return self.load_weights(path_form, strict=True)
+            self.load_weights(path_form, strict=True)
+            return self._encoder_transfer(config_dict)
 
         random_init = None
         if isinstance(weight_init, (tuple, list)):
@@ -186,18 +181,80 @@ class Model:
                                   subtree=(attr,))
         elif weights_path:
             self.load_weights(weights_path, strict=strict)
-        return self.module.state_dict()
+        return self._encoder_transfer(config_dict)
 
-    @staticmethod
-    def _refuse_encoder_transfer(config_dict: ConfigDict) -> None:
+    def _encoder_transfer(self, config_dict: ConfigDict
+                          ) -> Dict[str, torch.Tensor]:
+        """Graft a pretraining checkpoint's encoder (the FeedForwardModel's
+        first layer) into the U-Net's ``enc``, parameters and BatchNorm
+        statistics, when ``weight_init/encoder/weights`` names one.  With
+        ``strict`` (the default) a missing or unexpected key fails the load;
+        otherwise each is warned about and the rest is loaded.  A reference
+        checkpoint (torch module names) is translated by
+        ``train.torch_mapping`` first.  A failed load is never fatal: the
+        encoder is left as it was, with the JAX package's message."""
         key = "weight_initialisation" \
             if "weight_initialisation" in config_dict else "weight_init"
         enc_cfg = config_dict.get(key + "/encoder")
-        if isinstance(enc_cfg, ConfigDict) \
-                and enc_cfg.trim().get("weights", False):
-            raise NotImplementedError(
-                "encoder transfer from a pretraining checkpoint is not "
-                "ported yet (ROADMAP queue M9)")
+        weights = enc_cfg.trim().get("weights", False) \
+            if isinstance(enc_cfg, ConfigDict) else False
+        if not weights:
+            return self.module.state_dict()
+        strict = bool(enc_cfg.get("strict", True))
+        backup = {k: v.clone() for k, v in self.module.state_dict().items()}
+        try:
+            from ..train.checkpoint import is_stat, load_encoder_variables
+            from ..train.torch_mapping import (looks_like_torch_encoder,
+                                               translate_reference_encoder)
+            params, stats = load_encoder_variables(weights)
+            target = {k[len("enc."):]: v
+                      for k, v in self.module.state_dict().items()
+                      if k.startswith("enc.")}
+            if not target:
+                raise KeyError("model has no encoder subtree to load into")
+
+            def warn(missing, unexpected):
+                if strict and (missing or unexpected):
+                    raise KeyError(
+                        f"State mismatch loading encoder {weights}: missing "
+                        f"{missing[:5]}, unexpected {unexpected[:5]}")
+                if missing:
+                    warnings.warn(f"Missing keys in encoder checkpoint "
+                                  f"{weights}: {missing[:8]}")
+                if unexpected:
+                    warnings.warn(f"Unexpected keys in encoder checkpoint "
+                                  f"{weights}: {unexpected[:8]}")
+
+            if looks_like_torch_encoder(params):
+                translated, leftover = translate_reference_encoder(
+                    {**params, **(stats or {})})
+                if leftover:
+                    if strict:
+                        raise KeyError(f"Unmapped torch keys in {weights}: "
+                                       f"{leftover[:8]}")
+                    warnings.warn(f"Unmapped torch keys in {weights}: "
+                                  f"{leftover[:8]} — ignored.")
+                params = {k: v for k, v in translated.items()
+                          if not is_stat(k)}
+                stats = {k: v for k, v in translated.items() if is_stat(k)}
+
+            # the batch count is no statistic the JAX package keeps: it
+            # neither fails nor loads
+            def statistics(d):
+                return {k: v for k, v in (d or {}).items() if is_stat(k)
+                        and not k.endswith("num_batches_tracked")}
+
+            _graft({k: v for k, v in target.items() if not is_stat(k)},
+                   params, warn)
+            if stats:
+                _graft(statistics(target), statistics(stats), warn)
+            print(f"Successfully initialised encoder from {weights}.")
+        except Exception as exc:  # noqa: BLE001 - never fatal, as in JAX
+            self.module.load_state_dict(backup)
+            handle_exception(
+                exc, f"Could not load encoder weights from {weights}; "
+                     f"leaving random initialisation.")
+        return self.module.state_dict()
 
     def load_weights(self, path: str, strict: bool = True,
                      subtree: Tuple[str, ...] = ()
@@ -210,14 +267,14 @@ class Model:
         BatchNorm statistics load alongside and are only warned about, in
         either mode: eval would otherwise normalise with the initial
         mean 0 and variance 1 unannounced."""
-        from ..train.checkpoint import load_params_file
+        from ..train.checkpoint import is_stat, load_params_file
         loaded = load_params_file(path)
         prefix = "".join(f"{part}." for part in subtree)
         target = {k[len(prefix):]: v
                   for k, v in self.module.state_dict().items()
                   if k.startswith(prefix)}
         split = lambda d, stats: {k: v for k, v in d.items()  # noqa: E731
-                                  if _is_stat(k) == stats}
+                                  if is_stat(k) == stats}
 
         def warn(missing, unexpected):
             if strict:

@@ -7,7 +7,8 @@ counters, the schedule's identity, the durable-epoch stamp).  Every write
 is atomic (a temporary file, fsynced, renamed over the target), so a crash
 never leaves a torn file for ``--continued`` to read.  The JAX package's
 msgpack checkpoints are carried across with
-``transfer.state_dict_from_jax``.
+``transfer.state_dict_from_jax``.  :func:`load_encoder_variables` reads the
+encoder out of a pretraining checkpoint for the downstream U-Net.
 
 :class:`AsyncCheckpointer` moves the encode and the disk write to a worker
 thread.  The state it is given keeps changing in place (the next step
@@ -28,7 +29,8 @@ import torch
 
 __all__ = ["save_params_file", "load_params_file", "write_bytes_atomic",
            "encode_state", "AsyncCheckpointer", "save_state_file",
-           "load_state_file"]
+           "load_state_file", "load_encoder_params", "load_encoder_variables",
+           "is_stat", "STAT_LEAVES"]
 
 _SUFFIXES = (".pt", ".pth")
 
@@ -101,6 +103,44 @@ def load_params_file(path: str) -> Dict[str, Any]:
 #: the optimizer, scheduler and stamp files share the model files' format
 save_state_file = save_params_file
 load_state_file = load_params_file
+
+#: state-dict leaves that are BatchNorm statistics, not parameters
+STAT_LEAVES = ("running_mean", "running_var", "num_batches_tracked")
+
+#: prefixes of an encoder's subtree: a pretraining FeedForwardModel's first
+#: layer, or a U-Net's encoder
+_ENCODER_PREFIXES = ("layers.0.", "enc.")
+
+
+def is_stat(name: str) -> bool:
+    return name.rsplit(".", 1)[-1] in STAT_LEAVES
+
+
+def load_encoder_variables(path: str):
+    """(parameters, BatchNorm statistics or None) of the encoder in the
+    checkpoint *path*: the ``layers.0.`` subtree of a pretraining
+    ``FeedForwardModel`` state dict (or a U-Net's ``enc.``), the prefix
+    stripped.  Its running statistics come along: an encoder carried
+    across without them would normalise eval forwards with the initial
+    mean 0 and variance 1."""
+    state = load_params_file(path)
+    for prefix in _ENCODER_PREFIXES:
+        sub = {k[len(prefix):]: v for k, v in state.items()
+               if k.startswith(prefix)}
+        if sub:
+            break
+    else:
+        raise KeyError(f"checkpoint {path} has no encoder (layers.0.) "
+                       f"subtree; keys: {list(state)[:8]}")
+    params = {k: v for k, v in sub.items() if not is_stat(k)}
+    stats = {k: v for k, v in sub.items() if is_stat(k)}
+    return params, stats or None
+
+
+def load_encoder_params(path: str):
+    """The encoder's parameters in the checkpoint *path* (see
+    :func:`load_encoder_variables`)."""
+    return load_encoder_variables(path)[0]
 
 
 def _snapshot(tree):

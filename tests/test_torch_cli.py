@@ -462,3 +462,203 @@ def test_cli_under_determinism_and_debug_nans(tree, monkeypatch,
     assert torch.get_num_threads() == 3
     rows = _rows(_run_dir(root / "det_logs") / "run_1" / "epoch_logs.csv")
     assert len(rows) == 1 and 0 < float(rows[0]["dice_loss"]) < 1
+
+
+# ---------------------------------------------------------------------------
+# ImageNet pretraining of the U-Net encoder, and its transfer downstream
+# ---------------------------------------------------------------------------
+
+#: the train chain of the pretraining configs (``bench.py``'s), its crop
+#: the whole 16² image: a resize's float rounding (held in
+#: ``test_torch_classification.py``) ahead of RandAugment's steps
+#: (Posterize's uint8 cast, Solarize's threshold) would move a value by a
+#: gray level now and then, and a batch-of-4 AUROC by a rank
+PRETRAIN_CHAIN = {
+    "train": (
+        {"torchvision.transforms.RandomResizedCrop": {
+            "size": 16, "scale": (1.0, 1.0), "ratio": (1.0, 1.0)}},
+        "torchvision.transforms.RandomHorizontalFlip",
+        "classification.transforms.RandAugment",
+        {"classification.transforms.OneHotEncoding": {"num_classes": 5}},
+        {"classification.transforms.MixupOrCutMix": {
+            "mixup_params": {"distribution": "uniform",
+                             "probability": 0.8}}},
+        {"torchvision.transforms.RandomErasing": {"p": 0.25}}),
+    "val": ({"torchvision.transforms.CenterCrop": {"size": 12}},)}
+
+
+#: AdamW's epsilon in the parity runs.  The gradient of a conv bias that
+#: feeds a BatchNorm is zero up to rounding noise, which differs between
+#: the packages; AdamW divides it by its own root mean square, so at the
+#: default 1e-8 each package's noise moves those biases by up to the
+#: learning rate per step, and the running means (and every val column)
+#: with them.  1e-4 keeps the noise from moving them and leaves the real
+#: updates as they are.
+PARITY_ADAMW_EPS = 1e-4
+
+
+def _pretrain_config(root, weights, name, chain=False):
+    """``tests/test_pretrain_transfer_e2e.py``'s scaled pretraining config,
+    from *weights*, AdamW's epsilon at PARITY_ADAMW_EPS; with *chain*, the
+    pretraining train chain as well (soft labels, pairs of datapoints)."""
+    from test_pretrain_transfer_e2e import pretraining_config
+    cfg = pretraining_config(root)
+    cfg["meta"]["technical"].update(experiment_name=name,
+                                    save_destination=str(root / "logs"))
+    cfg["model"]["model.FeedForwardModel"]["weight_init"] = {
+        "weights": str(weights)}
+    cfg["training"]["optimizer"]["torch.optim.AdamW"]["eps"] = \
+        PARITY_ADAMW_EPS
+    if chain:
+        cfg["data"]["transforms"] = dict(PRETRAIN_CHAIN)
+    return cfg
+
+
+def _downstream_config(root, unet_weights, encoder_weights, name):
+    """``tests/test_pretrain_transfer_e2e.py``'s downstream config, its
+    random init replaced by *unet_weights* so that both CLIs start from the
+    same decoder, and the encoder from *encoder_weights*."""
+    from test_pretrain_transfer_e2e import downstream_config
+    cfg = downstream_config(root, str(encoder_weights))
+    cfg["meta"]["technical"].update(experiment_name=name,
+                                    save_destination=str(root / "logs"))
+    init = cfg["model"]["segmentation.models.UNet"]["weight_init"]
+    init.pop("random")
+    init["weights"] = str(unet_weights)
+    return cfg
+
+
+def _both_weights(root, name, cfg, shape):
+    """One JAX init as a msgpack file and as its port translation."""
+    jmodel = build_model(JaxConfigDict, jax_registry, JaxModel, cfg)
+    variables = jax.tree_util.tree_map(np.asarray, jmodel.init(
+        jax.random.key(0), {"x": np.zeros(shape, np.float32)}))
+    jax_ckpt.save_params_file(str(root / f"{name}.msgpack"), variables)
+    module = build_model(ConfigDict, registry, Model, cfg).module
+    ckpt.save_params_file(str(root / f"{name}.pt"),
+                          state_dict_from_jax(variables, module))
+    return root / f"{name}.msgpack", root / f"{name}.pt"
+
+
+@pytest.fixture(scope="module")
+def pretrain_runs(tmp_path_factory):
+    """Both CLIs pretrain (plain and with the chain), then each trains the
+    downstream U-Net from its own epoch-1 checkpoint."""
+    from test_pretrain_transfer_e2e import pretraining_config
+    root = tmp_path_factory.mktemp("pretrain")
+    rng = np.random.default_rng(0)
+    store = root / "data" / "imagenet"
+    store.mkdir(parents=True)
+    labels = {}
+    for i in range(20):
+        name = f"{'val' if i >= 16 else 'train'}_{i:03d}.npy"
+        np.save(store / name,
+                (rng.random((3, 16, 16)) * 255).astype(np.uint8))
+        labels[name] = int(rng.integers(1, 6))
+    (store / "labels.json").write_text(json.dumps(labels))
+    base = root / "data" / "COVID_QU" / "Inf_segm" / "data arrays" \
+        / "COVID-19"
+    for part, n in (("train and val", 8), ("test", 4)):
+        d = base / part
+        d.mkdir(parents=True)
+        np.save(d / "imgs.npy",
+                (rng.random((n, 1, 16, 16)) * 255).astype(np.uint8))
+        masks = np.zeros((n, 1, 16, 16), np.uint8)
+        masks[:, :, 5:11, 5:11] = 2
+        np.save(d / "inf_masks.npy", masks)
+
+    pre = {"model": pretraining_config(root)["model"]}
+    pre_weights = _both_weights(root, "pretrain", pre, (1, 16, 16, 3))
+    unet = {"model": {"segmentation.models.UNet": {"architecture": {
+        "in_channel_size": 3, "out_channel_size": 1, "channels": (4, 8),
+        "depth": 1}}}}
+    unet_weights = _both_weights(root, "unet", unet, (1, 16, 16, 3))
+
+    runs = {}
+    mp = pytest.MonkeyPatch()
+    mp.setenv("MST_DATA_DIR", str(root / "data"))
+    mp.chdir(root)
+    try:
+        for pkg, run_cli, weights, unet_w, extra in (
+                ("jax", jax_main, pre_weights[0], unet_weights[0], []),
+                ("port", main, pre_weights[1], unet_weights[1],
+                 ["--device", "cpu"])):
+            for chain in (False, True):
+                name = f"{pkg}_pretrain{'_chain' if chain else ''}"
+                run_cli([_write(root / f"{name}.yaml", _pretrain_config(
+                    root, weights, name, chain))] + extra)
+                runs[name] = _run_dir(root / "logs", name) / "run_1"
+            suffix = ".msgpack" if pkg == "jax" else ".pt"
+            encoder = runs[f"{pkg}_pretrain"] \
+                / f"model_state_dict_epoch_1{suffix}"
+            name = f"{pkg}_downstream"
+            run_cli([_write(root / f"{name}.yaml", _downstream_config(
+                root, unet_w, encoder, name))] + extra)
+            runs[name] = _run_dir(root / "logs", name) / "run_1"
+    finally:
+        mp.undo()
+    return runs
+
+
+def _assert_logs_match(port_run, jax_run, rows):
+    for name in ("epoch_logs.csv", "batch_logs.csv"):
+        got, want = _rows(port_run / name), _rows(jax_run / name)
+        assert len(got) == len(want) > 0, name
+        assert set(got[0]) == set(want[0]), name
+        for k, (a, b) in enumerate(zip(got, want)):
+            for key in b:
+                np.testing.assert_allclose(float(a[key]), float(b[key]),
+                                           rtol=TOL, atol=TOL,
+                                           err_msg=f"{name} row {k} {key}")
+    assert len(_rows(port_run / "epoch_logs.csv")) == rows
+
+
+@pytest.mark.parametrize("chain", ["", "_chain"], ids=["plain", "chain"])
+def test_pretraining_clis_write_the_same_logs_and_files(pretrain_runs,
+                                                        chain):
+    jax_run = pretrain_runs[f"jax_pretrain{chain}"]
+    port_run = pretrain_runs[f"port_pretrain{chain}"]
+    _assert_logs_match(port_run, jax_run, rows=2)
+    row = _rows(port_run / "epoch_logs.csv")[-1]
+    for column in ("cross_entropy_loss", "metrics/accuracy",
+                   "metrics/area_under_roc", "val_cross_entropy_loss",
+                   "val_metrics/accuracy", "val_metrics/area_under_roc"):
+        assert column in row, column
+    assert float(row["cross_entropy_loss"]) > 0
+    # chip_smoke.py's [cli pretrain] holds the card's run to this column set
+    import chip_smoke
+    assert set(_rows(jax_run / "epoch_logs.csv")[0]) \
+        == chip_smoke.PRETRAIN_EPOCH_COLUMNS
+
+    def files(d):
+        return sorted(str(p.relative_to(d)).replace(".msgpack", ".pt")
+                      for p in d.rglob("*") if p.is_file())
+    assert files(port_run) == files(jax_run)
+    assert "model_state_dict_epoch_1.pt" in files(port_run)
+    for prefix in ("train_", "val_"):
+        for epoch in (1, 2):
+            name = (f"Confusion_matrices/{prefix}confusion_matrix_epoch_"
+                    f"{epoch}.json")
+            got, want = (json.loads((d / name).read_text())
+                         for d in (port_run, jax_run))
+            got.pop("dirname"), want.pop("dirname")
+            np.testing.assert_array_equal(got.pop("matrix"),
+                                          want.pop("matrix"))
+            assert got == want, name
+    # the epoch checkpoint holds the encoder under the layers.0. prefix
+    params, stats = ckpt.load_encoder_variables(
+        port_run / "model_state_dict_epoch_1.pt")
+    assert "stem_block.Conv_0.weight" in params and stats
+
+
+def test_downstream_clis_train_from_their_own_checkpoints(pretrain_runs):
+    jax_run = pretrain_runs["jax_downstream"]
+    port_run = pretrain_runs["port_downstream"]
+    _assert_logs_match(port_run, jax_run, rows=1)
+    # the encoder started from the pretraining checkpoint
+    params, _ = ckpt.load_encoder_variables(
+        pretrain_runs["port_pretrain"] / "model_state_dict_epoch_1.pt")
+    final = ckpt.load_params_file(port_run / "last_model_state_dict.pt")
+    start = params["stem_block.Conv_0.weight"]
+    assert (final["enc.stem_block.Conv_0.weight"] - start).abs().mean() \
+        < 0.05

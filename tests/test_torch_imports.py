@@ -145,6 +145,74 @@ assert float(rows[0]["val_metrics/modified_hausdorff_distance"]) >= 0
 assert (run / "Confusion_matrices" / "val_confusion_matrix_epoch_1.json"
         ).is_file()
 assert (run / "profile" / "trace" / "trace.json").is_file()
+# ImageNet pretraining of the U-Net encoder through the CLI, with the
+# classification chain, and its transfer into the COVID-QU U-Net
+import json
+store = root / "imagenet"
+store.mkdir()
+labels = {}
+for i in range(12):
+    name = f"{'val' if i >= 8 else 'train'}_{i:03d}.npy"
+    np.save(store / name, rng.integers(0, 255, (3, 20, 20), np.uint8))
+    labels[name] = int(rng.integers(1, 4))
+(store / "labels.json").write_text(json.dumps(labels))
+(root / "pretrain.yaml").write_text(f'''
+experiment: {{number_of_epochs: 1}}
+meta: {{technical: {{seed: 1, save_destination: {root}/pre_logs,
+                    maximum_actual_batch_size: 4,
+                    model_log_checkpoints: !!python/tuple [1]}}}}
+data:
+  data: {{classification.datasets.ImageNet: {{uint8_transfer: true}}}}
+  sampling: {{batch_size: 4}}
+  transforms:
+    train: !!python/tuple
+    - {{torchvision.transforms.RandomResizedCrop: {{size: 16}}}}
+    - torchvision.transforms.RandomHorizontalFlip
+    - classification.transforms.RandAugment
+    - {{classification.transforms.OneHotEncoding: {{num_classes: 3}}}}
+    - classification.transforms.MixupOrCutMix
+    - {{torchvision.transforms.RandomErasing: {{p: 0.25}}}}
+    val: !!python/tuple [{{torchvision.transforms.CenterCrop: {{size: 16}}}}]
+model: {{model.FeedForwardModel: {{layers: !!python/tuple [
+  {{segmentation.models.UNet_encoder: {{in_channel_size: 3, depth: 1,
+                                       channels: !!python/tuple [4, 8]}}}},
+  {{torch.nn.AdaptiveAvgPool2d: {{output_size: 1}}}}, torch.nn.Flatten,
+  {{torch.nn.Linear: {{in_features: 8, out_features: 3}}}}]}}}}
+training:
+  loss: {{classification.losses.CrossEntropyLoss: {{label_smoothing: 0.1,
+                                                   label_type: label}}}}
+  optimizer: {{torch.optim.AdamW: {{weight_decay: 0.05}}}}
+metrics:
+  metrics: !!python/tuple [metrics.multiclass_metrics.Accuracy,
+                           metrics.multiclass_metrics.AUROC]
+  calculation: {{number_of_classes: 3, label_type: label,
+                 apply_softmax: true, log_confusion_matrix: true}}
+''')
+main([str(root / "pretrain.yaml"), "--device", "cpu"])
+(run,) = (root / "pre_logs").glob("*/Experiment/run_1")
+rows = list(csv.DictReader(open(run / "epoch_logs.csv")))
+assert float(rows[0]["cross_entropy_loss"]) > 0, rows
+encoder = run / "model_state_dict_epoch_1.pt"
+from medsegpretrainimagenet_tpu_torch.train.checkpoint import \
+    load_encoder_variables
+params, stats = load_encoder_variables(str(encoder))
+assert "stem_block.Conv_0.weight" in params and stats
+text = (root / "cfg.yaml").read_text().replace(
+    "channels: !!python/tuple [4, 8]}}}}}}",
+    "channels: !!python/tuple [4, 8]}}, weight_init: {{encoder: "
+    "{{weights: " + str(encoder) + "}}}}}}}}").replace("/logs", "/down_logs")
+(root / "down.yaml").write_text(text)
+main([str(root / "down.yaml"), "--device", "cpu"])
+(run,) = (root / "down_logs").glob("*/Experiment/run_1")
+final = torch.load(run / "last_model_state_dict.pt")
+assert final["enc.stem_block.Conv_0.weight"].shape == \
+    params["stem_block.Conv_0.weight"].shape
+from medsegpretrainimagenet_tpu_torch.ops.augment import \
+    make_classification_device_augment
+out = make_classification_device_augment(16, 3)(
+    torch.Generator().manual_seed(0),
+    {"x": torch.rand(4, 20, 20, 3), "label": torch.tensor([0, 1, 2, 1])})
+assert out["x"].shape == (4, 16, 16, 3) and out["label"].shape == (4, 3)
 assert not any(m.split(".")[0] in ("jax", "flax", "optax", "cv2")
                for m, v in sys.modules.items() if v is not None)
 print("OK")
@@ -153,10 +221,12 @@ print("OK")
 
 def test_port_imports_and_runs_with_jax_blocked():
     """Serving on both attention paths, a train step, one epoch of the
-    experiment CLI on COVID-QU with Dice, AUROC and HD95, and one of the
+    experiment CLI on COVID-QU with Dice, AUROC and HD95, one of the
     ACDC multiclass U-Net with the multiclass metrics, the
-    confusion-matrix export and the profiler trace, with JAX, flax, optax,
-    OpenCV and the JAX package unimportable."""
+    confusion-matrix export and the profiler trace, one of ImageNet
+    pretraining with the classification chain and one of the COVID-QU
+    U-Net from its encoder, and the on-card classification chain, with
+    JAX, flax, optax, OpenCV and the JAX package unimportable."""
     result = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=ROOT,
                             capture_output=True, text=True, timeout=300)
     assert result.returncode == 0, result.stderr

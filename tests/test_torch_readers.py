@@ -5,8 +5,10 @@ official validation split, square and non-square sizes, gives the same
 slices: labels bit-equal, images within IMAGE_TOL relative (the port
 resizes the float64 volumes in double as OpenCV does, within 6e-14; a
 pixel then differs at most by the float32 rounding of the result, on
-these trees 0.06 % of them by one step).  IDRiD and ImageNet still raise
-NotImplementedError naming their ROADMAP item."""
+these trees 0.06 % of them by one step).  The ImageNet reader gives the
+JAX reader's paths, labels and splits, and loads bit-equal images.  IDRiD
+and ``MixedDataset`` still raise NotImplementedError naming their ROADMAP
+item.  The float resize of 2 to 4 channels follows OpenCV."""
 import numpy as np
 import pytest
 
@@ -94,9 +96,109 @@ def test_acdc_builds_from_its_registry_names(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name, item", [
     ("segmentation.datasets.IDRiD", "M5"),
-    ("classification.datasets.ImageNet", "M5"),
+    ("idrid", "M5"),
     ("data.MixedDataset", "M5"),
-    ("classification.transforms.CutMix", "M5")])
+    ("mixed_dataset", "M5")])
 def test_unported_components_still_raise(name, item):
     with pytest.raises(NotImplementedError, match=item):
         registry.build(ConfigDict({name: {}}), wrapper=Dataset)
+
+
+def _imagenet_tree(root, n=24, seed=0):
+    """A synthetic store in the reader's layout: channels-first uint8
+    ``.npy`` files (RGB and one gray image) and ``labels.json`` with
+    classes 1..7; the official-val files carry ``val`` in their names."""
+    import json
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    labels = {}
+    for i in range(n):
+        name = f"{'val' if i % 4 == 3 else 'train'}_{i:03d}.npy"
+        channels = 1 if i == 5 else 3
+        np.save(root / name, rng.integers(0, 256, (channels, 12, 10),
+                                          dtype=np.uint8))
+        labels[name] = int(rng.integers(1, 8))
+    (root / "labels.json").write_text(json.dumps(labels))
+    return root
+
+
+@pytest.mark.parametrize("uint8", [False, True])
+@pytest.mark.parametrize("split", [
+    {"use_official_validation": True},
+    {"use_official_validation": False, "split": 0.25, "seed": 3},
+    {"use_official_validation": False, "split": 0.4}])
+def test_imagenet_reader_matches_jax(tmp_path, monkeypatch, split, uint8):
+    from medsegpretrainimagenet_tpu.data.readers.imagenet import \
+        ImageNet as JaxImageNet
+    from medsegpretrainimagenet_tpu_torch.data.readers import ImageNet
+    _imagenet_tree(tmp_path / "imagenet")
+    monkeypatch.setenv("MST_DATA_DIR", str(tmp_path))
+    params = {**split, "uint8_transfer": uint8}
+    want = JaxImageNet(JaxConfigDict(params), seed=11)
+    got = ImageNet(ConfigDict(params), seed=11)
+    for part in ("train", "val"):
+        assert getattr(got, part)["x"] == getattr(want, part)["x"]
+        np.testing.assert_array_equal(getattr(got, part)["label"],
+                                      getattr(want, part)["label"])
+        assert getattr(got, part)["label"].dtype == np.int32
+    assert len(got.val["x"]) == (6 if split["use_official_validation"]
+                                 else int(split["split"] * 24))
+    assert got.train["label"].min() >= 0 and got.train["label"].max() <= 6
+    for path in got.train["x"] + got.val["x"]:
+        a, b = got.load_function["x"](path), want.load_function["x"](path)
+        assert a.dtype == b.dtype == (np.uint8 if uint8 else np.float32)
+        assert a.shape == b.shape and a.shape[-1] in (1, 3)
+        np.testing.assert_array_equal(a, b)
+
+
+def test_imagenet_reader_is_registered_under_both_names(tmp_path,
+                                                        monkeypatch):
+    _imagenet_tree(tmp_path / "imagenet", n=8)
+    monkeypatch.setenv("MST_DATA_DIR", str(tmp_path))
+    for name in ("classification.datasets.ImageNet", "imagenet"):
+        cd = ConfigDict({"data": {name: {}}})
+        cd.expand()
+        registry.fill_spec(cd, "data")
+        ds = registry.build(cd["data"].trim(), wrapper=Dataset, seed=0)
+        assert len(ds.train["x"]) == 6 and len(ds.val["x"]) == 2
+
+
+def test_imagenet_scaling_is_the_native_product():
+    """The JAX load multiplies by the float32 1/255 (its native library),
+    which differs from a division for 126 of the 256 values; the port
+    follows the product."""
+    from medsegpretrainimagenet_tpu_torch.data.readers.imagenet import \
+        _INV_255
+    values = np.arange(256, dtype=np.uint8)
+    product = values.astype(np.float32) * _INV_255
+    assert (product != values.astype(np.float32) / 255.0).sum() == 126
+    from medsegpretrainimagenet_tpu import native
+    if native.available():
+        np.testing.assert_array_equal(native.u8_to_f32_scale(values),
+                                      product)
+
+
+#: relative tolerance of the port's float resize against OpenCV's
+RESIZE_TOL = 1e-5
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("channels", [None, 1, 2, 3, 4, 5])
+@pytest.mark.parametrize("shape, size, scale", [
+    ((232, 256), (200, 180), 250.0),   # the probe of the fault
+    ((256, 256), (224, 224), 1.0),     # ImageNet RGB shrunk 256 -> 224
+    ((100, 120), (150, 170), 1.0)])    # enlarging
+def test_float_resize_matches_opencv(shape, size, scale, channels, dtype):
+    import cv2
+    from medsegpretrainimagenet_tpu_torch.data import warp
+    full = shape if channels is None else shape + (channels,)
+    img = (np.random.default_rng(channels or 0).random(full)
+           * scale).astype(dtype)
+    want = cv2.resize(img, (size[1], size[0]),
+                      interpolation=cv2.INTER_LINEAR).reshape(
+                          size + full[2:])
+    got = warp.resize(img, size)
+    assert got.dtype == img.dtype
+    np.testing.assert_allclose(got / scale, want / scale, rtol=0,
+                               atol=RESIZE_TOL * (1e-8 if dtype == np.float64
+                                                  else 1))

@@ -371,7 +371,8 @@ def test_load_weights_strict_and_warned(tmp_path):
 
 def test_init_weight_path_form_and_encoder_transfer(tmp_path):
     """A bare checkpoint path as ``weight_init`` loads it strictly; encoder
-    transfer from a pretraining checkpoint is refused until queue M9."""
+    transfer grafts a pretraining checkpoint's ``layers.0.`` subtree into
+    the U-Net's encoder and leaves the decoder as it was."""
     source = build_model(ConfigDict, registry, Model, unet_config())
     state = {k: v.clone() for k, v in source.init(7).items()}
     path = str(tmp_path / "w.pt")
@@ -381,9 +382,18 @@ def test_init_weight_path_form_and_encoder_transfer(tmp_path):
     model.init_weight(ConfigDict({"weight_init": path}))
     for k, v in model.module.state_dict().items():
         assert torch.equal(v, state[k]), k
-    with pytest.raises(NotImplementedError, match="M9"):
-        model.init_weight(ConfigDict({"weight_init": {
-            "random": "he normal", "encoder": {"weights": path}}}))
+    pretrain = str(tmp_path / "pretrain.pt")
+    save_params_file(pretrain, {f"layers.0.{k[len('enc.'):]}": v
+                                for k, v in state.items()
+                                if k.startswith("enc.")})
+    model.init(9)
+    model.init_weight(ConfigDict({"weight_init": {
+        "random": "he normal", "encoder": {"weights": pretrain}}}))
+    for k, v in model.module.state_dict().items():
+        if k.startswith("enc.") and not k.endswith("num_batches_tracked"):
+            assert torch.equal(v, state[k]), k
+        elif k.startswith("dec.") and ".Conv_0.weight" in k:
+            assert not torch.equal(v, state[k]), k
 
 
 def test_freeze_and_unfreeze_mask():
