@@ -72,7 +72,20 @@ the CLI for two epochs on a synthetic ImageNet store with the host chain
 (RandomResizedCrop, flip, RandAugment, one-hot, MixupOrCutMix,
 RandomErasing), and ``[cli transfer]`` trains the ``[cli]`` U-Net for one
 epoch from that run's epoch-1 checkpoint, its encoder checked against the
-checkpoint before the first step.
+checkpoint before the first step.  ``[robustness small]`` holds a small
+transferability sweep over the paper's three encoder families (a narrow
+U-Net encoder, a narrow ResNet, the Swin encoder) card against CPU with
+TF32 off and the same jitter draws, and K1's float32 instance against its
+plain version on the inputs the Swin encoder gives it; ``[robustness]``
+runs ``robustness_224`` (the JAX package's ``tools/robustness_tpu.py``: 32
+probes of 224 x 224, the U-Net encoder, ResNet-50 and the Swin encoder in
+float32): each encoder's forward timed, the Swin encoder's K1 launches (and
+K2's under ``set_fused_image_mode("on")``), K1 and K2 in float32 timed
+against plain, SDPA and the bound, the sweep in this process with its
+launches and host syncs, then the sweep CLI in a process of its own with
+``[cli pretrain]``'s encoder and reference-named ResNet-50 and Swin weight
+files: 330 finite rows, margin-monotone, levels 4/4/3, the JAX CLI's
+columns, every weight file loaded.
 Any failure exits non-zero.  Without a CUDA
 card, or without the package beside it, it exits non-zero and prints no
 result.  It imports nothing of JAX.
@@ -221,10 +234,10 @@ def phase_build():
     print(f"[build] all kernels: {seconds:.2f} s", flush=True)
 
 
-def _k1_inputs(level, heads, n_w, masked, dtype, generator):
+def _k1_inputs(level, heads, n_w, masked, dtype, generator, batch=BATCH):
     import torch
 
-    windows = BATCH * n_w
+    windows = batch * n_w
     q, k, v = (torch.randn(windows, heads, TOKENS, HEAD_DIM,
                            generator=generator).to("cuda", dtype)
                for _ in range(3))
@@ -2587,6 +2600,575 @@ def phase_cli_transfer(workdir: Path, encoder: Path) -> None:
           f"{rows[0]['val_metrics/dice_index_threshold_0.5']}", flush=True)
 
 
+#: robustness_224, the JAX package's on-chip sweep (tools/robustness_tpu.py:
+#: 40-131): probes of 1 x 224 x 224, a forward batch of 32, the sweep axes
+ROB_PROBES, ROB_SIZE = 32, 224
+ROB_METRICS = ("cosine_distance", "l2_loss", "inv_pearson_corr")
+ROB_MARGINS = (0.0, 0.25, 0.5, 0.75, 1.0)
+ROB_LEVELS = (1, 2, 3, 4)
+#: levels per encoder: [*skips, final] has 5 entries for the U-Net encoder
+#: and the ResNet, 4 for the Swin encoder, so level 4 is skipped for it
+ROB_ENCODER_LEVELS = {"u-net_encoder": [1, 2, 3, 4], "resnet50": [1, 2, 3, 4],
+                      "swin_transformer": [1, 2, 3]}
+ROB_ROWS = len(ROB_METRICS) * len(ROB_MARGINS) * 2 * sum(
+    len(v) for v in ROB_ENCODER_LEVELS.values())
+#: the JAX CLI's CSV header (robustness/sweep.py:24-26), written out: this
+#: script imports nothing of the JAX package
+ROB_CSV_COLUMNS = ["dataset", "metric", "margin", "encoder",
+                   "pretraining_scheme", "pooled", "level",
+                   "pretraining_length", "robustness"]
+#: the Swin encoder's attention calls per forward at 224: (level, heads,
+#: windows per image, SW-MSA calls, W-MSA calls); the bottom level (7 x 7
+#: tokens, one window) has no shift
+ROB_ATTENTION = [(0, 3, 64, 1, 1), (1, 6, 16, 1, 1), (2, 12, 4, 1, 1),
+                 (3, 24, 1, 0, 2)]
+ROB_K1_PER_FORWARD = sum(m + p for _, _, _, m, p in ROB_ATTENTION)
+#: [robustness small], card against CPU with TF32 off: the levels relative
+#: to their largest value, the rows absolute
+ROB_LEVEL_TOL, ROB_ROW_TOL = 1e-4, 1e-5
+
+
+def robustness_encoders(size: int) -> list:
+    """The three encoder families of ``tools/robustness_tpu.py:40-81`` at
+    probe resolution *size*: the U-Net encoder (64 -> 1024), ResNet-50 v1
+    without conv biases, and the Swin encoder (patch 4, window 7, 96-768,
+    heads 3-24, depth 3, width 2, stochastic depth 0.1).  Below 224 the
+    Swin encoder takes the smoke geometry (depth 1, 96-192, heads 3-6)."""
+    swin_depth, swin_channels, swin_heads = 3, [96, 192, 384, 768], \
+        [3, 6, 12, 24]
+    if size < 224:
+        swin_depth, swin_channels, swin_heads = 1, [96, 192], [3, 6]
+    return [
+        {"name": "u-net_encoder", "pretraining_scheme": "simple_training",
+         "pretraining_length": 0,
+         "model": {"segmentation.models.UNet_encoder": {
+             "in_channel_size": 3}}},
+        {"name": "resnet50", "pretraining_scheme": "simple_training",
+         "pretraining_length": 0,
+         "model": {"classification.models.DeepResNet": {
+             "bias": False, "version": "v1"}}},
+        {"name": "swin_transformer",
+         "pretraining_scheme": "simple_training", "pretraining_length": 0,
+         "model": {"segmentation.models.UNet_encoder": {
+             "in_channel_size": 3, "channels": swin_channels,
+             "change_channel_in_block": False, "depth": swin_depth,
+             "width": 2, "trainable_downsampling": True,
+             "linear_channel_mapping": True, "stochastic_depth_rate": 0.1,
+             "basic_block": {
+                 "segmentation.models.blocks.SwinTransformerBlock": {
+                     "img_size": size, "patch_size": 4,
+                     "num_heads_layers": swin_heads}},
+             "downsampling": {"segmentation.models.blocks.PatchMerging": {
+                 "norm_layer": "torch.nn.LayerNorm"}},
+             "stem": {"segmentation.models.blocks.PatchEmbed": {
+                 "patch_size": 4}}}}},
+    ]
+
+
+def robustness_config(output: Path, encoders: list) -> dict:
+    """robustness_224's sweep config (``tools/robustness_tpu.py:117-131``)."""
+    return {
+        "data": {"COVID-QU": {"segmentation.datasets.COVIDQUDataset": {
+            "lung_or_infection": "inf", "image_sizes": ROB_SIZE,
+            "validate_on_test": True}}},
+        "probe_images": ROB_PROBES, "encoders": encoders,
+        "metrics": list(ROB_METRICS), "margins": list(ROB_MARGINS),
+        "levels": list(ROB_LEVELS), "pooled": [False, True],
+        "batch_size": ROB_PROBES, "output": str(output), "seed": 0}
+
+
+def write_probe_tree(root: Path, seed: int = 0) -> None:
+    """The synthetic COVID-QU probe tree of ``tools/robustness_tpu.py:
+    104-114``: ROB_PROBES uint8 noise images of 1 x 224 x 224 (and 2 test
+    images), a centred square as the mask."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = root / "COVID_QU" / "Inf_segm" / "data arrays" / "COVID-19"
+    for part, n in (("train and val", ROB_PROBES), ("test", 2)):
+        d = base / part
+        d.mkdir(parents=True)
+        np.save(d / "imgs.npy", rng.integers(0, 256, (n, 1, ROB_SIZE,
+                                                      ROB_SIZE),
+                                             dtype=np.uint8))
+        masks = np.zeros((n, 1, ROB_SIZE, ROB_SIZE), np.uint8)
+        masks[:, :, ROB_SIZE // 4:-ROB_SIZE // 4,
+              ROB_SIZE // 4:-ROB_SIZE // 4] = 2
+        np.save(d / "inf_masks.npy", masks)
+
+
+def reference_names(state: dict, family: str) -> dict:
+    """A port encoder state dict (Swin or ResNet v1) under the reference's
+    torch module names, prefixed ``layers.0.`` as a released pretraining
+    checkpoint holds them: the inverse of ``train.torch_mapping``."""
+    out = {}
+    for name, value in state.items():
+        parts = name.split(".")
+        if family == "resnet":
+            if parts[0] in ("stem_conv", "stem_bn"):
+                key = f"stem.{0 if parts[0] == 'stem_conv' else 1}." \
+                      f"{parts[1]}"
+            else:
+                kind, k = parts[3].split("_")
+                key = (f"levels.{parts[1]}.{parts[2]}."
+                       f"{'conv' if kind == 'Conv' else 'bn'}{int(k) + 1}."
+                       f"{parts[4]}")
+        elif parts[0] == "stem_block":
+            child = {"Conv_0": "proj", "LayerNorm_0": "norm_layer"}[parts[1]]
+            key = f"first_block.{child}.{parts[2]}"
+        elif parts[0] == "downsamples":
+            child = {"Dense_0": "reduction", "LayerNorm_0": "norm"}[parts[2]]
+            key = f"down_layers.{parts[1]}.downsampl.{child}.{parts[3]}"
+        else:
+            module, rest = (f"down_layers.{parts[1]}.conv{parts[2]}",
+                            parts[3:]) if parts[0] == "level_convs" \
+                else (f"bottom_block.conv{parts[1]}", parts[2:])
+            if rest[0] == "mlp":
+                rest = ["mlp", {"Dense_0": "fc1", "Dense_1": "fc2"}[rest[1]],
+                        rest[2]]
+            key = f"{module}.{'.'.join(rest)}"
+        out[f"layers.0.{key}"] = value
+    return out
+
+
+def _relative_max(got, ref) -> float:
+    """max |got - ref| over max |ref|."""
+    return ((got.float().cpu() - ref.float().cpu()).abs().max()
+            / ref.float().abs().max().clamp_min(1e-12)).item()
+
+
+def phase_robustness_small():
+    """A small sweep on the card against the same sweep on the CPU, TF32
+    off, the same weights and the same injected draws: a narrow U-Net
+    encoder, a narrow ResNet v1 bottleneck and the Swin encoder at the
+    smoke geometry of ``tools/robustness_tpu.py:49-50``, at 112 x 112.
+    Levels and rows card vs CPU; K1 against its plain version on the
+    inputs the Swin encoder gives it."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict
+    from medsegpretrainimagenet_tpu_torch.models import swin
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+    from medsegpretrainimagenet_tpu_torch.robustness import eval as rob_eval
+    from medsegpretrainimagenet_tpu_torch.robustness import sweep
+    from medsegpretrainimagenet_tpu_torch.robustness.__main__ import (
+        build_encoders)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    size, n = 112, 8
+    encoders = robustness_encoders(size)
+    encoders[0]["model"]["segmentation.models.UNet_encoder"].update(
+        channels=[16, 32, 64, 128], depth=3)
+    encoders[1]["model"]["classification.models.DeepResNet"].update(
+        channel_sizes=[64, 128, 256], widths=[1, 1, 1],
+        base_channel_size=16)
+    probes = np.random.default_rng(5).random((n, size, size, 1)).astype(
+        np.float32)
+    cpu = build_encoders(ConfigDict({"encoders": encoders}),
+                         {"probe": probes}, 0, torch.device("cpu"))
+    card = [dict(e, module=copy.deepcopy(e["module"]).cuda()) for e in cpu]
+    draws = sweep.dataset_draws(0, 0)
+    view = rob_eval.apply_color_jitter(torch.from_numpy(probes), draws[0])
+    for c, g in zip(cpu, card):
+        x = sweep.adapt_channels(view, c["in_channels"])
+        ref = rob_eval.collect_levels(c["module"], x, batch_size=n)
+        wa.window_attention_cuda.launches = 0
+        got = rob_eval.collect_levels(g["module"], x.cuda(), batch_size=n)
+        errs = [_relative_max(a, b) for a, b in zip(got, ref)]
+        check(max(errs) < ROB_LEVEL_TOL,
+              f"[robustness small] {c['name']}: levels card vs CPU, max "
+              f"|diff| / max |level| {errs} (bar {ROB_LEVEL_TOL})")
+        print(f"[robustness small] {c['name']} at {size}x{size}, {n} "
+              f"probes: {len(got)} levels, card vs CPU max |diff| / max "
+              f"|level| {max(errs):.3g} (bar {ROB_LEVEL_TOL}); K1 launches "
+              f"{wa.window_attention_cuda.launches}", flush=True)
+    check(wa.window_attention_cuda.launches == 4,
+          f"[robustness small] the Swin encoder launched K1 "
+          f"{wa.window_attention_cuda.launches} times, not 4")
+
+    # K1 against its plain version on the inputs the Swin encoder gives it
+    calls = []
+    core = swin.window_attention_core
+
+    def recording(q, k, v, bias, mask, scale, force=None):
+        calls.append((q, k, v, bias, mask, scale))
+        return core(q, k, v, bias, mask, scale, force=force)
+
+    x = sweep.adapt_channels(view, 3).cuda()
+    swin.window_attention_core = recording
+    try:
+        kernel_levels = rob_eval.collect_levels(card[2]["module"], x,
+                                                batch_size=n)
+    finally:
+        swin.window_attention_core = core
+    readings = []
+    for q, k, v, bias, mask, scale in calls:
+        def plain(bias, mask, q=q, k=k, v=v, scale=scale):
+            return wa.window_attention_core(q, k, v, bias, mask, scale,
+                                            force="torch")
+        readings.append(hold(f"[robustness small] K1 f32 on the Swin "
+                             f"encoder's {tuple(q.shape)} input",
+                             wa.window_attention_cuda(q, k, v, bias, mask,
+                                                      scale),
+                             plain(bias, mask), plain, bias, mask))
+    swin.window_attention_core = functools.partial(core, force="torch")
+    try:
+        plain_levels = rob_eval.collect_levels(card[2]["module"], x,
+                                               batch_size=n)
+    finally:
+        swin.window_attention_core = core
+    pinned = max(_relative_max(a, b)
+                 for a, b in zip(kernel_levels, plain_levels))
+    check(pinned < ROB_LEVEL_TOL,
+          f"[robustness small] Swin levels, K1 vs plain attention: "
+          f"{pinned}")
+    print(f"[robustness small] K1 f32 against its plain version on the "
+          f"Swin encoder's {len(calls)} calls "
+          f"{sorted({tuple(c[0].shape) for c in calls})}: max "
+          f"{max(r[0] for r in readings):.3g} (bar {F32_TOL}), mean "
+          f"{max(r[1] for r in readings):.3g} (bar "
+          f"{MEAN_TOL['torch.float32']}; a misaddressed table reads "
+          f">= {min(r[2] for r in readings):.3g}); Swin levels with the "
+          f"attention pinned to plain vs K1: {pinned:.3g} relative",
+          flush=True)
+
+    axes = dict(metrics=ROB_METRICS, margins=ROB_MARGINS, levels=ROB_LEVELS,
+                pooled=(False, True), batch_size=n)
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the Swin encoder's skipped levels
+        ref_rows = sweep.run_sweep(cpu, {"probe": probes},
+                                   draws={"probe": draws}, **axes)
+        rows = sweep.run_sweep(card, {"probe": probes},
+                               draws={"probe": draws}, **axes)
+    diff = max(abs(a["robustness"] - b["robustness"])
+               for a, b in zip(rows, ref_rows))
+    check(len(rows) == len(ref_rows) == len(ROB_METRICS) * len(ROB_MARGINS)
+          * 2 * (3 + 3 + 1)
+          and all(math.isfinite(r["robustness"]) for r in rows)
+          and diff < ROB_ROW_TOL,
+          f"[robustness small] rows card vs CPU: {len(rows)} rows, max "
+          f"|diff| {diff} (bar {ROB_ROW_TOL})")
+    print(f"[robustness small] {len(rows)} rows card vs CPU (TF32 off, the "
+          f"same draws): max |diff| {diff:.3g} (bar {ROB_ROW_TOL})",
+          flush=True)
+
+
+def _attention_f32_per_forward() -> dict:
+    """K1 and K2 in float32 at the Swin encoder's shapes for ROB_PROBES
+    probes at 224, each against its plain version (the [k1]/[k2] bars),
+    timed L2-cold (and K1 warm) beside SDPA in float32 (the library
+    yardstick, with bias and mask as one additive mask; for K2 with the
+    layout permutes) and the bound; summed over the calls of one encoder
+    forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+    from medsegpretrainimagenet_tpu_torch.ops.kernel_ab import (
+        device_ms, input_copies)
+
+    gen = torch.Generator().manual_seed(7)
+    scale = HEAD_DIM ** -0.5
+    dtype = torch.float32
+    total = dict.fromkeys(("k1_ms", "k1_warm_ms", "k1_plain_ms", "k1_sdpa_ms",
+                           "k2_ms", "k2_plain_ms", "k2_sdpa_ms", "bytes_ms",
+                           "ops_ms", "k1_err", "k2_err"), 0.0)
+    for level, heads, n_w, n_masked, n_plain in ROB_ATTENTION:
+        for masked in (False, True):
+            calls = n_masked if masked else n_plain
+            if calls == 0:
+                continue
+            q, k, v, bias, mask = _k1_inputs(level, heads, n_w, masked,
+                                             dtype, gen, batch=ROB_PROBES)
+
+            def plain(bias, mask):
+                return wa.window_attention_core(q, k, v, bias, mask, scale,
+                                                force="torch")
+
+            err, _, _ = hold(f"[robustness] K1 f32 level {level}",
+                             wa.window_attention_cuda(q, k, v, bias, mask,
+                                                      scale),
+                             plain(bias, mask), plain, bias, mask)
+            full = _sdpa_mask(bias, mask, q.shape[0], dtype)
+            copies = input_copies(q, k, v)
+            t = {"k1_ms": device_ms(lambda q, k, v: wa.window_attention_cuda(
+                    q, k, v, bias, mask, scale), copies),
+                 "k1_warm_ms": device_ms(
+                     lambda q, k, v: wa.window_attention_cuda(
+                         q, k, v, bias, mask, scale), copies[:1]),
+                 "k1_plain_ms": device_ms(
+                     lambda q, k, v: wa.window_attention_torch(
+                         q, k, v, bias, mask, scale), copies),
+                 "k1_sdpa_ms": device_ms(
+                     lambda q, k, v: F.scaled_dot_product_attention(
+                         q, k, v, attn_mask=full, scale=scale), copies)}
+            del copies
+            t_bytes, t_ops = _k1_bound_ms(q, bias, mask)
+
+            res = 56 // 2 ** level
+            qkv = torch.randn(ROB_PROBES, res, res, 3 * heads * HEAD_DIM,
+                              generator=gen).cuda()
+
+            def plain_image(bias, mask):
+                return wa.fused_image_window_attention(
+                    qkv, bias, mask, scale, WINDOW, force="torch")
+
+            err2, _, _ = hold(f"[robustness] K2 f32 level {level}",
+                              wa.image_attention_cuda(qkv, bias, mask, scale,
+                                                      WINDOW),
+                              plain_image(bias, mask), plain_image, bias,
+                              mask)
+            copies = input_copies(qkv)
+            t.update(
+                k2_ms=device_ms(lambda qkv: wa.image_attention_cuda(
+                    qkv, bias, mask, scale, WINDOW), copies),
+                k2_plain_ms=device_ms(lambda qkv: wa.image_attention_torch(
+                    qkv, bias, mask, scale, WINDOW), copies),
+                k2_sdpa_ms=device_ms(lambda qkv: _sdpa_image_path(
+                    qkv, full, scale), copies))
+            del copies
+            print(f"[robustness] attention f32 level {level} B_="
+                  f"{q.shape[0]} H={heads} {'SW-MSA' if masked else 'W-MSA '}"
+                  f", L2-cold: K1 {t['k1_ms']:.4f} ms (warm "
+                  f"{t['k1_warm_ms']:.4f}), plain {t['k1_plain_ms']:.4f}, "
+                  f"SDPA f32 {t['k1_sdpa_ms']:.4f}; K2 {t['k2_ms']:.4f}, "
+                  f"plain {t['k2_plain_ms']:.4f}, permute+SDPA f32+permute "
+                  f"{t['k2_sdpa_ms']:.4f}; bound {max(t_bytes, t_ops):.4f} "
+                  f"({'bytes' if t_bytes >= t_ops else 'operations'}); "
+                  f"|kernel - plain| max K1 {err:.3g} K2 {err2:.3g}; "
+                  f"calls/forward={calls}", flush=True)
+            for key, value in t.items():
+                total[key] += calls * value
+            total["bytes_ms"] += calls * t_bytes
+            total["ops_ms"] += calls * t_ops
+            total["k1_err"] = max(total["k1_err"], err)
+            total["k2_err"] = max(total["k2_err"], err2)
+    total["bound_ms"] = total["bytes_ms"] if total["bytes_ms"] \
+        >= total["ops_ms"] else total["ops_ms"]
+    total["bound_by"] = "bytes" if total["bytes_ms"] >= total["ops_ms"] \
+        else "operations"
+    return total
+
+
+def phase_robustness(workdir: Path, encoder: Path) -> int:
+    """robustness_224 at full width with torch's default float32 settings
+    (TF32 for cuDNN's convolutions, none for matmuls, no cuDNN
+    autotuning), as the sweep CLI runs:
+    ms per forward of each encoder, the Swin encoder's K1 launches (and K2
+    under ``set_fused_image_mode("on")``), K1 and K2 in float32 against
+    plain, SDPA and the bound, the in-process sweep with its launches and
+    host reads, then the CLI in a process of its own with the
+    ``u-net_encoder`` from *encoder* ([cli pretrain]'s epoch-1 checkpoint)
+    and reference-named weight files for the other two.  Returns the K1
+    launches of the in-process sweep."""
+    import os
+    import warnings
+
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch import ops
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict, dump_yaml
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+    from medsegpretrainimagenet_tpu_torch.ops.kernel_ab import device_ms
+    from medsegpretrainimagenet_tpu_torch.robustness import eval as rob_eval
+    from medsegpretrainimagenet_tpu_torch.robustness import sweep
+    from medsegpretrainimagenet_tpu_torch.robustness.__main__ import (
+        build_encoders, load_probes)
+    from medsegpretrainimagenet_tpu_torch.train.checkpoint import (
+        save_params_file)
+
+    # torch's defaults, as the sweep CLI runs (no cuDNN autotuning)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    write_probe_tree(workdir / "rob_data")
+    cfg = ConfigDict(robustness_config(workdir / "random.csv",
+                                       robustness_encoders(ROB_SIZE)))
+    os.environ["MST_DATA_DIR"] = str(workdir / "rob_data")
+    try:
+        datasets = load_probes(cfg, 0, ROB_PROBES)
+    finally:
+        del os.environ["MST_DATA_DIR"]
+    encoders = build_encoders(cfg, datasets, 0, torch.device("cuda"))
+    probes = torch.from_numpy(datasets["COVID-QU"]).cuda()
+    check(tuple(probes.shape) == (ROB_PROBES, ROB_SIZE, ROB_SIZE, 1),
+          f"[robustness] probes {tuple(probes.shape)}")
+    view = rob_eval.apply_color_jitter(probes, sweep.dataset_draws(0, 0)[0])
+    for enc in encoders:
+        x = sweep.adapt_channels(view, enc["in_channels"])
+        module = enc["module"]
+        params = sum(p.numel() for p in module.parameters())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = device_ms(lambda x: rob_eval.collect_levels(module, x,
+                                                         ROB_PROBES),
+                       [(x,)], runs=5)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"[robustness] {enc['name']} ({params:,} parameters, input "
+              f"{tuple(x.shape)}) f32 forward of {ROB_PROBES} probes with "
+              f"every level: {ms:.3f} ms (device time, CUDA events, median "
+              f"of 5 runs of 20) = "
+              f"{1e3 * ROB_PROBES / ms:.1f} probes/s, peak memory "
+              f"{peak:.2f} GiB", flush=True)
+
+    swin_enc = encoders[2]
+    x = sweep.adapt_channels(view, swin_enc["in_channels"])
+    paths = {}
+    for mode in ("off", "on"):
+        wa.window_attention_cuda.launches = 0
+        wa.image_attention_cuda.launches = 0
+        ops.set_fused_image_mode(mode)
+        try:
+            paths[mode] = rob_eval.collect_levels(swin_enc["module"], x,
+                                                  ROB_PROBES)
+        finally:
+            ops.set_fused_image_mode("off")
+        k1, k2 = (wa.window_attention_cuda.launches,
+                  wa.image_attention_cuda.launches)
+        want = (ROB_K1_PER_FORWARD, 0) if mode == "off" \
+            else (0, ROB_K1_PER_FORWARD)
+        check((k1, k2) == want,
+              f"[robustness] Swin encoder forward, fused image mode {mode}:"
+              f" K1 {k1}, K2 {k2} launches (want {want})")
+    err = max(_relative_max(a, b) for a, b in zip(paths["on"], paths["off"]))
+    check(err < F32_TOL, f"[robustness] Swin levels, K2 path vs K1 path: "
+                         f"{err} relative")
+    print(f"[robustness] swin_transformer forward: {ROB_K1_PER_FORWARD} K1 "
+          f"f32 launches and 0 K2; under set_fused_image_mode('on') "
+          f"{ROB_K1_PER_FORWARD} K2 f32 launches and 0 K1, levels within "
+          f"{err:.3g} of the K1 path (max |diff| / max |level|, bar "
+          f"{F32_TOL})", flush=True)
+
+    attention = _attention_f32_per_forward()
+    print(f"[robustness] attention f32 per Swin encoder forward "
+          f"({ROB_K1_PER_FORWARD} calls, {ROB_PROBES} probes), L2-cold: K1 "
+          f"{attention['k1_ms']:.4f} ms (warm {attention['k1_warm_ms']:.4f})"
+          f", plain {attention['k1_plain_ms']:.4f}, SDPA f32 "
+          f"{attention['k1_sdpa_ms']:.4f}; K2 {attention['k2_ms']:.4f}, "
+          f"plain {attention['k2_plain_ms']:.4f}, permute+SDPA f32+permute "
+          f"{attention['k2_sdpa_ms']:.4f}; bound "
+          f"{attention['bound_ms']:.4f} ms ({attention['bound_by']}: bytes "
+          f"{attention['bytes_ms']:.4f}, operations at 67 TFLOP/s "
+          f"{attention['ops_ms']:.4f}); max |kernel - plain| K1 "
+          f"{attention['k1_err']:.3g}, K2 {attention['k2_err']:.3g}",
+          flush=True)
+
+    axes = dict(metrics=ROB_METRICS, margins=ROB_MARGINS, levels=ROB_LEVELS,
+                pooled=(False, True), batch_size=ROB_PROBES)
+    result = {}
+
+    def run():
+        result["rows"] = sweep.run_sweep(encoders, datasets, **axes)
+
+    wa.window_attention_cuda.launches = 0
+    wa.image_attention_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the host syncs the sweep queues, where torch's sync debug mode
+    # reports them (one warning each)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    launches = wa.window_attention_cuda.launches
+    random_rows = result["rows"]
+    check(len(random_rows) == ROB_ROWS
+          and all(math.isfinite(r["robustness"]) for r in random_rows)
+          and launches == 2 * ROB_K1_PER_FORWARD
+          and wa.image_attention_cuda.launches == 0,
+          f"[robustness] in-process sweep: {len(random_rows)} rows, K1 "
+          f"{launches}, K2 {wa.image_attention_cuda.launches} launches")
+    print(f"[robustness] in-process sweep (random init, {len(encoders)} "
+          f"encoders x 2 views): {len(random_rows)} rows in {wall:.3f} s, "
+          f"{len(syncs)} host syncs (sync debug mode, at {syncs}), K1 "
+          f"launches {launches}", flush=True)
+
+    # the CLI as a user runs it, with three weight sources
+    gen_cfg = ConfigDict({"encoders": robustness_encoders(ROB_SIZE)})
+    weights = {"u-net_encoder": str(encoder)}
+    for enc, family in zip(build_encoders(gen_cfg, datasets, 9,
+                                          torch.device("cpu"))[1:],
+                           ("resnet", "swin")):
+        path = workdir / f"{enc['name']}_reference.pt"
+        save_params_file(str(path), reference_names(
+            enc["module"].state_dict(), family))
+        weights[enc["name"]] = str(path)
+    encoders_cfg = robustness_encoders(ROB_SIZE)
+    for enc in encoders_cfg:
+        enc["weights"] = weights[enc["name"]]
+    out_csv = workdir / "robustness_scores.csv"
+    cfg_path = workdir / "robustness.yaml"
+    cfg_path.write_text(dump_yaml(robustness_config(out_csv, encoders_cfg)))
+    env = dict(os.environ, MST_DATA_DIR=str(workdir / "rob_data"),
+               PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "medsegpretrainimagenet_tpu_torch.robustness",
+         str(cfg_path)], cwd=workdir, env=env, capture_output=True,
+        text=True, timeout=400)
+    seconds = time.perf_counter() - t0
+    check(out.returncode == 0, f"[robustness] CLI exit {out.returncode}; "
+                               f"stderr tail:\n{out.stderr[-4000:]}")
+    said = [w for w in ("unmapped", "left random", "unused")
+            if w in out.stdout]
+    check(not said, f"[robustness] CLI load warnings {said}:\n"
+                    f"{out.stdout[-3000:]}")
+    import csv
+    with open(out_csv, newline="") as fh:
+        reader = csv.DictReader(fh)
+        header, rows = reader.fieldnames, list(reader)
+    check(header == ROB_CSV_COLUMNS and len(rows) == ROB_ROWS,
+          f"[robustness] CSV header {header}, {len(rows)} rows "
+          f"(want {ROB_ROWS})")
+    values = [float(r["robustness"]) for r in rows]
+    check(all(math.isfinite(v) for v in values),
+          "[robustness] CSV values not all finite")
+    levels, cells = {}, {}
+    for r in rows:
+        levels.setdefault(r["encoder"], set()).add(int(r["level"]))
+        cells.setdefault((r["metric"], r["encoder"], r["level"],
+                          r["pooled"]), []).append(
+            (float(r["margin"]), float(r["robustness"])))
+    check({k: sorted(v) for k, v in levels.items()} == ROB_ENCODER_LEVELS,
+          f"[robustness] levels per encoder {levels}")
+    monotone = sum(all(b[1] >= a[1] for a, b in zip(s, s[1:]))
+                   for s in (sorted(c) for c in cells.values()))
+    check(monotone == len(cells),
+          f"[robustness] {monotone} of {len(cells)} cells non-decreasing "
+          f"in margin")
+    differs = {name: sum(abs(float(r["robustness"]) - q["robustness"])
+                         > 1e-6 for r, q in zip(rows, random_rows)
+                         if r["encoder"] == name)
+               for name in ROB_ENCODER_LEVELS}
+    check(all(differs.values()),
+          f"[robustness] rows differing from the random-init sweep: "
+          f"{differs}")
+    print(f"[robustness] CLI robustness_224: {len(rows)} rows in "
+          f"{seconds:.1f} s of wall time (process included), header equal "
+          f"to the JAX CLI's, all finite, {monotone}/{len(cells)} cells "
+          f"non-decreasing in margin, levels "
+          f"{ {k: sorted(v) for k, v in levels.items()} }; weights loaded "
+          f"with no unmapped, unused or missing key (u-net_encoder from "
+          f"{encoder.name}, resnet50 and swin_transformer from "
+          f"reference-named state dicts); rows differing from the "
+          f"random-init sweep per encoder {differs}; values "
+          f"[{min(values):.4g}, {max(values):.4g}]", flush=True)
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "medsegpretrainimagenet_tpu_torch").is_dir():
         fail("run from a checkout: the package medsegpretrainimagenet_tpu_"
@@ -2622,6 +3204,8 @@ def main() -> int:
         encoder = timed("cli pretrain", phase_cli_pretrain, Path(tmp),
                         pretrain_rate)
         timed("cli transfer", phase_cli_transfer, Path(tmp), encoder)
+        timed("robustness small", phase_robustness_small)
+        timed("robustness", phase_robustness, Path(tmp), encoder)
 
     # per kernel: the 14 calls of one bf16 forward at batch 24, summed,
     # L2-cold (warm_ms: the same calls on warm inputs); launches from its

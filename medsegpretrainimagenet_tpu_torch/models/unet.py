@@ -130,7 +130,7 @@ class UNetEncoder(nn.Module):
                  layer_scaling: Any = False):
         super().__init__()
         _not_ported(residual_connections, layer_scaling)
-        self.depth = depth
+        self.depth, self.in_channel_size = depth, in_channel_size
         channels = _as_channels(channels, depth)
         if len(channels) < depth + 2:
             channels = [channels[0], *channels]
@@ -409,3 +409,4 @@ class UNet(nn.Module):
 
 register("segmentation.models.UNet", "unet")(UNet)
 register("segmentation.models.UNet_encoder", "unet_encoder")(UNetEncoder)
+register("segmentation.models.UNet_decoder", "unet_decoder")(UNetDecoder)

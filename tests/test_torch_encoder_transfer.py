@@ -13,8 +13,9 @@ the port against the JAX package, on the CPU.
   does on the same arrays, and the wrapper loads it through that path.
 * Missing and unexpected keys warn without ``strict``; with it the load
   fails and leaves the encoder as it was, with the JAX package's message.
-  Swin and ResNet checkpoints raise NotImplementedError naming their
-  ROADMAP item."""
+* Reference Swin and ResNet encoder checkpoints translate as JAX's
+  ``translate_reference_encoder`` followed by ``state_dict_from_jax``
+  translates them, bit for bit, with the same leftover keys."""
 import warnings
 
 import jax
@@ -34,7 +35,8 @@ from medsegpretrainimagenet_tpu_torch.train import torch_mapping
 from medsegpretrainimagenet_tpu_torch.transfer import state_dict_from_jax
 
 from test_torch_feedforward import pretrain_model_config
-from torch_port_helpers import build_model, transplant, unet_config
+from torch_port_helpers import (build_model, reference_state, transplant,
+                                unet_config)
 
 CHANNELS = (4, 8, 16)
 
@@ -126,28 +128,6 @@ def test_wrapper_transfer_matches_the_checkpoint_and_jax(checkpoints,
             assert torch.equal(value, want[name]), name
 
 
-def _reference_state(port_encoder_state):
-    """The reference's module names for a port U-Net encoder state dict
-    (the inverse of the mapping), as a released checkpoint holds them."""
-    out = {}
-    for name, value in port_encoder_state.items():
-        parts = name.split(".")
-        if parts[0] == "stem_block":
-            key = f"first_block.{parts[-1]}"
-        else:
-            if parts[0] == "level_convs":
-                module = f"down_layers.{parts[1]}.conv{parts[2]}"
-                kind, leaf = parts[3], parts[4]
-            else:
-                module = f"bottom_block.conv{parts[1]}"
-                kind, leaf = parts[2], parts[3]
-            index = int(kind.split("_")[1])
-            m = 3 * index + (0 if kind.startswith("Conv") else 1)
-            key = f"{module}.block.{m}.{leaf}"
-        out[f"layers.0.{key}"] = value
-    return out
-
-
 @pytest.fixture(scope="module")
 def reference_checkpoint(checkpoints):
     root, _, _, port_state, _ = checkpoints
@@ -156,7 +136,7 @@ def reference_checkpoint(checkpoints):
         torch.from_numpy(rng.random(tuple(v.shape)).astype(np.float32))
         if v.is_floating_point() else v)
         for k, v in port_state.items() if k.startswith("layers.0.")}
-    state = _reference_state(encoder)
+    state = reference_state(encoder, "unet")
     state["layers.3.weight"] = torch.zeros(5, CHANNELS[-1])  # the head
     path = root / "reference_encoder.pt"
     torch.save(state, path)
@@ -250,11 +230,68 @@ def test_non_strict_warns_and_strict_leaves_the_encoder(checkpoints,
 
 
 @pytest.mark.parametrize("key, item", [
-    ("down_layers.0.conv0.attn.qkv.weight", "M8"),
-    ("first_block.proj.weight", "M8"),
-    ("down_layers.1.downsampl.reduction.weight", "M8"),
-    ("stem.0.weight", "M9"),
-    ("levels.0.1.conv2.weight", "M9")])
+    ("down_layers.0.conv0.attn.qkv.weight", "level_convs.0.0.attn.qkv.weight"),
+    ("first_block.proj.weight", "stem_block.Conv_0.weight"),
+    ("down_layers.1.downsampl.reduction.weight",
+     "downsamples.1.Dense_0.weight"),
+    ("stem.0.weight", "stem_conv.weight"),
+    ("levels.0.1.conv2.weight", "levels.0.1.Conv_1.weight")])
 def test_other_encoder_families_are_refused(key, item):
-    with pytest.raises(NotImplementedError, match=item):
-        torch_mapping.translate_reference_encoder({key: torch.zeros(2)})
+    """The Swin and ResNet keys that were refused before their families
+    were ported now translate to the port's names."""
+    got, leftover = torch_mapping.translate_reference_encoder(
+        {key: torch.zeros(2)})
+    assert list(got) == [item] and leftover == []
+
+
+#: reference keys no family maps, in both packages a leftover (in the
+#: order of the module tree, which is the order both packages report)
+UNMAPPED = {"swin": ("down_layers.0.downsampl.extra.weight",
+                     "down_layers.0.shortcut0.weight"),
+            "resnet": ("levels.0.0.shortcut.weight", "fc.weight")}
+
+
+@pytest.mark.parametrize("family, version", [("swin", "v1"),
+                                             ("resnet", "v1"),
+                                             ("resnet", "v2")])
+def test_swin_and_resnet_mappings_match_jax(tmp_path, family, version):
+    """A reference-named encoder state dict written from a seed: the port's
+    translation equals JAX's followed by ``state_dict_from_jax`` bit for
+    bit, both equal the weights it was written from, the buffers
+    (``attn_mask``, ``relative_position_index``) are dropped and the
+    leftover lists are equal."""
+    from test_torch_robustness import encoder_configs
+
+    (cfg,) = [c for c in encoder_configs() if c["name"] == {
+        "swin": "swin_transformer", "resnet": "resnet50"}[family]]
+    model_cfg = ConfigDict(cfg["model"])
+    if family == "resnet":
+        model_cfg["classification.models.DeepResNet/version"] = version
+    model = registry.build(model_cfg, wrapper=Model)
+    model.init(11)
+    rng = np.random.default_rng(12)
+    state = {k: (torch.from_numpy(rng.random(tuple(v.shape)).astype(
+        np.float32)) if v.is_floating_point() else v)
+        for k, v in model.module.state_dict().items()}
+    reference = reference_state(state, family, version)
+    for key in UNMAPPED[family]:
+        reference[f"layers.0.{key}"] = torch.ones(3)
+    path = tmp_path / "reference.pt"
+    torch.save(reference, path)
+
+    params, stats = ckpt.load_encoder_variables(str(path))
+    assert torch_mapping.looks_like_torch_encoder(params)
+    got, leftover = torch_mapping.translate_reference_encoder(
+        {**params, **(stats or {})})
+    jax_tree = jax_ckpt.load_encoder_params(str(path))
+    translated, jax_leftover = jax_mapping.translate_reference_encoder(
+        jax_tree)
+    assert leftover == jax_leftover == list(UNMAPPED[family])
+    want = state_dict_from_jax(translated, model.module)
+    counts = [k for k in want if k.endswith("num_batches_tracked")]
+    assert set(got) == set(want) - (set() if family == "resnet"
+                                    else set(counts))
+    for name, value in want.items():
+        if name not in counts:
+            assert torch.equal(got[name], value), name
+            assert torch.equal(got[name], state[name]), name

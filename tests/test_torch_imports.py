@@ -207,6 +207,31 @@ main([str(root / "down.yaml"), "--device", "cpu"])
 final = torch.load(run / "last_model_state_dict.pt")
 assert final["enc.stem_block.Conv_0.weight"].shape == \
     params["stem_block.Conv_0.weight"].shape
+# the robustness sweep CLI scores that pretrained encoder and a ResNet
+from medsegpretrainimagenet_tpu_torch.robustness.__main__ import \
+    main as robustness_main
+(root / "rob.yaml").write_text(f'''
+data: {{covidqu: {{segmentation.datasets.COVIDQUDataset: {{
+  lung_or_infection: inf, image_sizes: 16, validate_on_test: true}}}}}}
+probe_images: 4
+encoders:
+- {{name: u-net_encoder, weights: {encoder}, model: {{
+    segmentation.models.UNet_encoder: {{in_channel_size: 3, depth: 1,
+                                       channels: [4, 8]}}}}}}
+- {{name: resnet50, model: {{classification.models.DeepResNet: {{
+    bias: false, channel_sizes: [8, 16], widths: [1, 1],
+    base_channel_size: 4}}}}}}
+metrics: [cosine_distance, l2]
+margins: [0.0, 0.5]
+levels: [1, 2]
+output: {root}/rob.csv
+''')
+assert robustness_main([str(root / "rob.yaml"), "--device", "cpu"]) == 0
+rows = list(csv.DictReader(open(root / "rob.csv")))
+# 2 metrics x 2 margins x 2 pooled x (1 level of the depth-1 U-Net
+# encoder + 2 of the ResNet)
+assert len(rows) == 2 * 2 * 2 * 3, len(rows)
+assert all(np.isfinite(float(r["robustness"])) for r in rows), rows
 from medsegpretrainimagenet_tpu_torch.ops.augment import \
     make_classification_device_augment
 out = make_classification_device_augment(16, 3)(
@@ -225,8 +250,9 @@ def test_port_imports_and_runs_with_jax_blocked():
     ACDC multiclass U-Net with the multiclass metrics, the
     confusion-matrix export and the profiler trace, one of ImageNet
     pretraining with the classification chain and one of the COVID-QU
-    U-Net from its encoder, and the on-card classification chain, with
-    JAX, flax, optax, OpenCV and the JAX package unimportable."""
+    U-Net from its encoder, the robustness sweep of that encoder and a
+    ResNet, and the on-card classification chain, with JAX, flax, optax,
+    OpenCV and the JAX package unimportable."""
     result = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=ROOT,
                             capture_output=True, text=True, timeout=300)
     assert result.returncode == 0, result.stderr
@@ -290,3 +316,18 @@ def test_cli_needs_a_card_or_device_cpu(tmp_path):
         pytest.skip("a CUDA card is present")
     assert "no CUDA device found" in result.stderr
     assert not (tmp_path / "logs").exists()
+
+
+def test_robustness_cli_needs_a_card_or_device_cpu(tmp_path):
+    """Without a card and without ``--device``, the sweep CLI exits
+    non-zero naming the missing device before it reads any data."""
+    config = tmp_path / "cfg.yaml"
+    config.write_text(f"probe_images: 2\noutput: {tmp_path}/out.csv\n")
+    result = subprocess.run(
+        [sys.executable, "-m", "medsegpretrainimagenet_tpu_torch.robustness",
+         str(config)], cwd=ROOT, capture_output=True, text=True,
+        timeout=300)
+    if result.returncode == 0:
+        pytest.skip("a CUDA card is present")
+    assert "no CUDA device found" in result.stderr
+    assert not (tmp_path / "out.csv").exists()

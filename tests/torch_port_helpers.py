@@ -62,3 +62,54 @@ def transplant(variables, module: torch.nn.Module) -> torch.nn.Module:
     host = jax.tree_util.tree_map(np.asarray, variables)
     module.load_state_dict(state_dict_from_jax(host, module))
     return module.eval()
+
+
+def reference_state(state, family: str, version: str = "v1"):
+    """A port encoder state dict under the reference's torch module names
+    (the inverse of ``train.torch_mapping``), prefixed ``layers.0.`` as a
+    released pretraining checkpoint holds them.  *family*: "unet", "swin"
+    or "resnet" (of *version*).  The Swin family also gets the reference's
+    buffers, which the translation drops: ``attn.relative_position_index``
+    in every block and ``attn_mask`` in each shifted one."""
+    out = {}
+    for name, value in state.items():
+        parts = name.split(".")
+        if family == "resnet":
+            if parts[0] == "stem_conv":
+                key = ("stem.0." if version == "v1" else "stem.") + parts[1]
+            elif parts[0] == "stem_bn":
+                key = "stem.1." + parts[1]
+            else:
+                kind, k = parts[3].split("_")
+                key = (f"levels.{parts[1]}.{parts[2]}."
+                       f"{'conv' if kind == 'Conv' else 'bn'}{int(k) + 1}."
+                       f"{parts[4]}")
+        elif parts[0] == "stem_block":
+            child = {"Conv_0": "proj", "LayerNorm_0": "norm_layer"}[parts[1]]
+            key = f"first_block.{parts[-1]}" if family == "unet" \
+                else f"first_block.{child}.{parts[2]}"
+        elif parts[0] == "downsamples":
+            child = {"Dense_0": "reduction", "LayerNorm_0": "norm"}[parts[2]]
+            key = f"down_layers.{parts[1]}.downsampl.{child}.{parts[3]}"
+        else:
+            if parts[0] == "level_convs":
+                module, rest = f"down_layers.{parts[1]}.conv{parts[2]}", \
+                    parts[3:]
+            else:
+                module, rest = f"bottom_block.conv{parts[1]}", parts[2:]
+            if family == "unet":
+                kind, k = rest[0].split("_")
+                rest = ["block", str(3 * int(k) + (kind != "Conv")), rest[1]]
+            elif rest[0] == "mlp":
+                rest = ["mlp", {"Dense_0": "fc1", "Dense_1": "fc2"}[rest[1]],
+                        rest[2]]
+            key = f"{module}.{'.'.join(rest)}"
+            if family == "swin" and rest[-1] == "relative_position_bias_table":
+                tokens = int(round(np.sqrt(value.shape[0]))) // 2 + 1
+                out[f"layers.0.{module}.attn.relative_position_index"] = \
+                    torch.arange(tokens ** 4).reshape(tokens ** 2, tokens ** 2)
+                if module[-1] in "13579":
+                    out[f"layers.0.{module}.attn_mask"] = torch.zeros(
+                        4, tokens ** 2, tokens ** 2)
+        out[f"layers.0.{key}"] = value
+    return out
