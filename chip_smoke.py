@@ -7,7 +7,9 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
 
 It builds every CUDA kernel of the port from ``csrc/`` (one nvcc per source,
 all at once) and counts the tensor-core instructions (HMMA) of each kernel
-instance in its SASS: a bf16 instance without any fails.  It holds each
+instance in its SASS, beside ptxas's registers and spills: every instance,
+bf16 and float32 (split TF32), runs on the tensor cores, and one without
+HMMA fails.  It holds each
 kernel against its plain PyTorch version on the card at the shapes the
 serving path gives it: K1 (window attention, windows layout) and K2 (the
 image-layout path, which also holds against the K1 path on the same input),
@@ -80,9 +82,11 @@ plain version on the inputs the Swin encoder gives it; ``[robustness]``
 runs ``robustness_224`` (the JAX package's ``tools/robustness_tpu.py``: 32
 probes of 224 x 224, the U-Net encoder, ResNet-50 and the Swin encoder in
 float32): each encoder's forward timed, the Swin encoder's K1 launches (and
-K2's under ``set_fused_image_mode("on")``), K1 and K2 in float32 timed
-against plain, SDPA and the bound, the sweep in this process with its
-launches and host syncs, then the sweep CLI in a process of its own with
+K2's under ``set_fused_image_mode("on")``), its forward profiled by kernel
+group (``[profile robustness swin]``), K1 and K2 in float32 timed against
+plain, SDPA and the bound, the sweep in this process with its launches and
+host syncs (and again on the K2 path, rows against the K1 path's), then
+the sweep CLI in a process of its own with
 ``[cli pretrain]``'s encoder and reference-named ResNet-50 and Swin weight
 files: 330 finite rows, margin-monotone, levels 4/4/3, the JAX CLI's
 columns, every weight file loaded.
@@ -91,7 +95,8 @@ card, or without the package beside it, it exits non-zero and prints no
 result.  It imports nothing of JAX.
 
 The last lines are the card's name and power limit, a JSON line with each
-kernel's launches, error and times, and
+kernel's launches, error and times (K1 and K2 in bf16 per serving forward,
+and in float32 per Swin encoder forward of ``robustness_224``), and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -203,34 +208,61 @@ def swin_unet_224_config() -> dict:
     }}}}
 
 
+def _ptxas_report(log: str) -> dict:
+    """{entry function: "N registers, S bytes spill stores, L bytes spill
+    loads"} from nvcc's ``-Xptxas -v`` log."""
+    report, current = {}, None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            current = entry.group(1)
+            report[current] = {}
+        elif current is not None and "spill" in line:
+            report[current]["spills"] = ", ".join(
+                p.strip() for p in line.split(",")[1:])
+        elif current is not None and "registers" in line:
+            report[current]["registers"] = re.search(
+                r"(\d+) registers", line).group(1)
+    return {k: f"{v.get('registers', '?')} registers, "
+               f"{v.get('spills', 'spills not reported')}"
+            for k, v in report.items()}
+
+
 def phase_build():
+    """Build every kernel; per kernel instance its HMMA count in the SASS
+    (every instance, bf16 and float32, runs on the tensor cores: one
+    without HMMA fails) and ptxas's registers and spills."""
     from medsegpretrainimagenet_tpu_torch.ops import _build
+    from medsegpretrainimagenet_tpu_torch.ops.kernel_ab import (
+        instance_label, opcodes, parse_sass)
 
     t0 = time.perf_counter()
     built = _build.build()
     seconds = time.perf_counter() - t0
-    check(set(built) >= {"window_attention"},
+    check(set(built) >= {"window_attention", "image_attention"},
           f"kernels built: {sorted(built)}")
     cuobjdump = str(Path(_build.nvcc()).parent / "cuobjdump")
     for name, info in built.items():
         print(f"[build] {name}: {info['seconds']:.2f} s"
               f"{' (cached)' if info['cached'] else ''}")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
-        # tensor-core instructions per kernel instance, from the SASS: the
-        # check that the bf16 instances are the tensor-core body
+        ptxas = _ptxas_report(info["log"])
         sass = subprocess.run([cuobjdump, "-sass", info["path"]],
                               capture_output=True, text=True, timeout=120)
         check(sass.returncode == 0, f"cuobjdump -sass {info['path']}: "
                                     f"{sass.stderr.strip()}")
-        for function in sass.stdout.split("Function : ")[1:]:
-            symbol = function.split()[0]
-            hmma = function.count("HMMA")
-            print(f"[build]   {symbol}: {hmma} HMMA")
-            check(hmma > 0 or "bfloat16" not in symbol,
-                  f"{symbol}: a bf16 instance without tensor-core "
-                  f"instructions")
+        instances = []
+        for symbol, (code, _) in parse_sass(sass.stdout).items():
+            hmma = sum(op.startswith("HMMA") for op in opcodes(code))
+            label = instance_label(symbol)
+            instances.append(label)
+            print(f"[build]   {label}: {hmma} HMMA, "
+                  f"{ptxas.get(symbol, 'no ptxas report')}")
+            check(hmma > 0, f"{label} ({symbol}): a kernel instance without "
+                            f"tensor-core instructions")
+        for dtype in ("bf16", "f32"):
+            check(sum(f"<{dtype}," in i for i in instances) == 4,
+                  f"{name}: want the four {dtype} instances (D padded to 16,"
+                  f" 32, 48, 64), got {instances}")
     print(f"[build] all kernels: {seconds:.2f} s", flush=True)
 
 
@@ -1129,12 +1161,14 @@ _TRAIN_GROUPS = (
 
 
 def profile_train(run_steps, steps: int, wall_ms: float,
-                  tag: str = "train") -> None:
-    """Device time per train step by kernel group and by operator, from
-    torch.profiler over *steps* steps.  The busy share is the device time
-    over the wall time of the same profiled steps; *wall_ms*, the median
-    wall time of a step in the unprofiled turns, is printed beside it.
-    Lines start with ``[profile <tag>]``."""
+                  tag: str = "train", groups_of=None,
+                  unit: str = "step") -> None:
+    """Device time per train step by kernel group (*groups_of*, by default
+    ``_TRAIN_GROUPS``) and by operator, from torch.profiler over *steps*
+    steps.  The busy share is the device time over the wall time of the
+    same profiled steps; *wall_ms*, the median wall time of a step in the
+    unprofiled turns, is printed beside it.  Lines start with ``[profile
+    <tag>]``; *unit* names what one of the steps is."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1152,29 +1186,29 @@ def profile_train(run_steps, steps: int, wall_ms: float,
                          f"kernels")
     busy = sum(e.device_time_total for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels) / steps
-    print(f"[profile {tag}] per step: device busy {busy:.3f} ms of "
-          f"{profiled_ms:.3f} ms wall in the profiled steps "
+    print(f"[profile {tag}] per {unit}: device busy {busy:.3f} ms of "
+          f"{profiled_ms:.3f} ms wall in the profiled {unit}s "
           f"({100 * busy / profiled_ms:.1f} %; unprofiled {wall_ms:.3f} ms),"
           f" {launches:.0f} kernel launches")
     groups = {}
     for e in kernels:
         name = e.key.lower()
-        group = next((g for frag, g in _TRAIN_GROUPS if frag in name),
-                     "other")
+        group = next((g for frag, g in groups_of or _TRAIN_GROUPS
+                      if frag in name), "other")
         groups[group] = groups.get(group, 0.0) \
             + e.device_time_total / 1e3 / steps
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[profile {tag}]   {group}: {ms:.3f} ms/step "
+        print(f"[profile {tag}]   {group}: {ms:.3f} ms/{unit} "
               f"({100 * ms / busy:.1f} %)")
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:15]:
         print(f"[profile {tag}]   {e.device_time_total / 1e3 / steps:7.3f} "
-              f"ms/step {e.count / steps:5.1f}x {e.key[:160]}")
+              f"ms/{unit} {e.count / steps:5.1f}x {e.key[:160]}")
     # the same device time by the operator that launched it
     ops = [e for e in prof.key_averages()
            if e.device_type == DeviceType.CPU and e.self_device_time_total]
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:20]:
         print(f"[profile {tag} op]   "
-              f"{e.self_device_time_total / 1e3 / steps:7.3f} ms/step "
+              f"{e.self_device_time_total / 1e3 / steps:7.3f} ms/{unit} "
               f"{e.count / steps:5.1f}x {e.key}")
     sys.stdout.flush()
 
@@ -2626,6 +2660,19 @@ ROB_K1_PER_FORWARD = sum(m + p for _, _, _, m, p in ROB_ATTENTION)
 #: [robustness small], card against CPU with TF32 off: the levels relative
 #: to their largest value, the rows absolute
 ROB_LEVEL_TOL, ROB_ROW_TOL = 1e-4, 1e-5
+#: kernel-name fragments -> the group of the Swin encoder's float32 forward
+#: they belong to, for [profile robustness swin]; the first match wins
+_SWIN_GROUPS = (
+    ("window_attention", "attention (K1)"),
+    ("image_attention", "attention (K2)"),
+    ("layer_norm", "LayerNorm"),
+    ("fprop", "conv (PatchEmbed)"), ("conv", "conv (PatchEmbed)"),
+    ("roll", "copies and permutes"), ("copy", "copies and permutes"),
+    ("catarray", "copies and permutes"), ("index", "copies and permutes"),
+    ("gemm", "matmuls"), ("nvjet", "matmuls"), ("cutlass", "matmuls"),
+    ("xmma", "matmuls"), ("sm90", "matmuls"),
+    ("reduce", "reductions"),
+    ("elementwise", "elementwise (GELU, adds, scales, casts)"))
 
 
 def robustness_encoders(size: int) -> list:
@@ -2861,10 +2908,10 @@ def phase_robustness_small():
 def _attention_f32_per_forward() -> dict:
     """K1 and K2 in float32 at the Swin encoder's shapes for ROB_PROBES
     probes at 224, each against its plain version (the [k1]/[k2] bars),
-    timed L2-cold (and K1 warm) beside SDPA in float32 (the library
-    yardstick, with bias and mask as one additive mask; for K2 with the
-    layout permutes) and the bound; summed over the calls of one encoder
-    forward."""
+    timed L2-cold and warm beside its plain version, SDPA in float32 (the
+    library yardstick, with bias and mask as one additive mask; for K2 with
+    the layout permutes) and the bound; summed over the calls of one
+    encoder forward."""
     import torch
     import torch.nn.functional as F
 
@@ -2876,8 +2923,9 @@ def _attention_f32_per_forward() -> dict:
     scale = HEAD_DIM ** -0.5
     dtype = torch.float32
     total = dict.fromkeys(("k1_ms", "k1_warm_ms", "k1_plain_ms", "k1_sdpa_ms",
-                           "k2_ms", "k2_plain_ms", "k2_sdpa_ms", "bytes_ms",
-                           "ops_ms", "k1_err", "k2_err"), 0.0)
+                           "k2_ms", "k2_warm_ms", "k2_plain_ms", "k2_sdpa_ms",
+                           "bytes_ms", "ops_ms", "k1_err", "k2_err",
+                           "k1_mean_err", "k2_mean_err"), 0.0)
     for level, heads, n_w, n_masked, n_plain in ROB_ATTENTION:
         for masked in (False, True):
             calls = n_masked if masked else n_plain
@@ -2890,17 +2938,16 @@ def _attention_f32_per_forward() -> dict:
                 return wa.window_attention_core(q, k, v, bias, mask, scale,
                                                 force="torch")
 
-            err, _, _ = hold(f"[robustness] K1 f32 level {level}",
-                             wa.window_attention_cuda(q, k, v, bias, mask,
-                                                      scale),
-                             plain(bias, mask), plain, bias, mask)
+            def k1(q, k, v):
+                return wa.window_attention_cuda(q, k, v, bias, mask, scale)
+
+            err, mean_err, _ = hold(f"[robustness] K1 f32 level {level}",
+                                    k1(q, k, v), plain(bias, mask), plain,
+                                    bias, mask)
             full = _sdpa_mask(bias, mask, q.shape[0], dtype)
             copies = input_copies(q, k, v)
-            t = {"k1_ms": device_ms(lambda q, k, v: wa.window_attention_cuda(
-                    q, k, v, bias, mask, scale), copies),
-                 "k1_warm_ms": device_ms(
-                     lambda q, k, v: wa.window_attention_cuda(
-                         q, k, v, bias, mask, scale), copies[:1]),
+            t = {"k1_ms": device_ms(k1, copies),
+                 "k1_warm_ms": device_ms(k1, copies[:1]),
                  "k1_plain_ms": device_ms(
                      lambda q, k, v: wa.window_attention_torch(
                          q, k, v, bias, mask, scale), copies),
@@ -2918,38 +2965,45 @@ def _attention_f32_per_forward() -> dict:
                 return wa.fused_image_window_attention(
                     qkv, bias, mask, scale, WINDOW, force="torch")
 
-            err2, _, _ = hold(f"[robustness] K2 f32 level {level}",
-                              wa.image_attention_cuda(qkv, bias, mask, scale,
-                                                      WINDOW),
-                              plain_image(bias, mask), plain_image, bias,
-                              mask)
+            def k2(qkv):
+                return wa.image_attention_cuda(qkv, bias, mask, scale, WINDOW)
+
+            err2, mean_err2, _ = hold(f"[robustness] K2 f32 level {level}",
+                                      k2(qkv), plain_image(bias, mask),
+                                      plain_image, bias, mask)
             copies = input_copies(qkv)
             t.update(
-                k2_ms=device_ms(lambda qkv: wa.image_attention_cuda(
-                    qkv, bias, mask, scale, WINDOW), copies),
+                k2_ms=device_ms(k2, copies),
+                k2_warm_ms=device_ms(k2, copies[:1]),
                 k2_plain_ms=device_ms(lambda qkv: wa.image_attention_torch(
                     qkv, bias, mask, scale, WINDOW), copies),
                 k2_sdpa_ms=device_ms(lambda qkv: _sdpa_image_path(
                     qkv, full, scale), copies))
             del copies
+            bound = max(t_bytes, t_ops)
             print(f"[robustness] attention f32 level {level} B_="
                   f"{q.shape[0]} H={heads} {'SW-MSA' if masked else 'W-MSA '}"
                   f", L2-cold: K1 {t['k1_ms']:.4f} ms (warm "
                   f"{t['k1_warm_ms']:.4f}), plain {t['k1_plain_ms']:.4f}, "
-                  f"SDPA f32 {t['k1_sdpa_ms']:.4f}; K2 {t['k2_ms']:.4f}, "
-                  f"plain {t['k2_plain_ms']:.4f}, permute+SDPA f32+permute "
-                  f"{t['k2_sdpa_ms']:.4f}; bound {max(t_bytes, t_ops):.4f} "
-                  f"({'bytes' if t_bytes >= t_ops else 'operations'}); "
-                  f"|kernel - plain| max K1 {err:.3g} K2 {err2:.3g}; "
-                  f"calls/forward={calls}", flush=True)
+                  f"SDPA f32 {t['k1_sdpa_ms']:.4f}; K2 {t['k2_ms']:.4f} "
+                  f"(warm {t['k2_warm_ms']:.4f}), plain "
+                  f"{t['k2_plain_ms']:.4f}, permute+SDPA f32+permute "
+                  f"{t['k2_sdpa_ms']:.4f}; bound {bound:.4f} "
+                  f"({'bytes' if t_bytes >= t_ops else 'operations'}; K1 "
+                  f"{100 * bound / t['k1_ms']:.1f} %, K2 "
+                  f"{100 * bound / t['k2_ms']:.1f} % of it); |kernel - "
+                  f"plain| K1 max {err:.3g} mean {mean_err:.3g}, K2 max "
+                  f"{err2:.3g} mean {mean_err2:.3g}; calls/forward={calls}",
+                  flush=True)
             for key, value in t.items():
                 total[key] += calls * value
             total["bytes_ms"] += calls * t_bytes
             total["ops_ms"] += calls * t_ops
-            total["k1_err"] = max(total["k1_err"], err)
-            total["k2_err"] = max(total["k2_err"], err2)
-    total["bound_ms"] = total["bytes_ms"] if total["bytes_ms"] \
-        >= total["ops_ms"] else total["ops_ms"]
+            for key, value in (("k1_err", err), ("k2_err", err2),
+                               ("k1_mean_err", mean_err),
+                               ("k2_mean_err", mean_err2)):
+                total[key] = max(total[key], value)
+    total["bound_ms"] = max(total["bytes_ms"], total["ops_ms"])
     total["bound_by"] = "bytes" if total["bytes_ms"] >= total["ops_ms"] \
         else "operations"
     return total
@@ -2964,8 +3018,10 @@ def phase_robustness(workdir: Path, encoder: Path) -> int:
     plain, SDPA and the bound, the in-process sweep with its launches and
     host reads, then the CLI in a process of its own with the
     ``u-net_encoder`` from *encoder* ([cli pretrain]'s epoch-1 checkpoint)
-    and reference-named weight files for the other two.  Returns the K1
-    launches of the in-process sweep."""
+    and reference-named weight files for the other two.  Returns the
+    launches of K1 in the in-process sweep and of K2 in the same sweep
+    under ``set_fused_image_mode("on")``, and the float32 attention sums of
+    :func:`_attention_f32_per_forward`."""
     import os
     import warnings
 
@@ -2999,6 +3055,7 @@ def phase_robustness(workdir: Path, encoder: Path) -> int:
     check(tuple(probes.shape) == (ROB_PROBES, ROB_SIZE, ROB_SIZE, 1),
           f"[robustness] probes {tuple(probes.shape)}")
     view = rob_eval.apply_color_jitter(probes, sweep.dataset_draws(0, 0)[0])
+    forward_ms = {}
     for enc in encoders:
         x = sweep.adapt_channels(view, enc["in_channels"])
         module = enc["module"]
@@ -3009,6 +3066,7 @@ def phase_robustness(workdir: Path, encoder: Path) -> int:
                                                          ROB_PROBES),
                        [(x,)], runs=5)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        forward_ms[enc["name"]] = ms
         print(f"[robustness] {enc['name']} ({params:,} parameters, input "
               f"{tuple(x.shape)}) f32 forward of {ROB_PROBES} probes with "
               f"every level: {ms:.3f} ms (device time, CUDA events, median "
@@ -3044,19 +3102,30 @@ def phase_robustness(workdir: Path, encoder: Path) -> int:
           f"{err:.3g} of the K1 path (max |diff| / max |level|, bar "
           f"{F32_TOL})", flush=True)
 
+    # where the Swin encoder's float32 forward spends its device time
+    profile_train(lambda forwards: [rob_eval.collect_levels(
+        swin_enc["module"], x, ROB_PROBES) for _ in range(forwards)], 5,
+        forward_ms[swin_enc["name"]], tag="robustness swin",
+        groups_of=_SWIN_GROUPS, unit="forward")
+
     attention = _attention_f32_per_forward()
+    bound = attention["bound_ms"]
     print(f"[robustness] attention f32 per Swin encoder forward "
           f"({ROB_K1_PER_FORWARD} calls, {ROB_PROBES} probes), L2-cold: K1 "
-          f"{attention['k1_ms']:.4f} ms (warm {attention['k1_warm_ms']:.4f})"
-          f", plain {attention['k1_plain_ms']:.4f}, SDPA f32 "
-          f"{attention['k1_sdpa_ms']:.4f}; K2 {attention['k2_ms']:.4f}, "
-          f"plain {attention['k2_plain_ms']:.4f}, permute+SDPA f32+permute "
-          f"{attention['k2_sdpa_ms']:.4f}; bound "
-          f"{attention['bound_ms']:.4f} ms ({attention['bound_by']}: bytes "
-          f"{attention['bytes_ms']:.4f}, operations at 67 TFLOP/s "
-          f"{attention['ops_ms']:.4f}); max |kernel - plain| K1 "
-          f"{attention['k1_err']:.3g}, K2 {attention['k2_err']:.3g}",
-          flush=True)
+          f"{attention['k1_ms']:.4f} ms ({100 * bound / attention['k1_ms']:.1f}"
+          f" % of the bound; warm {attention['k1_warm_ms']:.4f}), plain "
+          f"{attention['k1_plain_ms']:.4f}, SDPA f32 "
+          f"{attention['k1_sdpa_ms']:.4f}; K2 {attention['k2_ms']:.4f} ms "
+          f"({100 * bound / attention['k2_ms']:.1f} % of the bound; warm "
+          f"{attention['k2_warm_ms']:.4f}), plain "
+          f"{attention['k2_plain_ms']:.4f}, permute+SDPA f32+permute "
+          f"{attention['k2_sdpa_ms']:.4f}; bound {bound:.4f} ms "
+          f"({attention['bound_by']}: bytes {attention['bytes_ms']:.4f}, "
+          f"operations at 67 TFLOP/s {attention['ops_ms']:.4f}); |kernel - "
+          f"plain| K1 max {attention['k1_err']:.3g} mean "
+          f"{attention['k1_mean_err']:.3g}, K2 max {attention['k2_err']:.3g}"
+          f" mean {attention['k2_mean_err']:.3g} (bars {F32_TOL}, "
+          f"{MEAN_TOL['torch.float32']})", flush=True)
 
     axes = dict(metrics=ROB_METRICS, margins=ROB_MARGINS, levels=ROB_LEVELS,
                 pooled=(False, True), batch_size=ROB_PROBES)
@@ -3094,6 +3163,29 @@ def phase_robustness(workdir: Path, encoder: Path) -> int:
           f"encoders x 2 views): {len(random_rows)} rows in {wall:.3f} s, "
           f"{len(syncs)} host syncs (sync debug mode, at {syncs}), K1 "
           f"launches {launches}", flush=True)
+
+    # the same sweep with the Swin blocks on the image-layout path (K2)
+    wa.window_attention_cuda.launches = 0
+    wa.image_attention_cuda.launches = 0
+    ops.set_fused_image_mode("on")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the Swin encoder's levels
+            fused_rows = sweep.run_sweep(encoders, datasets, **axes)
+    finally:
+        ops.set_fused_image_mode("off")
+    k2_launches = wa.image_attention_cuda.launches
+    diff = max(abs(a["robustness"] - b["robustness"])
+               for a, b in zip(fused_rows, random_rows))
+    check(len(fused_rows) == ROB_ROWS and diff < ROB_ROW_TOL
+          and k2_launches == 2 * ROB_K1_PER_FORWARD
+          and wa.window_attention_cuda.launches == 0,
+          f"[robustness] in-process sweep under set_fused_image_mode('on'):"
+          f" {len(fused_rows)} rows, max |K2 path - K1 path| {diff}, K2 "
+          f"{k2_launches}, K1 {wa.window_attention_cuda.launches} launches")
+    print(f"[robustness] in-process sweep under set_fused_image_mode('on'): "
+          f"{len(fused_rows)} rows, max |K2 path - K1 path| {diff:.3g} (bar "
+          f"{ROB_ROW_TOL}), K2 launches {k2_launches}, K1 0", flush=True)
 
     # the CLI as a user runs it, with three weight sources
     gen_cfg = ConfigDict({"encoders": robustness_encoders(ROB_SIZE)})
@@ -3166,7 +3258,7 @@ def phase_robustness(workdir: Path, encoder: Path) -> int:
           f"reference-named state dicts); rows differing from the "
           f"random-init sweep per encoder {differs}; values "
           f"[{min(values):.4g}, {max(values):.4g}]", flush=True)
-    return launches
+    return {"k1": launches, "k2": k2_launches, "attention": attention}
 
 
 def main() -> int:
@@ -3205,7 +3297,7 @@ def main() -> int:
                         pretrain_rate)
         timed("cli transfer", phase_cli_transfer, Path(tmp), encoder)
         timed("robustness small", phase_robustness_small)
-        timed("robustness", phase_robustness, Path(tmp), encoder)
+        rob = timed("robustness", phase_robustness, Path(tmp), encoder)
 
     # per kernel: the 14 calls of one bf16 forward at batch 24, summed,
     # L2-cold (warm_ms: the same calls on warm inputs); launches from its
@@ -3234,6 +3326,26 @@ def main() -> int:
         # the layout permutes around SDPA included: the same function
         "library_ms": k2["library_ms"],
     }]
+    # the float32 instances: the 8 calls of one Swin encoder forward of
+    # robustness_224, summed, L2-cold (warm_ms: warm inputs); launches from
+    # the in-process sweep (K2's with set_fused_image_mode("on")); the
+    # library call is SDPA in float32 (for K2 with the layout permutes)
+    att = rob["attention"]
+    for kernel, name, line in (("k1", "window_attention", 81),
+                               ("k2", "image_attention", 266)):
+        kernels.append({
+            "name": f"{name}_f32",
+            "route": "cuda",
+            "source": f"medsegpretrainimagenet_tpu_torch/csrc/{name}.cu",
+            "replaces": f"medsegpretrainimagenet_tpu/ops/window_attention.py:"
+                        f"{line}",
+            "launches": rob[kernel],
+            "max_abs_err": att[f"{kernel}_err"],
+            "ms": att[f"{kernel}_ms"], "warm_ms": att[f"{kernel}_warm_ms"],
+            "plain_ms": att[f"{kernel}_plain_ms"],
+            "bound_ms": att["bound_ms"], "bound_by": att["bound_by"],
+            "library_ms": att[f"{kernel}_sdpa_ms"],
+        })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,27 +1,37 @@
 """Time this tree's K1 and K2 against another checkout's, on the card, in turns.
 
-    python -m medsegpretrainimagenet_tpu_torch.ops.kernel_ab OTHER_CHECKOUT
+    python -m medsegpretrainimagenet_tpu_torch.ops.kernel_ab OTHER_CHECKOUT \
+        [--dtype bfloat16|float32]
 
 Each tree's kernels are built from its own ``csrc/`` and called through its
 own wrappers (``window_attention_cuda``, ``image_attention_cuda``) in a
 process that imports only that tree's package, so the two trees' C
 interfaces need not agree.  The processes run in turns, other, this, this,
-other; each times bf16 K1 and K2 at the seven level shapes of
-``swin_unet_224`` at batch 24, L2-cold (:func:`device_ms` over
-:func:`input_copies`), on the same inputs made from one seed.  The first
-turn of each tree also saves its outputs under ``build/kernel_ab/``, and the
-two trees' outputs must agree within the bf16 bar.  Prints the card's name
-and power limit, ``[ab]`` lines per shape, the sums per forward, and exits
-non-zero on any failure.
+other; each times K1 and K2 at the attention shapes of one forward,
+L2-cold (:func:`device_ms` over :func:`input_copies`), on the same inputs
+made from one seed: in bf16 (the default) the seven level shapes of
+``swin_unet_224`` at batch 24, in float32 those of ``robustness_224``'s
+Swin encoder at 32 probes.  The first turn of each tree also saves its
+outputs under ``build/kernel_ab/``, and the two trees' outputs must agree
+within the dtype's bar (bf16 0.05, float32 1e-4); each ``[ab]`` line says
+whether they are equal bit for bit.  Prints the card's name and power
+limit, ``[ab]`` lines per shape, the sums per forward, and exits non-zero
+on any failure.
 
-The timing helpers here are also ``chip_smoke.py``'s.  Nothing runs at
-import, and the module imports nothing of the package: a worker imports
-the package of the tree it times.
+Then it compares the two trees' kernel libraries instance by instance
+(``cuobjdump``): ``[ab sass]`` lines give each instance's instruction
+count, opcode sequence and registers in both trees, so a change that
+leaves an instance's code as it was shows as such.
+
+The timing and SASS helpers here are also ``chip_smoke.py``'s.  Nothing
+runs at import, and the module imports nothing of the package: a worker
+imports the package of the tree it times.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -36,8 +46,19 @@ L2_BYTES = 50 * 2 ** 20
 BATCH = 24
 LEVELS = [(0, 3, 64, 2, 2), (1, 6, 16, 2, 2), (2, 12, 4, 2, 2),
           (3, 24, 1, 0, 2)]
+#: the same for robustness_224's Swin encoder (depth 3, width 2: one W-MSA
+#: and one SW-MSA call per level, two W-MSA at the one-window bottom) at 32
+#: probes, chip_smoke.py's ROB_ATTENTION
+ROB_PROBES = 32
+ROB_LEVELS = [(0, 3, 64, 1, 1), (1, 6, 16, 1, 1), (2, 12, 4, 1, 1),
+              (3, 24, 1, 0, 2)]
 TOKENS, HEAD_DIM, WINDOW = 49, 32, 7
-BF16_TOL = 0.05
+BF16_TOL, F32_TOL = 0.05, 1e-4
+#: per dtype: (batch, level shapes, bar on |other - this|, the forward)
+CASES = {"bfloat16": (BATCH, LEVELS, BF16_TOL, "bf16 forward of "
+                                               "swin_unet_224"),
+         "float32": (ROB_PROBES, ROB_LEVELS, F32_TOL,
+                     "f32 Swin encoder forward of robustness_224")}
 
 THIS = Path(__file__).resolve().parents[2]
 
@@ -88,18 +109,70 @@ def device_ms(fn, copies: list, runs: int = 3) -> float:
     return statistics.median(times)
 
 
-def _shapes():
-    """(name, level, heads, windows per image, masked, calls per forward)"""
-    for level, heads, n_w, n_masked, n_plain in LEVELS:
+def instance_label(symbol: str) -> str:
+    """``window_attention<f32, DP 32>`` for the mangled symbol of an
+    instance of the attention kernels (a template on the element type and D
+    padded to 16, or, in older trees, ``window_attention_bf16<DP>``), else
+    the symbol itself."""
+    base = re.search(r"(window_attention|image_attention)(?:_bf16)?I",
+                     symbol)
+    dp = re.search(r"Li(\d+)E", symbol)
+    if base is None or dp is None:
+        return symbol
+    dtype = "bf16" if "__nv_bfloat16" in symbol else "f32"
+    return f"{base.group(1)}<{dtype}, DP {dp.group(1)}>"
+
+
+def parse_sass(sass: str, usage: str = "") -> dict:
+    """``{mangled symbol: (instructions, registers)}`` from ``cuobjdump
+    -sass`` (*sass*) and ``cuobjdump -res-usage`` (*usage*; registers None
+    without it): each instruction's text without its address and encoding,
+    predicate included."""
+    registers = dict(re.findall(r"Function (\S+):\s*REG:(\d+)", usage))
+    out = {}
+    for function in sass.split("Function : ")[1:]:
+        symbol = function.split()[0]
+        code = [m.group(1).strip() for m in
+                (re.match(r"\s*/\*[0-9a-f]+\*/\s+([^;]+);", line)
+                 for line in function.splitlines()) if m]
+        regs = registers.get(symbol)
+        out[symbol] = (code, None if regs is None else int(regs))
+    return out
+
+
+def opcodes(code: list) -> list:
+    """The opcode (with its modifiers) of each instruction of *code*."""
+    return [t[1] if t[0].startswith("@") else t[0]
+            for t in (line.split() for line in code)]
+
+
+def library_sass(library: str) -> dict:
+    """:func:`parse_sass` of a built kernel library, by instance label."""
+    from . import _build
+
+    cuobjdump = str(Path(_build.nvcc()).parent / "cuobjdump")
+    sass, usage = (subprocess.run([cuobjdump, flag, library],
+                                  capture_output=True, text=True, timeout=120,
+                                  check=True).stdout
+                   for flag in ("-sass", "-res-usage"))
+    return {instance_label(symbol): code
+            for symbol, code in parse_sass(sass, usage).items()}
+
+
+def _shapes(dtype: str = "bfloat16"):
+    """(name, level, heads, windows per image, masked, calls per forward)
+    of *dtype*'s forward"""
+    for level, heads, n_w, n_masked, n_plain in CASES[dtype][1]:
         for masked, calls in ((False, n_plain), (True, n_masked)):
             if calls:
                 yield (f"level {level} {'SW-MSA' if masked else 'W-MSA '}",
                        level, heads, n_w, masked, calls)
 
 
-def _worker(tree: Path, save: Optional[Path]) -> None:
-    """Time *tree*'s kernels at every shape; print ``{shape: ms}`` as JSON
-    and, with *save*, write the outputs there."""
+def _worker(tree: Path, save: Optional[Path], dtype_name: str) -> None:
+    """Time *tree*'s kernels at every shape of *dtype_name*'s forward;
+    print ``{shape: ms}`` as JSON and, with *save*, write the outputs
+    there."""
     sys.path[0] = str(tree)  # the tree's package, not the one beside us
     import torch
 
@@ -110,14 +183,16 @@ def _worker(tree: Path, save: Optional[Path]) -> None:
         raise RuntimeError(f"imported {wa.__file__}, not {tree}'s package")
     gen = torch.Generator().manual_seed(4)
     scale = HEAD_DIM ** -0.5
+    dtype = getattr(torch, dtype_name)
+    batch = CASES[dtype_name][0]
     times, outs = {}, {}
-    for shape, level, heads, n_w, masked, _ in _shapes():
+    for shape, level, heads, n_w, masked, _ in _shapes(dtype_name):
         res = 56 // 2 ** level
-        q, k, v = (torch.randn(BATCH * n_w, heads, TOKENS, HEAD_DIM,
-                               generator=gen).to("cuda", torch.bfloat16)
+        q, k, v = (torch.randn(batch * n_w, heads, TOKENS, HEAD_DIM,
+                               generator=gen).to("cuda", dtype)
                    for _ in range(3))
-        qkv = torch.randn(BATCH, res, res, 3 * heads * HEAD_DIM,
-                          generator=gen).to("cuda", torch.bfloat16)
+        qkv = torch.randn(batch, res, res, 3 * heads * HEAD_DIM,
+                          generator=gen).to("cuda", dtype)
         bias = (0.02 * torch.randn(heads, TOKENS, TOKENS,
                                    generator=gen)).cuda()
         mask = torch.from_numpy(_shift_attn_mask(
@@ -137,11 +212,14 @@ def _worker(tree: Path, save: Optional[Path]) -> None:
             del copies
     if save is not None:
         torch.save(outs, save)
-    print(json.dumps(times), flush=True)
+    from medsegpretrainimagenet_tpu_torch.ops import _build
+
+    libraries = {name: info["path"] for name, info in _build.build().items()}
+    print(json.dumps({"times": times, "libraries": libraries}), flush=True)
 
 
-def _turn(tree: Path, save: Optional[Path]) -> dict:
-    cmd = [sys.executable, __file__, "--worker", str(tree)]
+def _turn(tree: Path, save: Optional[Path], dtype: str) -> dict:
+    cmd = [sys.executable, __file__, "--worker", str(tree), "--dtype", dtype]
     if save is not None:
         cmd += ["--save", str(save)]
     run = subprocess.run(cmd, cwd=tree, capture_output=True, text=True,
@@ -156,11 +234,15 @@ def main(argv=None) -> int:
     parser.add_argument("other", type=Path, nargs="?",
                         help="another checkout of the repo, e.g. a git "
                              "archive of the parent commit")
+    parser.add_argument("--dtype", choices=sorted(CASES),
+                        default="bfloat16",
+                        help="bfloat16: swin_unet_224's serving shapes "
+                             "(the default); float32: robustness_224's")
     parser.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     parser.add_argument("--save", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.worker is not None:
-        _worker(args.worker.resolve(), args.save)
+        _worker(args.worker.resolve(), args.save, args.dtype)
         return 0
     if args.other is None:
         parser.error("the other checkout is missing")
@@ -178,33 +260,52 @@ def main(argv=None) -> int:
     out_dir = THIS / "build" / "kernel_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     times = {"other": [], "this": []}
+    libraries = {}
     for who, tree in (("other", other), ("this", THIS), ("this", THIS),
                       ("other", other)):
         first = not times[who]
-        times[who].append(_turn(tree, out_dir / f"{who}.pt" if first
-                                else None))
-    outs = {who: torch.load(out_dir / f"{who}.pt") for who in times}
+        turn = _turn(tree, out_dir / f"{who}-{args.dtype}.pt" if first
+                     else None, args.dtype)
+        times[who].append(turn["times"])
+        libraries[who] = turn["libraries"]
+    outs = {who: torch.load(out_dir / f"{who}-{args.dtype}.pt")
+            for who in times}
+    _, _, tol, forward = CASES[args.dtype]
+    label = "bf16" if args.dtype == "bfloat16" else "f32"
+    shapes = list(_shapes(args.dtype))
     failed = []
-    for shape, *_, calls in _shapes():
+    for shape, *_, calls in shapes:
         for name in ("k1", "k2"):
             key = f"{name} {shape}"
-            err = (outs["other"][key].float()
-                   - outs["this"][key].float()).abs().max().item()
-            if not err < BF16_TOL:
+            a, b = outs["other"][key], outs["this"][key]
+            err = (a.float() - b.float()).abs().max().item()
+            if not err < tol:
                 failed.append(f"{key}: max |other - this| {err}")
-            print(f"[ab] {key} bf16, L2-cold ms: other "
+            print(f"[ab] {key} {label}, L2-cold ms: other "
                   f"{times['other'][0][key]:.4f} {times['other'][1][key]:.4f}"
                   f", this {times['this'][0][key]:.4f} "
                   f"{times['this'][1][key]:.4f}; max |other - this| "
-                  f"{err:.3g}; calls/forward={calls}", flush=True)
+                  f"{err:.3g} (bar {tol}), bit-equal "
+                  f"{'yes' if torch.equal(a, b) else 'no'}; "
+                  f"calls/forward={calls}", flush=True)
     for name in ("k1", "k2"):
         sums = {who: sum(calls * statistics.mean(t[f"{name} {shape}"]
                                                  for t in times[who])
-                         for shape, *_, calls in _shapes())
+                         for shape, *_, calls in shapes)
                 for who in times}
-        print(f"[ab] {name} per bf16 forward (14 calls), L2-cold, mean of "
-              f"two turns: other {sums['other']:.4f} ms, this "
+        print(f"[ab] {name} per {forward} "
+              f"({sum(s[-1] for s in shapes)} calls), L2-cold, mean of two "
+              f"turns: other {sums['other']:.4f} ms, this "
               f"{sums['this']:.4f} ms", flush=True)
+    for name in sorted(set(libraries["other"]) & set(libraries["this"])):
+        sass = {who: library_sass(libraries[who][name]) for who in libraries}
+        for label in sorted(set(sass["other"]) & set(sass["this"])):
+            (a, ra), (b, rb) = sass["other"][label], sass["this"][label]
+            print(f"[ab sass] {label}: other {len(a)} instructions, {ra} "
+                  f"registers; this {len(b)}, {rb}; opcodes equal "
+                  f"{'yes' if opcodes(a) == opcodes(b) else 'no'}, "
+                  f"instructions equal {'yes' if a == b else 'no'}",
+                  flush=True)
     print(card, flush=True)
     if failed:
         sys.exit("kernel_ab: the trees disagree:\n" + "\n".join(failed))

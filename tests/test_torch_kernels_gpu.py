@@ -27,9 +27,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-#: (N, D) at the edges of what the kernels take, swin_unet_224's, and one
-#: with D not a multiple of 8 (the bf16 kernels' element-wise loads), each
-#: on a 2x2 grid of windows with 3 heads; the pair counts (401 windows, or
+#: (N, D) at the edges of what the kernels take, swin_unet_224's, one with
+#: D not a multiple of 8 (the bf16 instances' element-wise loads) and one
+#: with D not a multiple of 4 (the float32 instances' as well), each on a
+#: 2x2 grid of windows with 3 heads; the pair counts (401 windows, or
 #: 101 images) are prime, so the last block of the bf16 kernels' grid holds
 #: fewer pairs than the others.  Then level 1 of swin_unet_224, whose 4x4
 #: grid of windows (16 mask rows) the model runs.
@@ -37,17 +38,18 @@ def cuda_device():
 K1_SHAPES = pytest.mark.parametrize(
     "n,d,grid,windows,heads",
     [(16, 8, 2, 401, 3), (49, 32, 2, 401, 3), (64, 64, 2, 401, 3),
-     (25, 12, 2, 401, 3), (49, 32, 4, 64, 3)],
-    ids=["16x8", "49x32", "64x64", "25x12", "level1"])
+     (25, 12, 2, 401, 3), (49, 30, 2, 401, 3), (49, 32, 4, 64, 3)],
+    ids=["16x8", "49x32", "64x64", "25x12", "49x30", "level1"])
 #: K2: (N, D, windows per side of the grid, images, heads)
 K2_SHAPES = pytest.mark.parametrize(
     "n,d,grid,batch,heads",
     [(16, 8, 2, 101, 3), (49, 32, 2, 101, 3), (64, 64, 2, 101, 3),
-     (25, 12, 2, 101, 3), (49, 32, 4, 2, 6)],
-    ids=["16x8", "49x32", "64x64", "25x12", "level1"])
-#: bars on the max and the mean |kernel - plain|.  The bf16 kernel sums in
-#: another order than the plain version and reads a mean of about 1e-7 on
-#: swin_unet_224's shapes; one that drops its bias, or takes another head's
+     (25, 12, 2, 101, 3), (49, 30, 2, 101, 3), (49, 32, 4, 2, 6)],
+    ids=["16x8", "49x32", "64x64", "25x12", "49x30", "level1"])
+#: bars on the max and the mean |kernel - plain|.  Both instances sum in
+#: another order than the plain version: bf16 reads a mean of about 1e-7 on
+#: swin_unet_224's shapes, float32 (split TF32) a max of about 4e-6 and a
+#: mean of about 1e-7; one that drops its bias, or takes another head's
 #: bias or another window's mask, reads 3e-3 or more (chip_smoke.py
 #: measures both), under the max bar all the same.
 DTYPES = pytest.mark.parametrize("dtype,tol,mean_tol",
@@ -98,6 +100,31 @@ def test_window_attention_kernel_matches_plain(cuda_device, dtype, tol,
     assert wa.window_attention_cuda.launches == 1
     assert out.dtype == dtype and out.shape == ref.shape
     _assert_close(out, ref, tol, mean_tol)
+
+
+def _off_by_one_float(t):
+    """A contiguous copy of *t* one float past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+def test_f32_kernels_take_operands_that_are_not_16_byte_aligned(
+        cuda_device):
+    """The float32 instances load and store such operands one element at a
+    time; held under the float32 bars."""
+    q, k, v, bias, mask = _inputs(torch.float32, True, cuda_device, seed=2)
+    out = wa.window_attention_cuda(*map(_off_by_one_float, (q, k, v)), bias,
+                                   mask, SCALE)
+    ref = wa.window_attention_core(q, k, v, bias, mask, SCALE, force="torch")
+    _assert_close(out, ref, 1e-4, 1e-6)
+    qkv, bias, mask = _image_inputs(torch.float32, True, cuda_device, seed=2)
+    out = wa.image_attention_cuda(_off_by_one_float(qkv), bias, mask, SCALE,
+                                  7)
+    ref = wa.image_attention_torch(qkv, bias, mask, SCALE, 7)
+    _assert_close(out, ref, 1e-4, 1e-6)
 
 
 def test_window_attention_kernel_backward_matches_autograd(cuda_device):

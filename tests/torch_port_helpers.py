@@ -113,3 +113,73 @@ def reference_state(state, family: str, version: str = "v1"):
                         4, tokens ** 2, tokens ** 2)
         out[f"layers.0.{key}"] = value
     return out
+
+
+# ---------------------------------------------------------------------------
+# A plain-torch model of the float32 attention kernels' arithmetic
+# (csrc/attention_tile.cuh): split-TF32 tensor-core products
+# ---------------------------------------------------------------------------
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 *x* rounded to TF32 (10 mantissa bits, to nearest, ties away
+    from zero), as ``cvt.rna.tf32.f32`` rounds, by bit arithmetic: add half
+    of the dropped 13 bits' unit to the magnitude, then clear them (the sign
+    bit stays where it is)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo): hi = x in TF32, lo = (x - hi) in TF32, so x = hi + lo to
+    about 2^-22 |x|."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor,
+                passes: int = 3) -> torch.Tensor:
+    """a @ b as the kernel's tensor cores take float32 operands: each split
+    into TF32 hi and lo, and lo.hi + hi.lo + hi.hi summed in float32
+    (*passes* = 3, the kernel); or one TF32 pass, hi.hi (*passes* = 1, a
+    kernel that drops the lo terms).  The product of two TF32 values is
+    exact in float32."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def window_attention_tf32(q, k, v, bias, mask, scale: float,
+                          passes: int = 3) -> torch.Tensor:
+    """The float32 window-attention kernel's arithmetic on (B_, H, N, D)
+    operands: q * scale in float32, S = q.k^T in split TF32, + bias (+ the
+    mask of window b mod nW) in float32, the softmax as e = exp(S - row max)
+    times the rounded 1 / sum(e), O = P.v in split TF32."""
+    qs = q.float() * float(torch.tensor(scale, dtype=torch.float32))
+    logits = tf32_matmul(qs, k.float().transpose(-1, -2), passes) \
+        + bias[None].float()
+    if mask is not None:
+        n_w = mask.shape[0]
+        b_, h, n, _ = logits.shape
+        logits = (logits.reshape(b_ // n_w, n_w, h, n, n)
+                  + mask[None, :, None].float()).reshape(b_, h, n, n)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = e * (1.0 / e.sum(-1, keepdim=True))
+    return tf32_matmul(probs, v.float(), passes)
+
+
+def image_attention_tf32(qkv, bias, mask, scale: float, window: int,
+                         passes: int = 3) -> torch.Tensor:
+    """The float32 image-layout kernel's arithmetic: qkv (B, R, R, 3C) ->
+    (B, R, R, C) through :func:`window_attention_tf32` on its windows, in
+    the layout of the plain ``image_attention_torch``."""
+    b, r, _, c3 = qkv.shape
+    c, heads, n_wc = c3 // 3, bias.shape[0], r // window
+    t = qkv.reshape(b, n_wc, window, n_wc, window, c3)
+    t = t.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, 3, heads,
+                                            c // heads)
+    t = t.permute(2, 0, 3, 1, 4)
+    out = window_attention_tf32(t[0], t[1], t[2], bias, mask, scale, passes)
+    out = out.transpose(1, 2).reshape(b, n_wc, n_wc, window, window, c)
+    return out.permute(0, 1, 3, 2, 4, 5).reshape(b, r, r, c)
