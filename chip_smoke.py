@@ -59,8 +59,8 @@ and steps ``unet_256_train`` with the COVID-QU reference metric set folded
 into the step.  ``[cli acdc]`` trains the ACDC multiclass U-Net (the
 full-width U-Net with a 4-class softmax head, multiclass Dice loss, the
 multiclass Dice, Jaccard, HD95 and AUROC, the confusion-matrix export and
-a profiler trace) through the CLI on a synthetic NIfTI tree, three epochs
-and a fourth under ``--continued`` (the --continued runs, ``[cli det]``
+a profiler trace) through the CLI on a synthetic NIfTI tree, two epochs
+and a third under ``--continued`` (the --continued runs, ``[cli det]``
 and ``[cli transfer]`` are not measured: no profiling, so no trace, and
 no cuDNN autotuning).  ``[pretrain small]`` holds a
 small float32 pretraining classifier (a ``FeedForwardModel`` of the U-Net
@@ -89,18 +89,35 @@ host syncs (and again on the K2 path, rows against the K1 path's), then
 the sweep CLI in a process of its own with
 ``[cli pretrain]``'s encoder and reference-named ResNet-50 and Swin weight
 files: 330 finite rows, margin-monotone, levels 4/4/3, the JAX CLI's
-columns, every weight file loaded.
+columns, every weight file loaded.  ``[swin train small]`` steps the small
+float32 Swin U-Net on the card (its attention K1, then K2, under autograd:
+the kernel's forward, the recompute backward) against the CPU;
+``[swin train]`` times ``swin_224_train`` (the JAX package's Swin
+headline: swin_unet_224 at batch 24, bf16, stochastic depth 0.2, SGD with
+momentum, Dice loss) in turns with its attention on K1, on the plain
+version under autograd and on K2, profiles it, times the attention of one
+step forward and backward against plain autograd and SDPA, and prints
+which of the two candidates for ``train=True`` is faster;
+``[resnet train]`` times the ResNet-50 attention U-Net's step (16 x 256 x
+256, bf16); ``[cli swin]`` and ``[cli resnet]`` train both through the CLI
+on synthetic COVID-QU trees, two epochs and a third under
+``--continued``, the encoder grafted from reference-named weights, and
+count K1's launches in a no-grad validation pass of the trained Swin
+U-Net.
 Any failure exits non-zero.  Without a CUDA
 card, or without the package beside it, it exits non-zero and prints no
 result.  It imports nothing of JAX.
 
 The last lines are the card's name and power limit, a JSON line with each
 kernel's launches, error and times (K1 and K2 in bf16 per serving forward,
-and in float32 per Swin encoder forward of ``robustness_224``), and
+and in float32 per Swin encoder forward of ``robustness_224``; K1's entry
+also carries its launches and its forward and backward per step of
+``swin_224_train``, K2's its launches there under the image layout), and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -1114,23 +1131,30 @@ def phase_train_bf16(seed: int = 0):
 
 def conv_macs(module, x) -> tuple:
     """Multiply-adds of one forward of *module* on *x*, summed over the
-    port's convolutions and dense layers from their output shapes: (all of
-    them, those whose input is *x*, which need no input gradient)."""
+    port's convolutions and dense layers from their output shapes, and over
+    the two products of each window attention (q k^T and P v, N x N x C per
+    window each): (all of them, those whose input is *x*, which need no
+    input gradient)."""
     import torch
 
     from medsegpretrainimagenet_tpu_torch.models.blocks import Conv, Dense
+    from medsegpretrainimagenet_tpu_torch.models.swin import WindowAttention
 
     counts = [0, 0]
     module.eval()  # no running-statistics update; the step sets train()
 
     def hook(layer, args, out):
-        macs = out.numel() * layer.weight[0].numel()
+        if isinstance(layer, WindowAttention):
+            windows, n, c = args[0].shape
+            macs = 2 * windows * n * n * c
+        else:
+            macs = out.numel() * layer.weight[0].numel()
         counts[0] += macs
         if args[0] is x:
             counts[1] += macs
 
     handles = [m.register_forward_hook(hook) for m in module.modules()
-               if isinstance(m, (Conv, Dense))]
+               if isinstance(m, (Conv, Dense, WindowAttention))]
     try:
         with torch.no_grad():
             module(x)
@@ -1619,22 +1643,23 @@ def cli_config(workdir: Path, epochs: int, absolute_path=None,
     }
 
 
-def write_covidqu_tree(root: Path, seed: int = 0,
-                       images: int = CLI_IMAGES) -> None:
-    """A COVID-QU tree as ``bench.py:1061-1071`` writes it, with bright
-    discs over noise as the images and the discs as the infection mask
-    (values 0/2), so that the Dice has something to learn."""
+def write_covidqu_tree(root: Path, seed: int = 0, images: int = CLI_IMAGES,
+                       size: int = CLI_SIZE, test: int = CLI_TEST) -> None:
+    """A COVID-QU tree as ``bench.py:1061-1071`` writes it, *images* and
+    *test* images of *size* x *size*, with bright discs over noise as the
+    images and the discs as the infection mask (values 0/2), so that the
+    Dice has something to learn."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[:CLI_SIZE, :CLI_SIZE]
+    yy, xx = np.mgrid[:size, :size]
     base = root / "COVID_QU" / "Inf_segm" / "data arrays" / "COVID-19"
-    for part, n in (("train and val", images), ("test", CLI_TEST)):
-        masks = np.zeros((n, 1, CLI_SIZE, CLI_SIZE), np.uint8)
+    for part, n in (("train and val", images), ("test", test)):
+        masks = np.zeros((n, 1, size, size), np.uint8)
         for m in masks[:, 0]:
             for _ in range(3):
-                cy, cx = rng.integers(0, CLI_SIZE, 2)
-                r = rng.integers(CLI_SIZE // 16, CLI_SIZE // 5)
+                cy, cx = rng.integers(0, size, 2)
+                r = rng.integers(size // 16, size // 5)
                 m[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = 2
         noise = rng.normal(0, 25, masks.shape).astype(np.float32)
         imgs = np.clip(60 + 60 * masks + noise, 0, 255).astype(np.uint8)
@@ -1980,8 +2005,9 @@ def phase_cli_deterministic() -> None:
 #: [cli acdc]: a synthetic ACDC tree, ACDC_TRAIN + ACDC_TEST patients of
 #: two frames of ACDC_SHAPE each (400 training and 200 validation slices
 #: of 256 x 256 after the resize), ACDC_EPOCHS epochs and one more under
-#: --continued
-ACDC_TRAIN, ACDC_TEST, ACDC_SHAPE, ACDC_EPOCHS = 20, 10, (232, 256, 10), 3
+#: --continued (cut from 3 and one more, to keep the script near 700 s
+#: beside the Swin and ResNet training phases)
+ACDC_TRAIN, ACDC_TEST, ACDC_SHAPE, ACDC_EPOCHS = 20, 10, (232, 256, 10), 2
 ACDC_CLASSES = ("RV cavity", "myocardium", "LV cavity")
 ACDC_METRICS = (MC + "DiceIndex", MC + "JaccardIndex",
                 MC + "ModifiedHausdorffDistance", MC + "AUROC")
@@ -2841,9 +2867,9 @@ def phase_robustness_small():
     calls = []
     core = swin.window_attention_core
 
-    def recording(q, k, v, bias, mask, scale, force=None):
+    def recording(q, k, v, bias, mask, scale, **dispatch):
         calls.append((q, k, v, bias, mask, scale))
-        return core(q, k, v, bias, mask, scale, force=force)
+        return core(q, k, v, bias, mask, scale, **dispatch)
 
     x = sweep.adapt_channels(view, 3).cuda()
     swin.window_attention_core = recording
@@ -3261,6 +3287,621 @@ def phase_robustness(workdir: Path, encoder: Path) -> int:
     return {"k1": launches, "k2": k2_launches, "attention": attention}
 
 
+# ---------------------------------------------------------------------------
+# training the Swin U-Net and the ResNet-50 attention U-Net
+# ---------------------------------------------------------------------------
+
+#: swin_224_train (bench.py:419-509): batch and side
+SWIN_TRAIN_BATCH, SWIN_TRAIN_SIZE = 24, 224
+#: resnet50_attention_unet_256_train: batch, side (the COVID-QU size of
+#: unet_256_train) and the decoder widths: the reference's yaml is not in
+#: the repo, so five entries, one up more than ResNet-50's four levels
+#: (it undoes the stem's /2), halving to 64 and 32 at the top
+RESNET_TRAIN_BATCH, RESNET_TRAIN_SIZE = 16, 256
+RESNET_DECODER = (1024, 512, 256, 64, 32)
+#: blocks of swin_unet_224, each one K1 (or K2) launch per forward
+SWIN_BLOCKS = 14
+#: the attention routes of a Swin training step: (the dispatch's force,
+#: fused image mode); "k1" and "plain" are the two candidates for
+#: train=True, "k1" the dispatch's own
+TRAIN_ROUTES = {"k1": (None, "off"), "plain": ("torch", "off"),
+                "k2": (None, "on")}
+#: [swin train small]: the small f32 Swin U-Net (tests/test_torch_swin_train
+#: .py) stepped on the card against the CPU, TF32 off, 3 steps of 2
+#: fragments of 2
+SWIN_SMALL_STEPS = 3
+#: [cli swin], [cli resnet]: training and test images, side, batch, and
+#: the SGD lr (momentum 0.9).  From its random init the Swin U-Net at
+#: 0.01 stayed at the all-background start (val Dice 0) for 3 epochs of 8
+#: and of 32 steps on an H100; at 0.05, 32 steps an epoch.  Not
+#: swin_224_train's 1e-3: the CLI cells check that the family learns
+FAMILY_CLI = {"swin": (768, 48, SWIN_TRAIN_SIZE, SWIN_TRAIN_BATCH, 0.05),
+              "resnet": (256, 16, RESNET_TRAIN_SIZE, RESNET_TRAIN_BATCH,
+                         0.01)}
+#: the CLI family runs learn: the 3rd epoch's train Dice loss is below the
+#: 1st's over this factor (the Swin U-Net stuck at lr 0.01 on an H100 read
+#: 0.416 -> 0.374, 1.1 times; learning at 0.05, 0.345 -> 0.0145)
+CLI_LOSS_FACTOR = 4.0
+#: kernel-name fragments -> the group of the Swin U-Net's train step, for
+#: [profile swin train]; the first match wins
+_SWIN_TRAIN_GROUPS = (
+    ("softmax", "softmax (the recompute backward, plain attention)"),
+    ("bmm", "attention products (the recompute backward)"),
+    ("multi_tensor_apply", "optimizer, grad mean and norm (foreach)"),
+    *_SWIN_GROUPS)
+
+
+def _segmentation_training(lr: float) -> dict:
+    """swin224_train's training: SGD momentum 0.9 at a constant *lr*, the
+    Dice loss (squared-prediction denominator), Dice at 0.5 logged."""
+    return {
+        "training": {
+            "optimizer": {"sgd": {"momentum": 0.9, "learning_rate": {
+                "constant": {"base": lr}}}},
+            "loss": {"segmentation.losses.DiceLoss": {}}},
+        "metrics": {"metrics": ("metrics.DiceIndex",)},
+    }
+
+
+def swin_224_train_config(small: bool = False, rate: float = 0.2) -> dict:
+    """``swin_224_train``: swin_unet_224 (stochastic depth *rate*) with the
+    reference yaml's trunc-normal init and swin224_train's training.
+    *small*: tests/test_torch_swin_train.py's model (32 x 32, embed 8,
+    heads (2, 4), window 4, depth 1, width 2)."""
+    cfg = swin_unet_224_config()
+    unet = cfg["model"]["segmentation.models.UNet"]
+    arch = unet["architecture"]
+    arch["stochastic depth rate"] = rate
+    if small:
+        arch.update(channels=(8, 16), depth=1)
+        arch["basic_block"]["segmentation.models.blocks.SwinTransformerBlock"] \
+            .update(img_size=32, embed_dim=8, num_heads_layers=(2, 4),
+                    window_size=4)
+    unet["weight_init"] = {"random": {
+        "timm.models.layers.trunc_normal_": {"std": 0.02}}}
+    return {**cfg, **_segmentation_training(1e-3)}
+
+
+def resnet_attention_unet_config() -> dict:
+    """``resnet50_attention_unet_256_train``: the U-Net with ResNet-50 v1
+    (bottleneck blocks 3-4-6-3, 256 -> 2048, base 64, 3 input channels) as
+    its external encoder, AttentionBlock mixing and RESNET_DECODER, kaiming
+    init, swin224_train's training."""
+    return {"model": {"segmentation.models.UNet": {
+        "architecture": {
+            "activation function": {"final": "sigmoid"},
+            "encoder": {"classification.models.DeepResNet": {
+                "version": "v1", "bottleneck": True,
+                "channel_sizes": (256, 512, 1024, 2048),
+                "widths": (3, 4, 6, 3), "in_channels": 3,
+                "base_channel_size": 64}},
+            "mixing_block": {"segmentation.models.blocks.AttentionBlock": {}},
+            "out_channel_size": 1, "decoder_channels": RESNET_DECODER},
+        "weight_init": {"random": {"torch.nn.init.kaiming_normal_": {
+            "nonlinearity": "relu"}}}}},
+        **_segmentation_training(1e-3)}
+
+
+@contextlib.contextmanager
+def attention_route(route: str):
+    """Pin the Swin blocks' attention to *route* of TRAIN_ROUTES (the plain
+    version through the dispatch's ``force``), then restore the
+    defaults."""
+    from medsegpretrainimagenet_tpu_torch import ops
+    from medsegpretrainimagenet_tpu_torch.models import swin
+
+    force, mode = TRAIN_ROUTES[route]
+    core = swin.window_attention_core
+    if force is not None:
+        swin.window_attention_core = functools.partial(core, force=force)
+    ops.set_fused_image_mode(mode)
+    try:
+        yield
+    finally:
+        swin.window_attention_core = core
+        ops.set_fused_image_mode("off")
+
+
+@contextlib.contextmanager
+def tf32_off():
+    import torch
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def phase_swin_train_small():
+    """The small f32 Swin U-Net at stochastic depth 0 (card and CPU draw
+    differently), SWIN_SMALL_STEPS steps of two fragments of 2 on the card
+    (K1 under autograd: its forward, the recompute backward) and on the
+    CPU (plain autograd) from the same weights, TF32 off: losses,
+    parameters within TRAIN_TOL, the K1 launches inside the steps; then the
+    same under set_fused_image_mode("on") with K2."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+
+    cfg = swin_224_train_config(small=True, rate=0.0)
+    for route, kernel in (("k1", wa.window_attention_cuda),
+                          ("k2", wa.image_attention_cuda)):
+        runs = []
+        for device in ("cpu", "cuda"):
+            model, state, calculator, step = build_trainer(cfg, device)
+            metrics_state = calculator.init_state(device)
+            losses = []
+            wa.window_attention_cuda.launches = 0
+            wa.image_attention_cuda.launches = 0
+            with tf32_off(), attention_route(route):
+                for k in range(SWIN_SMALL_STEPS):
+                    batch = {key: v.to(device) for key, v in
+                             segmentation_batch(2, 2, 32, seed=k).items()}
+                    state, metrics_state, per_batch = step(
+                        state, metrics_state, batch)
+                    losses.append(per_batch["dice_loss"].item())
+            launches = (wa.window_attention_cuda.launches,
+                        wa.image_attention_cuda.launches)
+            runs.append((losses, {k: v.double().cpu() for k, v in
+                                  model.module.state_dict().items()}))
+        (cpu_losses, cpu_state), (losses, state) = runs
+        loss_err = max(abs(a - b) for a, b in zip(losses, cpu_losses))
+        state_err = {k: (v - cpu_state[k]).abs().max().item()
+                     for k, v in state.items()}
+        worst = max(state_err, key=state_err.get)
+        # 6 blocks, one launch per forward of each, 2 fragments per step
+        want = 6 * 2 * SWIN_SMALL_STEPS
+        check(loss_err < TRAIN_TOL and state_err[worst] < TRAIN_TOL
+              and launches == ((want, 0) if route == "k1" else (0, want)),
+              f"[swin train small] {route}: card vs CPU loss {loss_err}, "
+              f"{worst} {state_err[worst]} (bar {TRAIN_TOL}); launches "
+              f"K1, K2 {launches} (want {want} of {kernel.__name__})")
+        print(f"[swin train small] f32 Swin U-Net 32x32, {SWIN_SMALL_STEPS} "
+              f"steps of 2 fragments of 2, TF32 off, {route} "
+              f"({kernel.__name__} forward under autograd, recompute "
+              f"backward): card vs CPU max |diff| loss {loss_err:.3g}, "
+              f"parameters {state_err[worst]:.3g} ({worst}; bar "
+              f"{TRAIN_TOL}); launches K1, K2 {launches}", flush=True)
+
+
+def _train_turns(run_steps, routes) -> dict:
+    """TURNS turns of TURN_STEPS steps per route, the routes in turns
+    (k1, plain, k2, k2, plain, k1, ...), each turn under sync debug mode
+    "error" and with the launch counts set to 0 just before it.  Returns
+    per route: seconds of each turn, K1 and K2 launches, peak memory."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+
+    out = {r: {"turns": [], "k1": 0, "k2": 0, "peak": 0} for r in routes}
+    for i in range(TURNS):
+        for route in (routes if i % 2 == 0 else routes[::-1]):
+            with attention_route(route):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                wa.window_attention_cuda.launches = 0
+                wa.image_attention_cuda.launches = 0
+                t0 = time.perf_counter()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    run_steps(TURN_STEPS)
+                except RuntimeError as exc:
+                    fail(f"a host sync in a train step ({route}): {exc}")
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            res = out[route]
+            res["turns"].append(seconds)
+            res["k1"] += wa.window_attention_cuda.launches
+            res["k2"] += wa.image_attention_cuda.launches
+            res["peak"] = max(res["peak"], torch.cuda.max_memory_allocated())
+    return out
+
+
+def train_cell(tag: str, cfg: dict, batch_size: int, size: int,
+               n_params: int, routes=("k1",)) -> dict:
+    """Build the trainer of *cfg* in bf16 on the card, warm it up on each
+    route, time the routes in turns (:func:`_train_turns`) on one fixed
+    batch, check the losses finite and falling, and print images/s, ms per
+    step, the share of the operations bound, launches per step and peak
+    memory per route; then profile the first route.  Returns the
+    per-route results with ``images_per_s`` and ``step_ms``."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.models import blocks
+
+    torch.backends.cudnn.benchmark = True
+    blocks.set_compute_dtype(torch.bfloat16)
+    try:
+        model, state, calculator, step = build_trainer(cfg, "cuda")
+        got = sum(p.numel() for p in model.module.parameters())
+        check(got == n_params, f"{tag}: {got} parameters, want {n_params}")
+        batch = {k: v.cuda() for k, v in segmentation_batch(
+            1, batch_size, size, seed=0).items()}
+        x0 = batch["x"][0, :1].float() / 255.0
+        macs, first_macs = conv_macs(model.module, x0)
+        flops = 2 * batch_size * (3 * macs - first_macs)
+        bound_ms = 1e3 * flops / PEAK_OPS_PER_S["torch.bfloat16"]
+        print(f"[{tag}] {n_params} parameters, forward "
+              f"{macs / 1e9:.2f} GMAC per image, train step "
+              f"{flops / 1e12:.3f} TFLOP at batch {batch_size} ({size}x"
+              f"{size}): bound {bound_ms:.3f} ms (operations, bf16 at 989 "
+              f"TFLOP/s)", flush=True)
+        metrics_state = calculator.init_state("cuda")
+        losses = []
+
+        def run_steps(n):
+            nonlocal state, metrics_state
+            for _ in range(n):
+                state, metrics_state, per_batch = step(state, metrics_state,
+                                                       batch)
+                losses.append(per_batch["dice_loss"])
+
+        t0 = time.perf_counter()
+        for route in routes:
+            with attention_route(route):
+                run_steps(3)  # cuDNN autotuning, the route's own kernels
+        torch.cuda.synchronize()
+        print(f"[{tag}] warm-up, 3 steps per route: "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        results = _train_turns(run_steps, list(routes))
+        loss = torch.stack(losses).float().cpu()
+        check(bool(torch.isfinite(loss).all())
+              and loss[-TURN_STEPS:].mean() < loss[:TURN_STEPS].mean(),
+              f"[{tag}] losses finite and falling: first "
+              f"{loss[:TURN_STEPS].tolist()}, last "
+              f"{loss[-TURN_STEPS:].tolist()}")
+        print(f"[{tag}] {len(loss)} steps on one batch, no host sync "
+              f"queued (sync debug mode 'error'): dice loss, mean of the "
+              f"first {TURN_STEPS} {loss[:TURN_STEPS].mean():.4f}, of the "
+              f"last {TURN_STEPS} {loss[-TURN_STEPS:].mean():.4f}",
+              flush=True)
+        steps = TURNS * TURN_STEPS
+        for route, res in results.items():
+            step_ms = [1e3 * t / TURN_STEPS for t in res["turns"]]
+            res["step_ms"] = statistics.median(step_ms)
+            res["images_per_s"] = statistics.median(
+                batch_size * TURN_STEPS / t for t in res["turns"])
+            res["spread_ms"] = max(step_ms) - min(step_ms)
+            res["bound_ms"] = bound_ms
+            print(f"[{tag}] {route}: images/s median "
+                  f"{res['images_per_s']:.1f} of "
+                  f"{sorted(round(batch_size * TURN_STEPS / t, 1) for t in res['turns'])}"
+                  f"; {res['step_ms']:.3f} ms per step (turns "
+                  f"{min(step_ms):.3f} to {max(step_ms):.3f}), "
+                  f"{100 * bound_ms / res['step_ms']:.1f} % of the "
+                  f"{bound_ms:.3f} ms bound; launches per step K1 "
+                  f"{res['k1'] / steps:g}, K2 {res['k2'] / steps:g}; peak "
+                  f"memory {res['peak'] / 2 ** 30:.2f} GiB", flush=True)
+        main = routes[0]
+        with attention_route(main):
+            profile_train(run_steps, 5, results[main]["step_ms"], tag=tag,
+                          groups_of=_SWIN_TRAIN_GROUPS if "swin" in tag
+                          else None)
+        return results
+    finally:
+        blocks.set_compute_dtype(None)
+
+
+def _attention_train_pair() -> dict:
+    """The attention of one swin_224_train step (the 14 calls of LEVELS at
+    batch 24, bf16) forward and backward, three ways on the same tensors:
+    K1's forward with the recompute backward (the kernel pair), the plain
+    version under autograd, and SDPA under autograd with bias and mask as
+    one additive mask (the library yardstick).  Device ms per step (CUDA
+    events with the stream held while the calls are queued), K1's outputs
+    against the plain version's and the recompute backward's gradients
+    against plain autograd, and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+
+    gen = torch.Generator().manual_seed(7)
+    scale = HEAD_DIM ** -0.5
+    calls, moved, ops = [], 0, 0
+    for level, heads, n_w, masked, unmasked in LEVELS:
+        for is_masked in [True] * masked + [False] * unmasked:
+            q, k, v, bias, mask = _k1_inputs(level, heads, n_w, is_masked,
+                                             torch.bfloat16, gen)
+            g = torch.randn(q.shape, generator=gen).to("cuda", q.dtype)
+            for t in (q, k, v, bias):
+                t.requires_grad_(True)
+            calls.append((q, k, v, bias, mask, g))
+            b_, h, n, d = q.shape
+            # read q, k, v, g, bias, mask; write out, dq, dk, dv, dbias
+            moved += 8 * q.numel() * 2 + 2 * bias.numel() * 4 \
+                + (0 if mask is None else mask.numel() * 4)
+            # forward 2 products, backward 4 (dv, dP, dq, dk)
+            ops += 12 * b_ * h * n * n * d
+
+    def kernel_pair():
+        """per call: K1's output, then dq, dk, dv, dbias"""
+        return [(wa.window_attention_cuda(q, k, v, b, m, scale),
+                 *wa.window_attention_backward(q, k, v, b, m, scale, g)[:4])
+                for q, k, v, b, m, g in calls]
+
+    def plain_pair():
+        return [torch.autograd.grad(
+            wa.window_attention_torch(q, k, v, b, m, scale), (q, k, v, b), g)
+            for q, k, v, b, m, g in calls]
+
+    def sdpa_pair():
+        return [torch.autograd.grad(F.scaled_dot_product_attention(
+            q, k, v, attn_mask=_sdpa_mask(b, m, q.shape[0], q.dtype),
+            scale=scale), (q, k, v, b), g) for q, k, v, b, m, g in calls]
+
+    def device_ms(fn, iters: int = 5) -> float:
+        """Device ms per call of *fn* (one step's 14 pairs, a few hundred
+        launches): *iters* calls queued behind a spin kernel that holds
+        the stream for twice the host's time to queue them, so that the
+        events time the device and not Python; the median of 3 runs."""
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host_s = time.perf_counter() - t0
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            # about 2e9 spin cycles a second
+            torch.cuda._sleep(int(2 * iters * host_s * 2e9))
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end) / iters)
+        return statistics.median(times)
+
+    def rel_err(got, want) -> float:
+        return max(((a.float() - b.float()).abs().max()
+                    / b.float().abs().max()).item()
+                   for a, b in zip(got, want))
+
+    with torch.no_grad():
+        got = kernel_pair()
+        outs = [wa.window_attention_torch(q, k, v, b, m, scale)
+                for q, k, v, b, m, _ in calls]
+    want = plain_pair()
+    fwd_err = rel_err([pair[0] for pair in got], outs)
+    bwd_err = max(rel_err(pair_got[1:], pair_want)
+                  for pair_got, pair_want in zip(got, want))
+    check(fwd_err < BF16_TOL and bwd_err < BF16_TOL,
+          f"[swin train] the kernel pair against plain autograd, relative "
+          f"max |diff|: K1's outputs {fwd_err}, the recompute backward's "
+          f"gradients {bwd_err} (bar {BF16_TOL})")
+    with torch.no_grad():
+        pair_ms = device_ms(kernel_pair)
+    out = {"ms": pair_ms, "plain_ms": device_ms(plain_pair),
+           "sdpa_ms": device_ms(sdpa_pair), "fwd_err": fwd_err,
+           "bwd_err": bwd_err,
+           "bytes_ms": 1e3 * moved / HBM_BYTES_PER_S,
+           "ops_ms": 1e3 * ops / PEAK_OPS_PER_S["torch.bfloat16"]}
+    out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
+    out["bound_by"] = "bytes" if out["bytes_ms"] >= out["ops_ms"] \
+        else "operations"
+    return out
+
+
+def phase_swin_train() -> dict:
+    """swin_224_train at full width (27,166,596 parameters, 224 x 224,
+    batch 24, bf16, stochastic depth 0.2, SGD momentum 0.9 at 1e-3, Dice
+    loss), timed in turns on the two candidates for train=True (K1 with the
+    recompute backward, the dispatch's own; the plain version under
+    autograd) and on the image-layout path (K2); the attention pair of one
+    step against plain autograd and SDPA; the verdict for train=True."""
+    results = train_cell("swin train", swin_224_train_config(),
+                         SWIN_TRAIN_BATCH, SWIN_TRAIN_SIZE, 27_166_596,
+                         routes=("k1", "plain", "k2"))
+    steps = TURNS * TURN_STEPS
+    check(results["k1"]["k1"] == SWIN_BLOCKS * steps
+          and results["k1"]["k2"] == 0,
+          f"[swin train] K1 launches on the dispatch's own route: "
+          f"{results['k1']['k1']} in {steps} steps")
+    check(results["k2"]["k2"] == SWIN_BLOCKS * steps
+          and results["k2"]["k1"] == 0 and results["plain"]["k1"] == 0
+          and results["plain"]["k2"] == 0,
+          f"[swin train] launches: {results}")
+    pair = _attention_train_pair()
+    k1, plain = results["k1"], results["plain"]
+    gap = plain["step_ms"] - k1["step_ms"]
+    spread = max(k1["spread_ms"], plain["spread_ms"])
+    faster = "k1" if gap > spread else "plain" if -gap > spread else "tie"
+    print(f"[swin train] attention of one step (14 calls, bf16, forward + "
+          f"backward): K1 + recompute backward {pair['ms']:.3f} ms, plain "
+          f"autograd {pair['plain_ms']:.3f} ms, SDPA with one additive mask"
+          f" {pair['sdpa_ms']:.3f} ms; bound {pair['bound_ms']:.3f} ms "
+          f"({pair['bound_by']}: bytes {pair['bytes_ms']:.3f}, operations "
+          f"{pair['ops_ms']:.3f}); against plain autograd, relative max "
+          f"|diff|: K1's outputs {pair['fwd_err']:.3g}, the recompute "
+          f"backward's gradients {pair['bwd_err']:.3g} (bar {BF16_TOL})",
+          flush=True)
+    print(f"[swin train] train=True: the step with K1 {k1['step_ms']:.3f} "
+          f"ms, plain {plain['step_ms']:.3f} ms (plain - K1 {gap:.3f} ms, "
+          f"the turns' spread {spread:.3f} ms): faster beyond the spread: "
+          f"{faster}; train=True takes K1 (the dispatch has no other route "
+          f"for a CUDA tensor)", flush=True)
+    return {"launches": results["k1"]["k1"],
+            "k2_launches": results["k2"]["k2"], "pair": pair}
+
+
+def phase_resnet_train() -> None:
+    """resnet50_attention_unet_256_train at full width (94,014,977
+    parameters), timed as [swin train] times its step (no attention kernel
+    lies on it)."""
+    results = train_cell("resnet train", resnet_attention_unet_config(),
+                         RESNET_TRAIN_BATCH, RESNET_TRAIN_SIZE, 94_014_977)
+    check(results["k1"]["k1"] == results["k1"]["k2"] == 0,
+          f"[resnet train] an attention kernel launched: {results}")
+
+
+def family_cli_config(workdir: Path, family: str, epochs: int,
+                      weights: Path, absolute_path=None) -> dict:
+    """The experiment CLI's config of *family* ("swin": swin_224_train's
+    model at stochastic depth 0.2; "resnet": the ResNet-50 attention U-Net)
+    on a COVID-QU tree of FAMILY_CLI's size, bf16, its encoder from the
+    reference-named state dict *weights*; no cuDNN autotuning (a large
+    part of each process's first epoch)."""
+    images, test, size, batch, lr = FAMILY_CLI[family]
+    cfg = swin_224_train_config() if family == "swin" \
+        else resnet_attention_unet_config()
+    model = cfg["model"]["segmentation.models.UNet"]
+    model["weight_init"]["encoder"] = {"weights": str(weights),
+                                       "strict": True}
+    technical = {"seed": 777, "save_destination": str(workdir / "logs"),
+                 "maximum_actual_batch_size": batch,
+                 "mixed_precision": True, "async_checkpointing": True,
+                 "use_cudnn_benchmarking": False,
+                 "export_plots_as": ("json",),
+                 "model_evaluation": {
+                     "metric": "val_metrics/dice_index_threshold_0.5",
+                     "mode": "max"}}
+    if absolute_path is not None:
+        technical["absolute_path"] = absolute_path
+    return {
+        "experiment": {"number_of_epochs": epochs, "number_of_trials": 1},
+        "meta": {"technical": technical},
+        "data": {"data": {"segmentation.datasets.COVIDQUDataset": {
+            "lung_or_infection": "inf", "image_sizes": size,
+            "validate_on_test": True, "seed": 20231027}},
+            "sampling": {"batch_size": batch},
+            "transforms": {"train": "transform.RepeatChannels",
+                           "val": "transform.RepeatChannels",
+                           "casting": {"mask": "torch.LongTensor"}}},
+        "model": cfg["model"],
+        "training": {"loss": {"segmentation.losses.DiceLoss": {}},
+                     "optimizer": {"sgd": {"momentum": 0.9, "learning_rate": {
+                         "constant": {"base": lr}}}}},
+        "metrics": {"metrics": ("metrics.DiceIndex",)},
+    }
+
+
+def phase_cli_family(workdir: Path, family: str) -> int:
+    """[cli swin] / [cli resnet]: the experiment CLI in a process of its
+    own on a synthetic COVID-QU tree, two epochs and a third under
+    --continued, the encoder grafted from a reference-named state dict
+    written here (an encoder of the config's own random init); the run
+    files, the logs, the val Dice rising, the train Dice loss falling
+    CLI_LOSS_FACTOR times over the three epochs.  For the
+    Swin U-Net, the K1 launches of a no-grad validation pass of the
+    trained model in this process.  Returns those launches."""
+    import numpy as np
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
+    from medsegpretrainimagenet_tpu_torch.losses import Loss
+    from medsegpretrainimagenet_tpu_torch.metrics import MetricsCalculator
+    from medsegpretrainimagenet_tpu_torch.models import blocks
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+    from medsegpretrainimagenet_tpu_torch.train import checkpoint as ckpt
+    from medsegpretrainimagenet_tpu_torch.train import make_eval_step
+
+    tag = f"cli {family}"
+    t0 = time.perf_counter()
+    images, test, size, batch, _ = FAMILY_CLI[family]
+    workdir.mkdir()
+    write_covidqu_tree(workdir / "data", images=images, size=size, test=test)
+    cfg = family_cli_config(workdir, family, 2, workdir / "encoder.pt")
+    cd = ConfigDict(cfg)
+    cd.expand()
+    model = build_trainer(swin_224_train_config() if family == "swin"
+                          else resnet_attention_unet_config(), "cpu",
+                          seed=5)[0]
+    encoder = {k[len("enc."):]: v for k, v in
+               model.module.state_dict().items() if k.startswith("enc.")}
+    ckpt.save_params_file(str(workdir / "encoder.pt"), reference_names(
+        encoder, family))
+    seconds = []
+    for epochs, flags in ((2, ()), (3, ("--continued",))):
+        runs = list((workdir / "logs").glob("*/Experiment/run_1"))
+        cfg = family_cli_config(
+            workdir, family, epochs, workdir / "encoder.pt",
+            absolute_path=str(runs[0].parent) + "/" if runs else None)
+        wall, out = _cli_process(workdir, cfg, *flags)
+        marks = [m for m in ENVELOPE_MARKS + ("Unmapped", "Missing keys",
+                                              "Unexpected keys")
+                 if m in out.stderr]
+        # the --continued run resumes from the run's own weights
+        grafted = bool(flags) or \
+            "Successfully initialised encoder from" in out.stdout
+        check(out.returncode == 0 and not marks and grafted,
+              f"[{tag}] {' '.join(out.args[3:])}: exit {out.returncode}, "
+              f"marks {marks}; stdout tail:\n{out.stdout[-2000:]}\nstderr "
+              f"tail:\n{out.stderr[-4000:]}")
+        seconds.append(wall)
+    (run,) = (workdir / "logs").glob("*/Experiment/run_1")
+    rows = _csv_rows(run / "epoch_logs.csv")
+    steps = images // batch
+    check(len(rows) == 3 and set(rows[0]) == CLI_EPOCH_COLUMNS
+          and len(_csv_rows(run / "batch_logs.csv")) == 3 * steps
+          and all(math.isfinite(float(v)) for r in rows for v in r.values()),
+          f"[{tag}] logs: {len(rows)} epoch rows, columns "
+          f"{sorted(rows[0]) if rows else None}")
+    for name in ("last_model_state_dict.pt", "best_model_state_dict.pt"):
+        model.module.load_state_dict(ckpt.load_params_file(run / name))
+    saved = ckpt.load_state_file(run / "optimizer_state_dict.pt")
+    check(saved["step"] == 3 * steps and ckpt.load_params_file(
+        run / "checkpoint_epoch.pt") == {"epoch": 3},
+          f"[{tag}] optimizer step {saved['step']}, want {3 * steps}")
+    dice = [float(r["val_metrics/dice_index_threshold_0.5"]) for r in rows]
+    loss = [float(r["dice_loss"]) for r in rows]
+    check(dice[-1] > dice[0] and loss[-1] * CLI_LOSS_FACTOR < loss[0],
+          f"[{tag}] val Dice {dice} rising, train Dice loss {loss} falling "
+          f"by more than {CLI_LOSS_FACTOR} times")
+
+    launches = 0
+    if family == "swin":
+        # a no-grad validation pass of the trained model, bf16
+        model.module.load_state_dict(ckpt.load_params_file(
+            run / "last_model_state_dict.pt"))
+        model.module.cuda()
+        base = workdir / "data" / "COVID_QU" / "Inf_segm" / "data arrays" \
+            / "COVID-19" / "test"
+        imgs = np.load(base / "imgs.npy")[:batch, 0]
+        masks = np.load(base / "inf_masks.npy")[:batch, 0] > 0
+        stack = {"x": torch.from_numpy(np.repeat(imgs[..., None], 3, -1))
+                 [None].cuda(),
+                 "mask": torch.from_numpy(masks.astype(np.uint8))[None]
+                 .cuda()}
+        registry.fill_spec(cd, "training/loss")
+        loss_fn = registry.build(cd, key="training/loss", wrapper=Loss)
+        calculator = MetricsCalculator(cd, loss=loss_fn)
+        blocks.set_compute_dtype(torch.bfloat16)
+        try:
+            wa.window_attention_cuda.launches = 0
+            metrics_state, _ = make_eval_step(model, loss_fn, calculator)(
+                None, calculator.init_state("cuda"), stack)
+            torch.cuda.synchronize()
+            launches = wa.window_attention_cuda.launches
+        finally:
+            blocks.set_compute_dtype(None)
+        values = calculator.finalize_epoch(metrics_state)
+        check(launches == SWIN_BLOCKS
+              and all(math.isfinite(v) for v in values.values()),
+              f"[{tag}] validation pass: {launches} K1 launches (want "
+              f"{SWIN_BLOCKS}), {values}")
+    print(f"[{tag}] {images} + {test} images of {size}x{size}, batch "
+          f"{batch}: 2 epochs {seconds[0]:.1f} s, the 3rd under --continued"
+          f" {seconds[1]:.1f} s; encoder grafted from a reference-named "
+          f"state dict with no unmapped, unused or missing key; val Dice "
+          f"{[round(d, 4) for d in dice]}, train Dice loss "
+          f"{[round(v, 4) for v in loss]}"
+          + (f"; {launches} K1 launches in a no-grad validation pass of "
+             f"{batch} images" if family == "swin" else ""), flush=True)
+    print(f"[{tag}] {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "medsegpretrainimagenet_tpu_torch").is_dir():
         fail("run from a checkout: the package medsegpretrainimagenet_tpu_"
@@ -3298,6 +3939,13 @@ def main() -> int:
         timed("cli transfer", phase_cli_transfer, Path(tmp), encoder)
         timed("robustness small", phase_robustness_small)
         rob = timed("robustness", phase_robustness, Path(tmp), encoder)
+        timed("swin train small", phase_swin_train_small)
+        swin_train = timed("swin train", phase_swin_train)
+        timed("resnet train", phase_resnet_train)
+        cli_swin_launches = timed("cli swin", phase_cli_family,
+                                  Path(tmp) / "cli_swin", "swin")
+        timed("cli resnet", phase_cli_family, Path(tmp) / "cli_resnet",
+              "resnet")
 
     # per kernel: the 14 calls of one bf16 forward at batch 24, summed,
     # L2-cold (warm_ms: the same calls on warm inputs); launches from its
@@ -3326,6 +3974,25 @@ def main() -> int:
         # the layout permutes around SDPA included: the same function
         "library_ms": k2["library_ms"],
     }]
+    # training (swin_224_train, bf16): K1's launches in the timed steps of
+    # the default route, and the attention of one step forward and
+    # backward, the kernel pair (K1 + the recompute backward) beside plain
+    # autograd and SDPA, with its bound, and its errors against plain
+    # autograd (K1's outputs, the recompute's gradients); K1's launches in
+    # [cli swin]'s
+    # no-grad validation pass; K2's in the step under
+    # set_fused_image_mode("on")
+    pair = swin_train["pair"]
+    kernels[0].update({
+        "swin_train_launches": swin_train["launches"],
+        "swin_train_ms": pair["ms"], "swin_train_plain_ms": pair["plain_ms"],
+        "swin_train_library_ms": pair["sdpa_ms"],
+        "swin_train_bound_ms": pair["bound_ms"],
+        "swin_train_bound_by": pair["bound_by"],
+        "swin_train_fwd_rel_err": pair["fwd_err"],
+        "swin_train_bwd_rel_err": pair["bwd_err"],
+        "cli_swin_val_launches": cli_swin_launches})
+    kernels[1]["swin_train_launches"] = swin_train["k2_launches"]
     # the float32 instances: the 8 calls of one Swin encoder forward of
     # robustness_224, summed, L2-cold (warm_ms: warm inputs); launches from
     # the in-process sweep (K2's with set_fused_image_mode("on")); the

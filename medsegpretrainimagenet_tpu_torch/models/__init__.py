@@ -1,5 +1,6 @@
 """Model zoo of the port: the conv U-Net's and the Swin U-Net's blocks, the
-generic U-Net, the ResNet encoder, the pretraining ``FeedForwardModel``
+attention gate, the generic U-Net (with an external encoder such as
+``DeepResNet``), the ResNet encoder, the pretraining ``FeedForwardModel``
 and the Model wrapper.  The residual block zoo of the JAX package's
 ``models/blocks.py`` is ROADMAP queue M9's rest."""
 from ..config.registry import register_not_ported
@@ -13,8 +14,7 @@ from .resnet import DeepResNet  # noqa: F401
 from .unet import UNet, UNetDecoder, UNetEncoder  # noqa: F401
 from .wrapper import Model  # noqa: F401
 
-for _name, _alias in (("AttentionBlock", "attention_block"),
-                      ("ResNeXtBlock", "resnext_block"),
+for _name, _alias in (("ResNeXtBlock", "resnext_block"),
                       ("InvertedBottleneckBlock", "inverted_bottleneck_block"),
                       ("ConvNeXtBlock", "convnext_block"),
                       ("LayerScale", "layer_scale"),

@@ -40,11 +40,12 @@ from .init import lecun_normal_
 
 __all__ = [
     "set_compute_dtype", "compute_dtype", "Dense", "Conv", "LayerNorm",
-    "make_layer_norm", "drop_path", "Identity", "Conv2d", "MaxPool2d",
+    "make_layer_norm", "dropout", "drop_path", "Stochastic", "draws",
+    "Identity", "Conv2d", "MaxPool2d",
     "Upsample", "AvgPool2d", "AdaptiveAvgPool2d", "Flatten", "Linear",
     "TorchLayerNorm", "BatchNorm", "ConvBlock", "UpConvBlock", "ConcatBlock",
-    "ConcatLinearBlock", "set_dropout_generator", "mixing_out_channels",
-    "block_accepts", "make_block_builder",
+    "ConcatLinearBlock", "AttentionBlock", "set_dropout_generator",
+    "mixing_out_channels", "block_accepts", "make_block_builder",
 ]
 
 _COMPUTE_DTYPE = [None]  # None -> float32 compute with float32 parameters
@@ -200,24 +201,55 @@ def make_layer_norm(features: int) -> LayerNorm:
     return LayerNorm(features)
 
 
-def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
-    """Per-sample stochastic depth; the identity at eval or rate 0."""
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator],
+            shape: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate); the identity at eval or rate 0.
+    The mask has *shape* (default x's), broadcast over x, and is drawn from
+    *generator*."""
     if rate == 0.0 or not training:
         return x
     keep = 1.0 - rate
-    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.rand(shape, device=x.device) < keep
+    mask = torch.rand(tuple(shape or x.shape), device=x.device,
+                      generator=generator) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample stochastic depth (segmentation): one draw per sample."""
+    return dropout(x, rate, training, generator,
+                   (x.shape[0],) + (1,) * (x.ndim - 1))
+
+
+class Stochastic:
+    """A module whose training forward draws (dropout, attention dropout,
+    stochastic depth).  Its draws take ``self.generator``, which the train
+    step points at its fragment's generator (:func:`set_dropout_generator`);
+    ``RATES`` names the attributes that hold its rates."""
+
+    generator: Optional[torch.Generator] = None
+    RATES: Tuple[str, ...] = ()
+
+    def draws(self) -> bool:
+        return any(getattr(self, rate) for rate in self.RATES)
 
 
 def set_dropout_generator(module: nn.Module,
                           generator: Optional[torch.Generator]) -> None:
-    """Point every dropout of *module* at *generator*, a generator on the
-    activations' device (None: the default generator).  The train step
+    """Point every drawing submodule of *module* (every :class:`Stochastic`)
+    at *generator*, a generator on the activations' device.  The train step
     sets one per fragment, derived from the state's seed and step."""
     for sub in module.modules():
-        if isinstance(sub, ConvBlock):
+        if isinstance(sub, Stochastic):
             sub.generator = generator
+
+
+def draws(module: nn.Module) -> bool:
+    """Whether a training forward of *module* draws at all."""
+    return any(isinstance(sub, Stochastic) and sub.draws()
+               for sub in module.modules())
 
 
 @register("torch.nn.Identity", "identity")
@@ -440,21 +472,11 @@ class BatchNorm(nn.Module):
                             eps=self.eps).permute(0, 2, 3, 1)
 
 
-def _dropout2d(x: torch.Tensor, rate: float,
-               generator: Optional[torch.Generator]) -> torch.Tensor:
-    """torch's ``Dropout2d`` on NHWC: whole feature maps drop per (sample,
-    channel), the kept ones scaled by 1 / (1 - rate)."""
-    keep = 1.0 - rate
-    mask = torch.rand((x.shape[0], 1, 1, x.shape[-1]), device=x.device,
-                      generator=generator) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
-
-
 @register("segmentation.models.blocks.ConvBlock", "conv_block")
-class ConvBlock(nn.Module):
+class ConvBlock(Stochastic, nn.Module):
     """``size`` x (conv k x k -> BN -> act), an optional stride-2 last conv
-    and ``Dropout2d``.  Dropout draws from ``self.generator`` (see
-    :func:`set_dropout_generator`)."""
+    and torch's ``Dropout2d``: whole feature maps drop per (sample,
+    channel)."""
 
     PARAMS = {
         "activations": "relu",
@@ -465,6 +487,7 @@ class ConvBlock(nn.Module):
         "stride": None,
     }
     DROPOUT_RATE = 0.5
+    RATES = ("dropout_rate",)
 
     @staticmethod
     def fill_kwargs(config_dict: ConfigDict):
@@ -491,16 +514,14 @@ class ConvBlock(nn.Module):
         if dropout:
             self.dropout_rate = self.DROPOUT_RATE \
                 if isinstance(dropout, bool) else float(dropout["rate"])
-        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.size):
             x = getattr(self, f"Conv_{i}")(x)
             x = getattr(self, f"BatchNorm_{i}")(x)
             x = getattr(self, f"Activation_{i}")(x)
-        if self.dropout_rate and self.training:
-            x = _dropout2d(x, self.dropout_rate, self.generator)
-        return x
+        return dropout(x, self.dropout_rate, self.training, self.generator,
+                       (x.shape[0], 1, 1, x.shape[-1]))
 
 
 @register("segmentation.models.blocks.UpConvBlock", "up_conv_block")
@@ -570,6 +591,60 @@ class ConcatLinearBlock(nn.Module):
 
     def forward(self, x, x_up, skip_val):
         return self.Dense_0(_cat([x_up, skip_val]))
+
+
+@register("segmentation.models.blocks.AttentionBlock", "attention_block")
+class AttentionBlock(nn.Module):
+    """The attention-U-Net gate (arXiv:1804.03999): a gating signal from the
+    coarse path *x* reweights the skip tensor before the concat.  The
+    gating block (a 1 x 1 ``ConvBlock`` by default) and a 1 x 1 conv with
+    BatchNorm on *x*, a 2 x 2 stride-2 conv with BatchNorm on the skip,
+    their sum through a ReLU, a 1 x 1 conv to the skip's channels with
+    BatchNorm, a sigmoid, nearest upsampling by 2; out: [x_up, skip * p].
+    ``halve_channels`` is accepted and, as in the JAX package, unused."""
+
+    PARAMS = {
+        "gating signal": {
+            "argument name": "gating_signal",
+            "default": {"segmentation.models.blocks.ConvBlock": {
+                "size": 1, "kernel size": 1, "padding": 0}},
+        },
+        "halve_channels": False,
+    }
+
+    @staticmethod
+    def fill_kwargs(config_dict: ConfigDict):
+        fill_spec(config_dict, "gating signal")
+
+    @staticmethod
+    def get_out_ch(x_channels, x_up_channels, skip_channels,
+                   level_out_channels):
+        return x_up_channels + skip_channels
+
+    def __init__(self, x_channels: int = 0, x_up_channels: int = 0,
+                 skip_channels: int = 0, level_out_channels: int = 0,
+                 gating_signal: Any = None, halve_channels: bool = False):
+        super().__init__()
+        if gating_signal is None:
+            gating_signal = ConfigDict(
+                {"segmentation.models.blocks.ConvBlock": {
+                    "size": 1, "kernel_size": 1, "padding": 0}})
+        self.ConvBlock_0 = make_block_builder(gating_signal)(x_channels,
+                                                             x_channels)
+        self.Conv_0 = Conv(x_channels, x_channels, 1)
+        self.BatchNorm_0 = BatchNorm(x_channels)
+        self.Conv_1 = Conv(skip_channels, x_channels, 2, stride=2)
+        self.BatchNorm_1 = BatchNorm(x_channels)
+        self.Conv_2 = Conv(x_channels, skip_channels, 1)
+        self.BatchNorm_2 = BatchNorm(skip_channels)
+        self.Upsample_0 = Upsample(2)
+
+    def forward(self, x, x_up, skip_val):
+        g1 = self.BatchNorm_0(self.Conv_0(self.ConvBlock_0(x)))
+        x1 = self.BatchNorm_1(self.Conv_1(skip_val))
+        p = self.BatchNorm_2(self.Conv_2(F.relu(x1 + g1)))
+        p = self.Upsample_0(torch.sigmoid(p))
+        return _cat([x_up, skip_val * p])
 
 
 def mixing_out_channels(mixing, **channel_kwargs) -> int:

@@ -17,7 +17,7 @@ package never reads its ``in_channels``).
 """
 from __future__ import annotations
 
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,24 +25,24 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import register
-from .blocks import BatchNorm, Conv, Dense
+from .blocks import BatchNorm, Conv, Dense, Stochastic
 
 __all__ = ["DeepResNet", "BasicResBlock", "BottleneckResBlock", "drop_path"]
 
 
-def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
     """The reference's *classification* DropPath, distinct from the
     segmentation one in ``blocks.drop_path``: training keeps each sample's
-    branch with probability 1 - rate *without* rescaling it, and eval
-    multiplies by that probability.  Training draws from torch's default
-    generator."""
+    branch with probability 1 - rate *without* rescaling it, drawing from
+    *generator*, and eval multiplies by that probability."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
     if not training:
         return x * torch.tensor(keep, dtype=x.dtype)
     shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.rand(shape, device=x.device) < keep
+    mask = torch.rand(shape, device=x.device, generator=generator) < keep
     return torch.where(mask, x, torch.zeros_like(x))
 
 
@@ -66,11 +66,13 @@ def _conv3(cin: int, cout: int, stride: int, bias: bool) -> Conv:
                 use_bias=bias)
 
 
-class BasicResBlock(nn.Module):
+class BasicResBlock(Stochastic, nn.Module):
     """Two 3x3 convs.  v2 runs its first BatchNorm and ReLU on the input
     and discards the result, as the reference does: conv1 takes the raw
     input, and the BatchNorm's parameters (and, in training, its running
     statistics) still exist."""
+
+    RATES = ("drop_probability",)
 
     def __init__(self, in_channels: int, out_channels: int,
                  version: str = "v1", downsample: bool = False,
@@ -91,18 +93,22 @@ class BasicResBlock(nn.Module):
         if self.version == "v1":
             y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
             y = self.BatchNorm_1(self.Conv_1(y))
-            y = drop_path(y, self.drop_probability, self.training)
+            y = drop_path(y, self.drop_probability, self.training,
+                          self.generator)
             return F.relu(y + shortcut)
         self.BatchNorm_0(x)  # output discarded (see the class docstring)
         y = F.relu(self.BatchNorm_1(self.Conv_0(x)))
         y = self.Conv_1(y)
-        y = drop_path(y, self.drop_probability, self.training)
+        y = drop_path(y, self.drop_probability, self.training,
+                      self.generator)
         return y + shortcut
 
 
-class BottleneckResBlock(nn.Module):
+class BottleneckResBlock(Stochastic, nn.Module):
     """1x1 down to a quarter of the channels, 3x3 (strided when
     downsampling), 1x1 up; v2 is pre-activation."""
+
+    RATES = ("drop_probability",)
 
     def __init__(self, in_channels: int, out_channels: int,
                  version: str = "v1", downsample: bool = False,
@@ -125,18 +131,23 @@ class BottleneckResBlock(nn.Module):
             y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
             y = F.relu(self.BatchNorm_1(self.Conv_1(y)))
             y = self.BatchNorm_2(self.Conv_2(y))
-            y = drop_path(y, self.drop_probability, self.training)
+            y = drop_path(y, self.drop_probability, self.training,
+                          self.generator)
             return F.relu(y + shortcut)
         y = self.Conv_0(F.relu(self.BatchNorm_0(x)))
         y = self.Conv_1(F.relu(self.BatchNorm_1(y)))
         y = self.Conv_2(F.relu(self.BatchNorm_2(y)))
-        y = drop_path(y, self.drop_probability, self.training)
+        y = drop_path(y, self.drop_probability, self.training,
+                      self.generator)
         return y + shortcut
 
 
 @register("classification.models.DeepResNet", "deep_resnet", "resnet")
 class DeepResNet(nn.Module):
     """ResNet v1/v2 (the defaults are ResNet-50) with skip-value output."""
+
+    #: the channel chain a U-Net reads when its encoder names none
+    DEFAULT_CHANNEL_SIZES = (256, 512, 1024, 2048)
 
     def __init__(self, version: Any = "v1", bottleneck: bool = True,
                  channel_sizes: Sequence[int] = (256, 512, 1024, 2048),

@@ -16,6 +16,15 @@ forward on the card) a block takes the image-layout path instead,
 one kernel (``ops.fused_image_window_attention``) for window partition,
 head split, attention, head merge and window reverse.  Both paths share
 the same parameters.  The mode is off by default, as in the JAX package.
+
+A module in training passes ``train=True`` to the attention dispatch (the
+JAX package's ``train`` flag); on the card training takes the kernel's
+forward with its recompute backward, as inference takes the kernel (the
+H100's measurement: ``ops.window_attention_core``).  Attention dropout runs
+the plain version
+(the kernel has no dropout).  Every draw (dropout, attention dropout,
+stochastic depth) comes from the module's ``generator``, which the train
+step sets (``blocks.Stochastic``).
 """
 from __future__ import annotations
 
@@ -66,16 +75,13 @@ def _tokens_hw(length: int) -> int:
     return side
 
 
-def _dropout(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
-    return nn.functional.dropout(x, rate, training) if rate else x
-
-
 @register("segmentation.models.blocks.PatchEmbed", "patch_embed")
-class PatchEmbed(nn.Module):
+class PatchEmbed(B.Stochastic, nn.Module):
     """Conv stride=patch -> (B, L, C) tokens -> LN -> dropout."""
 
     PARAMS = {"patch_size": 4, "bias": True, "dilation": 1, "groups": 1,
               "drop_rate": 0.0}
+    RATES = ("drop_rate",)
 
     def __init__(self, in_channels: int = 3, out_channels: int = 96,
                  patch_size: int = 4, bias: bool = True, dilation: int = 1,
@@ -93,7 +99,7 @@ class PatchEmbed(nn.Module):
         x = self.Conv_0(x)
         b, h, w, c = x.shape
         x = self.LayerNorm_0(x.reshape(b, h * w, c))
-        return _dropout(x, self.drop_rate, self.training)
+        return B.dropout(x, self.drop_rate, self.training, self.generator)
 
 
 @register("segmentation.models.blocks.PatchMerging", "patch_merging")
@@ -184,8 +190,10 @@ class FinalPatchExpand_X4(nn.Module):
 
 
 @register("segmentation.models.blocks.Mlp", "swin_mlp")
-class Mlp(nn.Module):
+class Mlp(B.Stochastic, nn.Module):
     """Dense -> act -> drop -> Dense -> drop."""
+
+    RATES = ("drop",)
 
     def __init__(self, in_features: int = 0,
                  hidden_features: Optional[int] = None,
@@ -200,8 +208,10 @@ class Mlp(nn.Module):
         self.Dense_1 = B.Dense(hidden, out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = _dropout(self.act(self.Dense_0(x)), self.drop, self.training)
-        return _dropout(self.Dense_1(x), self.drop, self.training)
+        x = B.dropout(self.act(self.Dense_0(x)), self.drop, self.training,
+                      self.generator)
+        return B.dropout(self.Dense_1(x), self.drop, self.training,
+                         self.generator)
 
 
 def _relative_position_index(ws: Tuple[int, int]) -> np.ndarray:
@@ -218,9 +228,11 @@ def _relative_position_index(ws: Tuple[int, int]) -> np.ndarray:
 
 
 @register("segmentation.models.blocks.WindowAttention", "window_attention")
-class WindowAttention(nn.Module):
+class WindowAttention(B.Stochastic, nn.Module):
     """Windowed MHSA with relative position bias.  Input: (num_windows * B,
     N, C)."""
+
+    RATES = ("attn_drop", "proj_drop")
 
     def __init__(self, dim: int = 0, window_size: Tuple[int, int] = (7, 7),
                  num_heads: int = 1, qkv_bias: bool = True,
@@ -271,13 +283,15 @@ class WindowAttention(nn.Module):
             # dropout on the softmaxed probabilities, which the kernel
             # cannot do: attention-dropout training takes the plain path
             probs = torch.softmax(_logits(q, k, bias, mask, scale), dim=-1)
-            probs = nn.functional.dropout(probs, self.attn_drop, True)
+            probs = B.dropout(probs, self.attn_drop, True, self.generator)
             x = torch.matmul(probs.to(v.dtype).float(), v.float()) \
                 .to(v.dtype)
         else:
-            x = window_attention_core(q, k, v, bias, mask, scale)
+            x = window_attention_core(q, k, v, bias, mask, scale,
+                                      train=self.training)
         x = x.transpose(1, 2).reshape(b_, n, c)
-        return _dropout(self.proj(x), self.proj_drop, self.training)
+        return B.dropout(self.proj(x), self.proj_drop, self.training,
+                         self.generator)
 
     def attend_image(self, x: torch.Tensor,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -288,8 +302,9 @@ class WindowAttention(nn.Module):
         c = x.shape[-1]
         out = fused_image_window_attention(
             self.qkv(x), self._bias(), mask, self._scale(c // self.num_heads),
-            self.window_size[0])
-        return _dropout(self.proj(out), self.proj_drop, self.training)
+            self.window_size[0], train=self.training)
+        return B.dropout(self.proj(out), self.proj_drop, self.training,
+                         self.generator)
 
 
 def _shift_attn_mask(resolution: Tuple[int, int], window_size: int,
@@ -314,7 +329,7 @@ def _shift_attn_mask(resolution: Tuple[int, int], window_size: int,
 
 @register("segmentation.models.blocks.SwinTransformerBlock",
           "swin_transformer_block")
-class SwinTransformerBlock(nn.Module):
+class SwinTransformerBlock(B.Stochastic, nn.Module):
     """W-MSA / SW-MSA block.
 
     The level index is recovered from the channel count
@@ -337,6 +352,7 @@ class SwinTransformerBlock(nn.Module):
         "attn_drop": 0.0,
         "norm_layer": "torch.nn.LayerNorm",
     }
+    RATES = ("stochastic_depth_rate",)
 
     def __init__(self, in_channels: int = 96,
                  out_channels: Optional[int] = None, img_size: int = 224,
@@ -417,8 +433,9 @@ class SwinTransformerBlock(nn.Module):
         x = x.reshape(b, length, c)
 
         rate, training = self.stochastic_depth_rate, self.training
-        x = shortcut + B.drop_path(x, rate, training)
-        return x + B.drop_path(self.mlp(self.norm2(x)), rate, training)
+        x = shortcut + B.drop_path(x, rate, training, self.generator)
+        return x + B.drop_path(self.mlp(self.norm2(x)), rate, training,
+                               self.generator)
 
 
 @register("segmentation.models.blocks.DoubleSwinTransformerBlock",

@@ -3,11 +3,14 @@
 A config-generic U-Net: stem / basic-block / down- / up-sampling / mixing
 blocks are all pluggable components, with arbitrary channel ladders and
 stochastic depth.  The Swin U-Net is this U-Net with PatchEmbed stem, Swin
-blocks, PatchMerging / PatchExpand and ConcatLinear mixing.  Blocks run on
-NHWC images or (B, L, C) token sequences.
+blocks, PatchMerging / PatchExpand and ConcatLinear mixing; the ResNet-50
+attention U-Net is this U-Net with an external encoder
+(``architecture/encoder``: ``classification.models.DeepResNet``) and
+``AttentionBlock`` mixing.  Blocks run on NHWC images or (B, L, C) token
+sequences.
 
-Residual shortcuts, layer scaling and an external encoder (the ResNet
-U-Nets) are not ported yet; asking for them raises NotImplementedError.
+Residual shortcuts and layer scaling are not ported yet; asking for them
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -342,6 +345,13 @@ class UNet(nn.Module):
 
         if config_dict.get("architecture/encoder") is None:
             config_dict.pop("architecture/encoder", None)
+        else:
+            # the external encoder takes the image as it comes: no stem,
+            # downsampling or channel options of the U-Net's own encoder
+            for key in ("in_channel_size", "stem", "downsampling",
+                        "trainable_downsampling", "change_channels_in_block"):
+                config_dict.pop("architecture/" + key, None)
+            fill_spec(config_dict["architecture/encoder"])
 
     def __init__(self, img_ch: int = 3, output_ch: int = 1, depth: int = 4,
                  width: int = 1,
@@ -361,31 +371,43 @@ class UNet(nn.Module):
                  change_channels_in_block: bool = True,
                  trainable_downsampling: bool = False, encoder: Any = None):
         super().__init__()
-        if encoder is not None:
-            raise NotImplementedError(
-                "U-Nets with an external encoder are not ported yet")
         _not_ported(residual_connections, layer_scaling)
         channels = _as_channels(channels, depth)
-        enc_channels = channels if encoder_channels is None \
-            else list(encoder_channels)
+        enc_cfg = _normalize_block_cfg(encoder)
+        if enc_cfg is not None:
+            # channel chain: the encoder's channel_sizes, else its class's
+            # defaults (the skips are its stem's and levels' outputs)
+            enc_channels = enc_cfg.value().get("channel_sizes")
+            if enc_channels is None:
+                enc_channels = resolve(enc_cfg.key()).DEFAULT_CHANNEL_SIZES
+            enc_channels = list(enc_channels)
+        else:
+            enc_channels = channels if encoder_channels is None \
+                else list(encoder_channels)
         dec_channels = channels[::-1] if decoder_channels is None \
             else [enc_channels[-1], *decoder_channels]
         skip_list = skip_con_channels or enc_channels[:-1][::-1]
 
-        stem = None if preproc_block is None else (
-            preproc_block if preproc_block != "default_stem"
-            else ConfigDict({"torch.nn.Conv2d":
-                             {"kernel_size": 3, "padding": "same"}}))
-        down = downsampling_block \
-            if downsampling_block != "default_downsampling" \
-            else ConfigDict({"torch.nn.MaxPool2d": {"kernel_size": 2}})
-        self.enc = UNetEncoder(
-            in_channel_size=img_ch, basic_block=basic_block, stem=stem,
-            downsampling=down, depth=len(enc_channels) - 1, width=width,
-            channels=enc_channels,
-            change_channel_in_block=change_channels_in_block,
-            trainable_downsampling=trainable_downsampling,
-            stochastic_depth_rate=stochastic_depth_rate)
+        if enc_cfg is not None:
+            constructor = resolve(enc_cfg.key())
+            kwargs = get_kwargs(constructor, enc_cfg.value())
+            self.enc = constructor(**{k: v for k, v in kwargs.items()
+                                      if B.block_accepts(constructor, k)})
+        else:
+            stem = None if preproc_block is None else (
+                preproc_block if preproc_block != "default_stem"
+                else ConfigDict({"torch.nn.Conv2d":
+                                 {"kernel_size": 3, "padding": "same"}}))
+            down = downsampling_block \
+                if downsampling_block != "default_downsampling" \
+                else ConfigDict({"torch.nn.MaxPool2d": {"kernel_size": 2}})
+            self.enc = UNetEncoder(
+                in_channel_size=img_ch, basic_block=basic_block, stem=stem,
+                downsampling=down, depth=len(enc_channels) - 1, width=width,
+                channels=enc_channels,
+                change_channel_in_block=change_channels_in_block,
+                trainable_downsampling=trainable_downsampling,
+                stochastic_depth_rate=stochastic_depth_rate)
 
         final = final_block if final_block != "default_final" \
             else ConfigDict({"torch.nn.Conv2d": {"kernel_size": 1}})

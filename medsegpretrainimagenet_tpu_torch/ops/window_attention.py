@@ -201,16 +201,27 @@ class _WindowAttentionKernel(torch.autograd.Function):
                                            g), None)
 
 
+def _impl(force: Optional[str], device: torch.device) -> str:
+    if force not in (None, "torch"):
+        raise ValueError(f"force must be None or 'torch', got {force!r}")
+    return "torch" if force == "torch" or device.type == "cpu" else "kernel"
+
+
 def window_attention_core(q, k, v, bias, mask: Optional[torch.Tensor],
-                          scale: float,
-                          force: Optional[str] = None) -> torch.Tensor:
+                          scale: float, force: Optional[str] = None,
+                          train: bool = False) -> torch.Tensor:
     """Dispatch on where q lies: the CUDA kernel for a CUDA tensor (it
     raises on what it does not take; there is no fallback), the plain
     version for a CPU tensor.  ``force="torch"`` pins the plain version
-    (tests, and the kernel's comparison on the card)."""
-    if force not in (None, "torch"):
-        raise ValueError(f"force must be None or 'torch', got {force!r}")
-    if force == "torch" or q.device.type == "cpu":
+    (tests, and the kernel's comparison on the card).  Under autograd the
+    kernel's gradient is the recompute backward.
+
+    ``train`` is the JAX package's flag, which sends training to XLA on a
+    TPU.  It changes nothing here: on the H100 the Swin U-Net's bf16 step
+    ran alike on the kernel and on the plain version under autograd, within
+    the spread of its turns (chip_smoke.py ``[swin train]``, PERF.md), so
+    training takes the kernel as well."""
+    if _impl(force, q.device) == "torch":
         return window_attention_torch(q, k, v, bias, mask, scale)
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (q, k, v, bias, mask))
@@ -336,14 +347,13 @@ class _ImageAttentionKernel(torch.autograd.Function):
 
 def fused_image_window_attention(qkv, bias, mask: Optional[torch.Tensor],
                                  scale: float, window: int,
-                                 force: Optional[str] = None) -> torch.Tensor:
+                                 force: Optional[str] = None,
+                                 train: bool = False) -> torch.Tensor:
     """Image-layout window attention, qkv (B, R, R, 3C) -> (B, R, R, C).
     Dispatch as :func:`window_attention_core`: the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor or under
-    ``force="torch"``."""
-    if force not in (None, "torch"):
-        raise ValueError(f"force must be None or 'torch', got {force!r}")
-    if force == "torch" or qkv.device.type == "cpu":
+    tensor, the plain version for a CPU tensor or under ``force="torch"``;
+    ``train`` changes nothing, as there."""
+    if _impl(force, qkv.device) == "torch":
         return image_attention_torch(qkv, bias, mask, scale, window)
     needs_grad = torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in (qkv, bias, mask))

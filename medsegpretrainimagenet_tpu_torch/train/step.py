@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from ..models.blocks import ConvBlock, set_dropout_generator
+from ..models.blocks import draws, set_dropout_generator
 from .state import TrainState
 
 __all__ = ["make_train_step", "make_eval_step", "global_norm"]
@@ -102,9 +102,9 @@ def make_train_step(model, loss_fn: Callable, calculator, optimizer,
     applied on the device before the forward.
     """
     module = getattr(model, "module", model)
-    uses_rng = device_augment is not None or any(
-        isinstance(m, ConvBlock) and m.dropout_rate
-        for m in module.modules())
+    # every draw of the step (dropout, attention dropout, stochastic depth,
+    # the device augmentation) comes from the fragment's generator
+    uses_rng = device_augment is not None or draws(module)
 
     def train_step(state: TrainState, metrics_state, batch_stack):
         fragments = _fragments(batch_stack)

@@ -60,6 +60,8 @@ _RESNET_BLOCK_RE = re.compile(
 
 #: the reference's top-level encoder module names
 _TOP_LEVEL = {"first_block", "down_layers", "bottom_block", "stem", "levels"}
+#: the port's own DeepResNet blocks, which share the top-level ``levels``
+_PORT_RESNET_RE = re.compile(r"^levels\.\d+\.\d+\.(?:Conv|BatchNorm)_\d+\.")
 
 #: a reference BatchNorm leaf -> the port's (running statistics included)
 _BN_LEAVES = ("weight", "bias", "running_mean", "running_var",
@@ -73,8 +75,9 @@ _DROPPED = object()
 def looks_like_torch_encoder(state: Dict[str, torch.Tensor]) -> bool:
     """Whether *state* carries the reference's module names at its top
     level (the port's own checkpoints carry ``stem_block``,
-    ``level_convs``, ...)."""
-    return any(_strip(key).split(".", 1)[0] in _TOP_LEVEL for key in state)
+    ``level_convs``, ``stem_conv``, ``levels.{i}.{j}.Conv_k``, ...)."""
+    return any(_strip(key).split(".", 1)[0] in _TOP_LEVEL
+               and not _PORT_RESNET_RE.match(_strip(key)) for key in state)
 
 
 def _strip(key: str) -> str:

@@ -30,11 +30,19 @@ from medsegpretrainimagenet_tpu_torch.models import Model
 from medsegpretrainimagenet_tpu_torch.train import checkpoint as ckpt
 from medsegpretrainimagenet_tpu_torch.transfer import state_dict_from_jax
 
-from torch_port_helpers import build_model
+from torch_port_helpers import build_model, torch_switches_kept
 
 TOL = 1e-4
 ARCH = {"in_channel_size": 3, "out_channel_size": 1, "channels": (4, 8),
         "depth": 1}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def keep_torch_switches():
+    """The CLI runs of this file set torch's thread count (the config
+    default, 16) in this process; the next file's tests get it back."""
+    with torch_switches_kept():
+        yield
 
 
 def _config(logs, weights, epochs=3, **technical):

@@ -93,14 +93,15 @@ def test_drop_path_keeps_or_zeroes_without_rescaling():
     """The classification DropPath in training: each sample's branch kept
     as it is or zeroed; at eval the keep probability scales it."""
     x = torch.rand(64, 3, 3, 2) + 1.0
-    torch.manual_seed(0)
-    y = resnet.drop_path(x, 0.5, training=True)
+    y = resnet.drop_path(x, 0.5, training=True,
+                         generator=torch.Generator().manual_seed(0))
     kept = (y == x).flatten(1).all(1)
     dropped = (y == 0).flatten(1).all(1)
     assert bool((kept | dropped).all()) and 0 < int(kept.sum()) < 64
-    assert torch.equal(resnet.drop_path(x, 0.25, training=False),
+    assert torch.equal(resnet.drop_path(x, 0.25, training=False,
+                                        generator=None),
                        x * torch.tensor(0.75))
-    assert resnet.drop_path(x, 0.0, training=True) is x
+    assert resnet.drop_path(x, 0.0, training=True, generator=None) is x
 
 
 @pytest.mark.parametrize("downsample", [False, True])

@@ -2,10 +2,13 @@
 package: a small Swin U-Net and a small conv U-Net configuration, built by
 either package, and weight transplanting from a flax module into its torch
 counterpart."""
+import contextlib
+
 import jax
 import numpy as np
 import torch
 
+from medsegpretrainimagenet_tpu_torch import transfer
 from medsegpretrainimagenet_tpu_torch.transfer import state_dict_from_jax
 
 
@@ -49,6 +52,42 @@ def unet_config(channels=(4, 8, 16), in_channels=3, **architecture):
     return {"model": {"segmentation.models.UNet": {"architecture": arch}}}
 
 
+def attention_unet_config(channel_sizes=(8, 16), widths=(1, 1), base=4,
+                          decoder=(8, 4, 4), in_channels=3, mixing=None):
+    """A whole ``model`` config section of the ResNet attention U-Net (the
+    shape of ``config/downstream/*/resnet50_attention_unet.yaml``, cut to
+    size as ``tests/test_model_families_e2e.py`` cuts it): a ``DeepResNet``
+    v1 bottleneck encoder, ``AttentionBlock`` mixing and one decoder level
+    more than the encoder has, which undoes the stem's /2."""
+    return {"model": {"segmentation.models.UNet": {"architecture": {
+        "activation_function": {"final": "sigmoid"},
+        "encoder": {"classification.models.DeepResNet": {
+            "version": "v1", "bottleneck": True,
+            "channel_sizes": tuple(channel_sizes), "widths": tuple(widths),
+            "in_channels": in_channels, "base_channel_size": base}},
+        "mixing_block": mixing or {
+            "segmentation.models.blocks.AttentionBlock": {}},
+        "out_channel_size": 1, "decoder_channels": tuple(decoder)}}}}
+
+
+@contextlib.contextmanager
+def torch_switches_kept():
+    """Restore the process-wide switches that the experiment CLI sets from
+    ``meta/technical`` (CPU threads, deterministic algorithms) when the
+    block ends: a CLI run in a test process must not change the arithmetic
+    of the tests that run after it there (the thread count changes the
+    order of the CPU's float32 sums)."""
+    saved = (torch.get_num_threads(),
+             torch.are_deterministic_algorithms_enabled(),
+             torch.backends.cudnn.deterministic)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved[0])
+        torch.use_deterministic_algorithms(saved[1])
+        torch.backends.cudnn.deterministic = saved[2]
+
+
 def build_model(package_config, registry, model_cls, cfg):
     """Build the ``Model`` wrapper of either package from a plain config."""
     cd = package_config(cfg)
@@ -62,6 +101,72 @@ def transplant(variables, module: torch.nn.Module) -> torch.nn.Module:
     host = jax.tree_util.tree_map(np.asarray, variables)
     module.load_state_dict(state_dict_from_jax(host, module))
     return module.eval()
+
+
+def relative_error(got, want) -> float:
+    """max |got - want| over max |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def hold_model(jax_model, variables, port_module, x, cotangent, train,
+               dtype, skip=lambda name: False):
+    """The forward and the backward of one model in both packages from the
+    same *variables*, in *dtype* ("float32", or "float64" with JAX's x64
+    switched on and the port's module in double): the output, the pull-back
+    of *cotangent* (numpy, the output's shape) onto every parameter through
+    ``jax.vjp`` and autograd, and in train mode the updated running
+    statistics.  Returns {name: relative error} (parameters not *skip*ped,
+    "output", and the statistics), with the port's module left in
+    *dtype*."""
+    mutable = ["batch_stats"] if train and "batch_stats" in variables \
+        else False
+    wide = dtype == "float64"
+    with jax.enable_x64(wide):
+        cast = jax.tree_util.tree_map(
+            lambda a: jax.numpy.asarray(np.asarray(a), dtype), variables)
+
+        def forward(params):
+            out = jax_model.apply({**cast, "params": params},
+                                  jax.numpy.asarray(x, dtype), train=train,
+                                  mutable=mutable)
+            return out if mutable else (out, {})
+        want, pull, updated = jax.vjp(forward, cast["params"], has_aux=True)
+        (grads,) = pull(jax.numpy.asarray(cotangent, dtype))
+        want, grads, updated = jax.tree_util.tree_map(
+            np.asarray, (want, grads, dict(updated)))
+    port_module.train(train)
+    if wide:
+        port_module.double()
+    port_module.zero_grad(set_to_none=True)
+    out = port_module(torch.from_numpy(np.asarray(x, dtype)))
+    out.backward(torch.from_numpy(np.asarray(cotangent, dtype)))
+    want_grads = port_named(grads)
+    errors = {"output": relative_error(out.detach().numpy(), want)}
+    for name, p in port_module.named_parameters():
+        if not skip(name):
+            errors[name] = relative_error(p.grad.numpy(), want_grads[name])
+    if updated:
+        want_stats = port_named(updated["batch_stats"], stats=True)
+        for name, value in port_module.state_dict().items():
+            if name.endswith(("running_mean", "running_var")):
+                errors[name] = relative_error(value.numpy(),
+                                              want_stats[name])
+    return errors
+
+
+def port_named(tree, stats: bool = False):
+    """A flax tree of parameters (or, with *stats*, of ``batch_stats``) as
+    {the port's name: numpy array in the port's layout}, in the tree's own
+    dtype (``state_dict_from_jax`` makes float32 tensors)."""
+    out = {}
+    for path, value in transfer._leaves(tree):
+        value = np.asarray(value)
+        if path[-1] == "kernel":
+            value = value.T if value.ndim == 2 \
+                else value.transpose(3, 2, 0, 1)
+        out[transfer._torch_name(path, stats=stats)] = value
+    return out
 
 
 def reference_state(state, family: str, version: str = "v1"):
