@@ -40,8 +40,8 @@ peak memory per step and the share of the operations bound, and runs one
 turn with two fragments of 8.  ``[cli]`` then drives the port's experiment
 CLI as a user runs it, ``python3 -m medsegpretrainimagenet_tpu_torch.cli
 config.yaml`` in a process of its own, on a synthetic COVID-QU tree (1024
-training images of 256 x 256): the full-width CLI config for three epochs,
-then a fourth under ``--continued``.  It checks the run files (every
+training images of 256 x 256): the full-width CLI config for two epochs,
+then a third under ``--continued``.  It checks the run files (every
 ``.pt`` loads into the model), the row counts of epoch_logs.csv and
 batch_logs.csv, the columns, the backups, the loss falling and the val
 Dice rising, and that the error envelope printed nothing; it prints the
@@ -103,7 +103,17 @@ which of the two candidates for ``train=True`` is faster;
 on synthetic COVID-QU trees, two epochs and a third under
 ``--continued``, the encoder grafted from reference-named weights, and
 count K1's launches in a no-grad validation pass of the trained Swin
-U-Net.
+U-Net.  ``[blocks small]`` steps a small float32 U-Net of each block kind
+of the residual zoo (ResNeXt, inverted bottleneck, ConvNeXt) with its
+shortcut, layer scaling and stochastic depth (the drop paths fed in alike)
+on the card against the CPU; ``[cli mixed]`` runs one epoch of a
+``MixedDataset`` of two COVID-QU readers (lazy reloads, shuffled
+switching, over- and under-balancing) through the CLI, its stateful loads
+kept serial; ``[cli idrid]`` trains the paper's IDRiD U-Net (the MA task,
+448 -> 224 crops) through the CLI on a synthetic tree of 2848 x 4288
+fundus images, two epochs and a third under ``--continued``, with the
+reader's host seconds per image, the crops it keeps and drops, the host
+assembly per batch, the epochs' images/s and the process's peak memory.
 Any failure exits non-zero.  Without a CUDA
 card, or without the package beside it, it exits non-zero and prints no
 result.  It imports nothing of JAX.
@@ -1589,8 +1599,9 @@ def phase_metrics(step_rate: float) -> None:
 
 #: the [cli] run: COVID-QU-shaped synthetic data, 1024 training images (64
 #: steps of 16 per epoch) and 16 test images (the val split under
-#: validate_on_test), 3 epochs, then a 4th under --continued
-CLI_IMAGES, CLI_TEST, CLI_EPOCHS, CLI_SIZE, CLI_BATCH = 1024, 16, 3, 256, 16
+#: validate_on_test), 2 epochs, then a 3rd under --continued (cut from 3
+#: and a 4th, to keep the script under 900 s beside [cli idrid])
+CLI_IMAGES, CLI_TEST, CLI_EPOCHS, CLI_SIZE, CLI_BATCH = 1024, 16, 2, 256, 16
 #: epoch_logs.csv's columns for Dice loss and metrics.DiceIndex, the JAX
 #: CLI's set (tests/test_torch_cli.py holds the two CLIs' sets equal)
 CLI_EPOCH_COLUMNS = {"epoch", "learning_rate", "dice_loss",
@@ -1676,10 +1687,11 @@ def _csv_rows(path: Path) -> list:
         return list(csv.DictReader(fh))
 
 
-def _cli_process(workdir: Path, config: dict, *modifiers: str):
+def _cli_process(workdir: Path, config: dict, *modifiers: str,
+                 launcher=None):
     """``python3 -m medsegpretrainimagenet_tpu_torch.cli`` as a user runs
-    it, in a process of its own.  Returns (wall seconds, the finished
-    process)."""
+    it, in a process of its own (or the Python source *launcher* with the
+    same arguments).  Returns (wall seconds, the finished process)."""
     import os
 
     from medsegpretrainimagenet_tpu_torch.config import dump_yaml
@@ -1690,10 +1702,11 @@ def _cli_process(workdir: Path, config: dict, *modifiers: str):
                PYTHONPATH=str(ROOT) + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
     t0 = time.perf_counter()
+    entry = ["-m", "medsegpretrainimagenet_tpu_torch.cli"] \
+        if launcher is None else ["-c", launcher]
     out = subprocess.run(
-        [sys.executable, "-m", "medsegpretrainimagenet_tpu_torch.cli",
-         str(path), *modifiers], cwd=workdir, env=env, capture_output=True,
-        text=True, timeout=400)
+        [sys.executable, *entry, str(path), *modifiers], cwd=workdir,
+        env=env, capture_output=True, text=True, timeout=400)
     return time.perf_counter() - t0, out
 
 
@@ -3902,6 +3915,500 @@ def phase_cli_family(workdir: Path, family: str) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the residual block zoo, MixedDataset and IDRiD
+# ---------------------------------------------------------------------------
+
+#: [blocks small]: one small f32 U-Net per block kind of the residual zoo
+#: (depth 2, channels 8-16-32, width 2), with its shortcut, layer scaling
+#: 0.1 and stochastic depth 0.1, stepped card vs CPU as [train small] steps
+#: the ConvBlock U-Net; the drop paths fed in alike to both (the card and
+#: the CPU draw differently)
+BLOCK_ZOO = (
+    ("ResNeXtBlock", {"identity": {"expand_method": "fill_with_zeros"}}),
+    ("InvertedBottleneckBlock", "convolution"),
+    ("ConvNeXtBlock", {"down": "identity", "up": {"convolution": {
+        "kernel_size": 3}}}))
+#: [cli mixed]: a MixedDataset of two COVID-QU readers on a tree of the
+#: [cli] kind (64 + 16 images), one epoch, not measured
+MIXED_IMAGES = 64
+#: [cli idrid]: the paper's IDRiD lesion segmentation (the MA task) on a
+#: synthetic tree at the real image size, IDRID_SOURCE (H, W): IDRID_TRAIN
+#: + IDRID_TEST images (cut from 54 + 27), fundus discs of radius
+#: IDRID_DISC on black, IDRID_SPOTS bright lesions each.  The reader's
+#: defaults, but the crop: resized to IDRID_BASE, IDRID_CROP crops at
+#: stride IDRID_STRIDE (val: at the crop size), darkness threshold 0.99;
+#: RandomPick crops of IDRID_PICK (the shipped config's 448 -> 224), val
+#: Partition (2, 2).  The [cli] U-Net in bf16, batch CLI_BATCH, SGD at
+#: IDRID_LR (12 steps an epoch), the COVID-QU metric set; 2 epochs, then a
+#: 3rd under --continued
+IDRID_TRAIN, IDRID_TEST, IDRID_SOURCE = 12, 6, (2848, 4288)
+IDRID_DISC, IDRID_SPOTS = 1100, 60
+IDRID_BASE, IDRID_CROP, IDRID_STRIDE, IDRID_PICK = (1024, 2048), 448, 256, 224
+IDRID_LR, IDRID_EPOCHS = 0.05, 2
+#: epoch_logs.csv's columns of a one-task run with the Dice loss and the
+#: COVID-QU metric set, the JAX CLI's (tests/test_torch_idrid.py)
+IDRID_EPOCH_COLUMNS = {
+    "epoch", "learning_rate", "dice_loss", "val_dice_loss",
+    *(f"{split}metrics/{name}" for split in ("", "val_") for name in (
+        "dice_index_threshold_0.5", "jaccard_index_threshold_0.5",
+        "mcc_threshold_0.5", "modified_hausdorff_distance_threshold_0.5",
+        "area_under_roc", "area_under_roc_pooled"))}
+#: the CLI run in a process that reports its peak device memory and peak
+#: host memory (``ru_maxrss``, KiB) on its way out
+_PEAKS_LAUNCHER = (
+    "import atexit, resource, sys\n"
+    "import torch\n"
+    "from medsegpretrainimagenet_tpu_torch.cli.experiment import main\n"
+    "atexit.register(lambda: print(\n"
+    "    f'[peaks] {torch.cuda.max_memory_allocated()} '\n"
+    "    f'{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss}',\n"
+    "    file=sys.stderr))\n"
+    "main(sys.argv[1:])\n")
+
+
+def _keep_pattern(batch: int, rate: float):
+    """The fed-in drop-path mask: which samples keep a residual branch, a
+    fixed pattern per rate."""
+    import numpy as np
+
+    return (np.arange(batch) + round(rate * 1000)) % 3 != 0
+
+
+@contextlib.contextmanager
+def fed_drop_paths(calls: list):
+    """``blocks.drop_path`` with the masks of :func:`_keep_pattern` on the
+    input's device, each call appended to *calls*; restored after."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.models import blocks
+
+    original = blocks.drop_path
+
+    def drop_path(x, rate, training, generator):
+        if rate == 0.0 or not training:
+            return x
+        calls.append(rate)
+        keep = torch.from_numpy(_keep_pattern(x.shape[0], rate)).to(
+            x.device).reshape((-1,) + (1,) * (x.ndim - 1))
+        return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+    blocks.drop_path = drop_path
+    try:
+        yield
+    finally:
+        blocks.drop_path = original
+
+
+def phase_blocks_small():
+    """[blocks small]: per kind of BLOCK_ZOO, a small float32 U-Net with its
+    shortcut, layer scaling 0.1 and stochastic depth 0.1, three steps of
+    two fragments of 2 at 64 x 64 on the card and on the CPU from the same
+    weights, TF32 off: loss, parameters and running statistics within
+    TRAIN_TOL."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.models import blocks
+
+    for kind, residual in BLOCK_ZOO:
+        cfg = unet_256_train_config(channels=(8, 16, 32))
+        cfg["model"]["segmentation.models.UNet"]["architecture"].update({
+            "basic_block": f"segmentation.models.blocks.{kind}",
+            "width": 2, "residual_connections": residual,
+            "layer_scaling": 0.1, "stochastic depth rate": 0.1})
+        runs, calls = [], []
+        for device in ("cpu", "cuda"):
+            model, state, calculator, step = build_trainer(cfg, device)
+            check(blocks.draws(model.module),
+                  f"[blocks small] {kind}: the U-Net does not draw")
+            metrics_state = calculator.init_state(device)
+            losses = []
+            with tf32_off(), fed_drop_paths(calls):
+                for k in range(3):
+                    batch = {key: v.to(device) for key, v in
+                             segmentation_batch(2, 2, 64, seed=k).items()}
+                    state, metrics_state, per_batch = step(
+                        state, metrics_state, batch)
+                    losses.append(per_batch["dice_loss"].item())
+            runs.append((losses, {k: v.double().cpu() for k, v in
+                                  model.module.state_dict().items()}))
+        (cpu_losses, cpu_state), (losses, state) = runs
+        loss_err = max(abs(a - b) for a, b in zip(losses, cpu_losses))
+        state_err = {k: (v - cpu_state[k]).abs().max().item()
+                     for k, v in state.items()}
+        worst = max(state_err, key=state_err.get)
+        n_params = sum(v.numel() for k, v in state.items()
+                       if not k.endswith(("running_mean", "running_var",
+                                          "num_batches_tracked")))
+        check(loss_err < TRAIN_TOL and state_err[worst] < TRAIN_TOL
+              and len(calls) > 0,
+              f"[blocks small] {kind}: card vs CPU loss {loss_err}, {worst} "
+              f"{state_err[worst]} (bar {TRAIN_TOL}); {len(calls)} drop "
+              f"paths")
+        print(f"[blocks small] {kind} U-Net ({n_params} parameters, "
+              f"shortcut {residual}, layer scaling 0.1, stochastic depth "
+              f"0.1 with {len(calls) // 2} drop paths fed in per run), 3 "
+              f"steps of 2 fragments of 2 at 64x64, f32, TF32 off: card vs "
+              f"CPU max |diff| loss {loss_err:.3g}, parameters and running "
+              f"statistics {state_err[worst]:.3g} ({worst}; bar "
+              f"{TRAIN_TOL})", flush=True)
+
+
+def mixed_config(workdir: Path) -> dict:
+    """[cli mixed]'s config: the [cli] config (not measured) for one epoch
+    of a MixedDataset of two COVID-QU readers of the same tree, one
+    validating on the test split and one on a random split, switching every
+    2 records in shuffled order, over-balanced in train and under-balanced
+    in val, reloaded lazily, with two loader workers asked for."""
+    cfg = cli_config(workdir, 1, measured=False)
+    reader = cfg["data"]["data"].pop("segmentation.datasets.COVIDQUDataset")
+    cfg["data"]["data"]["data.MixedDataset"] = {
+        "datasets": tuple(
+            {"segmentation.datasets.COVIDQUDataset": {
+                **reader, "validate_on_test": on_test}}
+            for on_test in (True, False)),
+        "switch_frequency": 2, "preserve_order": False,
+        "balancing_strategy": {"train": "over", "val": "under"},
+        "preload_data": False}
+    cfg["meta"]["technical"]["number_of_data_loader_workers"] = 2
+    return cfg
+
+
+def phase_cli_mixed(workdir: Path) -> None:
+    """[cli mixed]: the CLI in a process of its own on mixed_config, one
+    epoch, not measured: exit 0, nothing through the error envelope, the
+    batch count of the union, finite logs; in this process, the same
+    MixedDataset and loader keep the stateful loads serial (no worker
+    pool)."""
+    import os
+
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
+    from medsegpretrainimagenet_tpu_torch.data import BalancedDataLoader
+    from medsegpretrainimagenet_tpu_torch.data.sampling import \
+        StatefulLoadFunctions
+
+    t0 = time.perf_counter()
+    workdir.mkdir()
+    write_covidqu_tree(workdir / "data", images=MIXED_IMAGES)
+    cfg = mixed_config(workdir)
+    os.environ["MST_DATA_DIR"] = str(workdir / "data")
+    cd = ConfigDict({"data": cfg["data"]["data"]})
+    cd.expand()
+    registry.fill_spec(cd, "data")
+    mixed = registry.build(cd["data"].trim(), seed=777)
+    sampling = ConfigDict({"sampling": {"batch size": CLI_BATCH}})
+    BalancedDataLoader.fill_kwargs(sampling["sampling"])
+    loader = BalancedDataLoader(mixed.train, sampling["sampling/train"],
+                                bs=CLI_BATCH, actual_bs=CLI_BATCH, seed=777,
+                                load_function=mixed.load_function,
+                                num_workers=2)
+    check(isinstance(mixed.load_function, StatefulLoadFunctions)
+          and loader._load_executor() is None,
+          "[cli mixed] the loader would run MixedDataset's stateful loads "
+          "on its worker pool")
+    seconds = _run_cli(workdir, cfg)
+    (run,) = (workdir / "logs").glob("*/Experiment/run_1")
+    rows = _csv_rows(run / "epoch_logs.csv")
+    batch_rows = _csv_rows(run / "batch_logs.csv")
+    check(len(rows) == 1 and set(rows[0]) == CLI_EPOCH_COLUMNS
+          and len(batch_rows) == len(loader)
+          and all(math.isfinite(float(v)) for r in rows + batch_rows
+                  for v in r.values()),
+          f"[cli mixed] {len(rows)} epoch rows {rows}, {len(batch_rows)} "
+          f"batch rows (want {len(loader)})")
+    print(f"[cli mixed] MixedDataset of two COVID-QU readers ({mixed.train_ds_sizes} "
+          f"train and {mixed.val_ds_sizes} val records; validate_on_test "
+          f"and a random split), switch every 2 records, over / under, "
+          f"lazy reloads, 2 loader workers asked for and refused: 1 epoch "
+          f"of {len(mixed.train['x'])} records ({len(batch_rows)} batches) "
+          f"in {seconds:.1f} s of wall time; dice_loss "
+          f"{rows[0]['dice_loss']}, val Dice "
+          f"{rows[0]['val_metrics/dice_index_threshold_0.5']}", flush=True)
+    print(f"[cli mixed] {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def write_idrid_tree(root: Path, seed: int = 0) -> None:
+    """The IDRiD layout under *root*/idrid at the real image size: fundus
+    ``.jpg`` files (an orange disc of radius IDRID_DISC, darker towards its
+    rim, with noise, on black, so that the corner crops fall under the
+    darkness filter) and ``1. Microaneurysms`` ``.tif`` masks of IDRID_SPOTS
+    bright round lesions painted into each image."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    h, w = IDRID_SOURCE
+    base = root / "idrid" / "Segmentation" / "A. Segmentation"
+    yy, xx = np.ogrid[:h, :w]
+    r2 = ((yy - h / 2) ** 2 + (xx - w / 2) ** 2).astype(np.float32) \
+        / IDRID_DISC ** 2
+    shade = np.where(r2 < 1, 1 - 0.35 * r2, 0)[..., None]
+    fundus = shade * np.array([200, 95, 40], np.float32)
+    fundus = np.clip(fundus + shade * rng.normal(0, 6, fundus.shape)
+                     .astype(np.float32), 0, 255).astype(np.uint8)
+    idx = 1
+    for part, n in (("a. Training Set", IDRID_TRAIN),
+                    ("b. Testing Set", IDRID_TEST)):
+        img_dir = base / "1. Original Images" / part
+        mask_dir = base / "2. All Segmentation Groundtruths" / part \
+            / "1. Microaneurysms"
+        img_dir.mkdir(parents=True)
+        mask_dir.mkdir(parents=True)
+        for _ in range(n):
+            img = fundus.copy()
+            mask = np.zeros((h, w), np.uint8)
+            for _ in range(IDRID_SPOTS):
+                rho = IDRID_DISC * 0.85 * np.sqrt(rng.random())
+                phi = 2 * np.pi * rng.random()
+                cy, cx = int(h / 2 + rho * np.sin(phi)), \
+                    int(w / 2 + rho * np.cos(phi))
+                rad = int(rng.integers(10, 28))
+                py, px = np.ogrid[-rad:rad + 1, -rad:rad + 1]
+                spot = py ** 2 + px ** 2 <= rad ** 2
+                sl = (slice(cy - rad, cy + rad + 1),
+                      slice(cx - rad, cx + rad + 1))
+                img[sl][spot] = (250, 235, 150)
+                mask[sl][spot] = 255
+            Image.fromarray(img).save(img_dir / f"IDRiD_{idx:02d}.jpg",
+                                      quality=90)
+            Image.fromarray(mask).save(mask_dir / f"IDRiD_{idx:02d}_MA.tif")
+            idx += 1
+
+
+def idrid_config(workdir: Path, epochs: int, absolute_path=None,
+                 measured: bool = True) -> dict:
+    """[cli idrid]'s config: the IDRiD reader (the MA task) and its
+    transforms in place of [cli]'s COVID-QU reader, the COVID-QU metric
+    set, SGD at IDRID_LR, no cuDNN autotuning."""
+    cfg = cli_config(workdir, epochs, absolute_path, measured)
+    cfg["data"] = {
+        "data": {"segmentation.datasets.IDRiD": {
+            "task": "MA", "base_image_sizes": IDRID_BASE,
+            "cropped_image_sizes": IDRID_CROP,
+            "train_crop_stride": (IDRID_STRIDE, IDRID_STRIDE),
+            "darkness_threshold": 0.99, "validation_set": "test",
+            "train_set_size": IDRID_TRAIN}},
+        "sampling": {"batch_size": CLI_BATCH},
+        "transforms": {
+            "train": (
+                {"segmentation.transforms.wrapped_transforms.RandomPick": {
+                    "crop_size": IDRID_PICK}},
+                {"segmentation.transforms.wrapped_transforms.RandomFlip": {}}),
+            "val": {"segmentation.transforms.wrapped_transforms.Partition": {
+                "number_of_partitions": (2, 2), "size": IDRID_PICK}},
+            "casting": {"mask": "torch.LongTensor"}}}
+    cfg["training"]["optimizer"]["sgd"]["learning_rate"]["constant"][
+        "base"] = IDRID_LR
+    # no cuDNN autotuning: a large part of the first epoch, whose steps
+    # the host's crops pace anyway
+    cfg["meta"]["technical"]["use_cudnn_benchmarking"] = False
+    cfg["metrics"] = {"metrics": COVIDQU_METRICS}
+    return cfg
+
+
+def _rss_bytes() -> int:
+    """This process's resident memory now (Linux ``VmRSS``)."""
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith("VmRSS:"):
+                return 1024 * int(line.split()[1])
+    return 0
+
+
+def _idrid_reader(workdir: Path):
+    """The port's IDRiD reader on the tree with [cli idrid]'s settings, in
+    this process, with its host seconds: the whole read, and for the first
+    training image its decode, its resize and its mask's decode and
+    resize.  Returns (dataset, seconds)."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict
+    from medsegpretrainimagenet_tpu_torch.data import warp
+    from medsegpretrainimagenet_tpu_torch.data.readers import IDRiD
+
+    os.environ["MST_DATA_DIR"] = str(workdir / "data")
+    base = workdir / "data" / "idrid" / "Segmentation" / "A. Segmentation"
+    seconds = {}
+    t0 = time.perf_counter()
+    with Image.open(base / "1. Original Images" / "a. Training Set"
+                    / "IDRiD_01.jpg") as image:
+        arr = np.asarray(image)[:, 96:-96] / 255
+    seconds["decode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warp.resize(arr, IDRID_BASE)
+    seconds["resize"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with Image.open(base / "2. All Segmentation Groundtruths"
+                    / "a. Training Set" / "1. Microaneurysms"
+                    / "IDRiD_01_MA.tif") as image:
+        mask = np.asarray(image)[:, 96:-96]
+    warp.resize(mask, IDRID_BASE)
+    seconds["mask"] = time.perf_counter() - t0
+    cfg = idrid_config(workdir, 1)["data"]["data"][
+        "segmentation.datasets.IDRiD"]
+    t0 = time.perf_counter()
+    dataset = IDRiD(ConfigDict(cfg), seed=777)
+    seconds["read"] = time.perf_counter() - t0
+    return dataset, seconds
+
+
+def _idrid_host_assembly(workdir: Path, dataset) -> float:
+    """Host ms per assembled train batch of [cli idrid]'s own chain
+    (RandomPick's rotated crops, the flip, the cast) and loader."""
+    import itertools
+
+    from medsegpretrainimagenet_tpu_torch.cli.run_experiment import \
+        build_transform_pipelines
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict
+    from medsegpretrainimagenet_tpu_torch.data import BalancedDataLoader
+
+    cd = ConfigDict(idrid_config(workdir, 1))
+    cd.expand()
+    pipeline = build_transform_pipelines(cd, seed=1)[0]
+    sampling = ConfigDict({"sampling": {"batch size": CLI_BATCH}})
+    BalancedDataLoader.fill_kwargs(sampling["sampling"])
+    loader = BalancedDataLoader(dataset.train, sampling["sampling/train"],
+                                bs=CLI_BATCH, actual_bs=CLI_BATCH,
+                                transforms=pipeline, seed=1)
+    batches = iter(loader)
+    t0 = time.perf_counter()
+    got = list(itertools.islice(batches, 4))
+    ms = 1e3 * (time.perf_counter() - t0) / len(got)
+    batch = got[0]
+    check(batch["x"].shape == (CLI_BATCH, IDRID_PICK, IDRID_PICK, 3)
+          and batch["mask"].shape == (CLI_BATCH, IDRID_PICK, IDRID_PICK),
+          f"[cli idrid] assembled batch "
+          f"{[(k, v.shape, v.dtype) for k, v in batch.items()]}")
+    return ms
+
+
+def phase_cli_idrid(workdir: Path, step_rate: float) -> None:
+    """[cli idrid]: the paper's IDRiD U-Net through the experiment CLI in a
+    process of its own on a synthetic tree at the real image size,
+    IDRID_EPOCHS epochs and one more under --continued: exit 0 with
+    nothing through the error envelope, the batches the reader's crop
+    count gives, the JAX CLI's columns, ``.pt`` files that load, the train
+    Dice loss falling and the val Dice finite and rising; the reader's
+    host seconds, the host assembly per batch, the epochs' images/s beside
+    [train]'s and the CLI process's peak memory."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
+    from medsegpretrainimagenet_tpu_torch.models import Model
+    from medsegpretrainimagenet_tpu_torch.train import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    card = card_line()
+    workdir.mkdir()
+    write_idrid_tree(workdir / "data")
+    images = IDRID_TRAIN + IDRID_TEST
+    print(f"[cli idrid] synthetic IDRiD tree: {IDRID_TRAIN} + {IDRID_TEST} "
+          f"fundus images of {IDRID_SOURCE[0]}x{IDRID_SOURCE[1]} with MA "
+          f"masks in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    rss = _rss_bytes()
+    dataset, reader_s = _idrid_reader(workdir)
+    held = _rss_bytes() - rss
+    kept, dropped = dataset.kept, dataset.dropped
+    # crops per image on the reader's grid (train at the stride, val at
+    # the crop size), before the darkness filter
+    grid = {split: n * math.prod((b - IDRID_CROP) // step + 1
+                                 for b in IDRID_BASE)
+            for split, n, step in (("train", IDRID_TRAIN, IDRID_STRIDE),
+                                   ("val", IDRID_TEST, IDRID_CROP))}
+    check(all(kept[s] + dropped[s] == grid[s] and kept[s] > 0
+              for s in grid) and dropped["train"] > 0,
+          f"[cli idrid] crops kept {kept}, dropped {dropped} of {grid}")
+    print(f"[cli idrid] reader (this process; {card}): {images} images "
+          f"in {reader_s['read']:.2f} s of host time = "
+          f"{reader_s['read'] / images:.3f} s per image (first image: "
+          f"decode {reader_s['decode']:.3f} s, resize "
+          f"{reader_s['resize']:.3f} s, mask decode and resize "
+          f"{reader_s['mask']:.3f} s); {IDRID_CROP}x{IDRID_CROP} crops "
+          f"kept / dropped by the darkness filter: train {kept['train']} / "
+          f"{dropped['train']}, val {kept['val']} / {dropped['val']}; the "
+          f"dataset adds {held / 2 ** 30:.2f} GiB to this process's "
+          f"resident memory", flush=True)
+    assembly_ms = _idrid_host_assembly(workdir, dataset)
+    print(f"[cli idrid] host assembly {assembly_ms:.1f} ms per train batch "
+          f"of {CLI_BATCH} (RandomPick's rotated {IDRID_PICK}x{IDRID_PICK} "
+          f"crops, flip, cast; {card})", flush=True)
+    del dataset
+
+    steps = -(-kept["train"] // CLI_BATCH)
+    cd = ConfigDict({"model": idrid_config(workdir, 1)["model"]})
+    cd.expand()
+    registry.fill_spec(cd, "model")
+    module = registry.build(cd, key="model", wrapper=Model).module
+    seconds, peaks = [], None
+    for epochs, flags in ((IDRID_EPOCHS, ()),
+                          (IDRID_EPOCHS + 1, ("--continued",))):
+        runs = list((workdir / "logs").glob("*/Experiment"))
+        cfg = idrid_config(workdir, epochs, absolute_path=str(runs[0]) + "/"
+                           if runs else None, measured=not flags)
+        wall, out = _cli_process(workdir, cfg, *flags,
+                                 launcher=_PEAKS_LAUNCHER if not flags
+                                 else None)
+        marks = [m for m in ENVELOPE_MARKS if m in out.stderr]
+        check(out.returncode == 0 and not marks,
+              f"[cli idrid] {' '.join(flags) or 'first run'}: exit "
+              f"{out.returncode}, envelope marks {marks}; stderr tail:\n"
+              f"{out.stderr[-4000:]}")
+        if not flags:
+            found = re.findall(r"\[peaks\] (\d+) (\d+)", out.stderr)
+            check(bool(found), "[cli idrid] the run reported no peaks")
+            peaks = [int(v) for v in found[-1]]
+        seconds.append(wall)
+        (run,) = (workdir / "logs").glob("*/Experiment/run_1")
+        rows = _csv_rows(run / "epoch_logs.csv")
+        check(len(rows) == epochs and set(rows[0]) == IDRID_EPOCH_COLUMNS
+              and len(_csv_rows(run / "batch_logs.csv")) == steps * epochs
+              and all(math.isfinite(float(v)) for r in rows
+                      for v in r.values()),
+              f"[cli idrid] {len(rows)} epoch rows (want {epochs}), "
+              f"{len(_csv_rows(run / 'batch_logs.csv'))} batch rows (want "
+              f"{steps} per epoch), columns "
+              f"{sorted(rows[0]) if rows else None}: {rows}")
+    for name in ("last_model_state_dict.pt", "best_model_state_dict.pt"):
+        module.load_state_dict(ckpt.load_params_file(run / name))
+    saved = ckpt.load_state_file(run / "optimizer_state_dict.pt")
+    check(saved["step"] == steps * (IDRID_EPOCHS + 1)
+          and ckpt.load_params_file(run / "checkpoint_epoch.pt")
+          == {"epoch": IDRID_EPOCHS + 1},
+          f"[cli idrid] optimizer step {saved['step']}")
+    loss = [float(r["dice_loss"]) for r in rows]
+    dice = [float(r["val_metrics/dice_index_threshold_0.5"]) for r in rows]
+    check(loss[-1] < loss[0] and dice[-1] > dice[0],
+          f"[cli idrid] train Dice loss {loss} falling, val Dice {dice} "
+          f"rising")
+    print(f"[cli idrid] {IDRID_EPOCHS} epochs in {seconds[0]:.1f} s of wall "
+          f"time (process and reading included), the "
+          f"{IDRID_EPOCHS + 1}rd under --continued {seconds[1]:.1f} s; "
+          f"{steps} steps of {CLI_BATCH} an epoch; train Dice loss "
+          f"{[round(v, 4) for v in loss]}, val Dice "
+          f"{[round(v, 4) for v in dice]}, val HD95 "
+          f"{[r['val_metrics/modified_hausdorff_distance_threshold_0.5'] for r in rows]}"
+          f", val AUROC {[r['val_metrics/area_under_roc'] for r in rows]}",
+          flush=True)
+    for row in _csv_rows(run / "profile" / "epoch_times.csv"):
+        train_s = float(row["train_s"])
+        rate = kept["train"] / train_s
+        print(f"[cli idrid] epoch {row['epoch']}: train {train_s:.3f} s = "
+              f"{rate:.1f} images/s of {IDRID_PICK}x{IDRID_PICK} "
+              f"({100 * rate / step_rate:.1f} % of [train]'s "
+              f"{step_rate:.1f} step-only images/s at 256x256), val "
+              f"{float(row['val_s']):.3f} s, checkpoints "
+              f"{float(row['ckpt_s']):.3f} s; {card}", flush=True)
+    print(f"[cli idrid] the first run's process: peak device memory "
+          f"{peaks[0] / 2 ** 30:.2f} GiB, peak host memory "
+          f"{peaks[1] / 2 ** 20:.2f} GiB; {card}", flush=True)
+    del module
+    torch.cuda.empty_cache()
+    print(f"[cli idrid] {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     if not (ROOT / "medsegpretrainimagenet_tpu_torch").is_dir():
         fail("run from a checkout: the package medsegpretrainimagenet_tpu_"
@@ -3946,6 +4453,10 @@ def main() -> int:
                                   Path(tmp) / "cli_swin", "swin")
         timed("cli resnet", phase_cli_family, Path(tmp) / "cli_resnet",
               "resnet")
+        timed("blocks small", phase_blocks_small)
+        timed("cli mixed", phase_cli_mixed, Path(tmp) / "cli_mixed")
+        timed("cli idrid", phase_cli_idrid, Path(tmp) / "cli_idrid",
+              step_rate)
 
     # per kernel: the 14 calls of one bf16 forward at batch 24, summed,
     # L2-cold (warm_ms: the same calls on warm inputs); launches from its

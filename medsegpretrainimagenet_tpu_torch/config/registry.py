@@ -25,7 +25,7 @@ from typing import Any, Callable, Optional, Union
 from .config_dict import ConfigDict
 
 __all__ = ["register", "resolve", "build", "fill_spec", "get_kwargs",
-           "accepts_kwarg", "RegistryError", "register_not_ported"]
+           "accepts_kwarg", "RegistryError"]
 
 
 class RegistryError(KeyError):
@@ -54,23 +54,6 @@ def register(*names: str) -> Callable:
             _COMPONENTS[name] = obj
         return obj
     return decorate
-
-
-def register_not_ported(*names: str, item: str) -> None:
-    """Register *names*, components of the JAX package that the port does
-    not have yet, as constructors that raise NotImplementedError naming
-    their ROADMAP.md *item*: a config that names one fails with that
-    message, not with an unknown-name error."""
-    class NotPorted:
-        PARAMS: dict = {}
-
-        def __init__(self, *args, **kwargs):
-            raise NotImplementedError(
-                f"{names[0]} is not ported yet (ROADMAP.md {item})")
-
-    NotPorted.__name__ = NotPorted.__qualname__ = \
-        f"NotPorted[{names[0]}]"
-    register(*names)(NotPorted)
 
 
 def _populate():

@@ -43,14 +43,15 @@ def _ensure_hwc(x):
     return x, squeeze
 
 
-def _warp_affine(arr, matrix, dsize, nearest, border_mode, fill):
+def _warp_affine(arr, matrix, dsize, nearest, border_mode, fill,
+                 window=None):
     """``warp.warp_affine`` with OpenCV's scalar border value: OpenCV warps
     at most four channels at a time and fills the first of each group of
     four with *fill*, the others with 0; the JAX module inherits that."""
     arr, _ = _ensure_hwc(np.asarray(arr, np.float32))
     fills = np.where(np.arange(arr.shape[2]) % 4 == 0, float(fill), 0.0)
     return warp.warp_affine(arr, matrix, dsize, nearest=nearest,
-                            border=border_mode, fill=fills)
+                            border=border_mode, fill=fills, window=window)
 
 
 def _rotate_array(arr, angle, nearest, border_mode, fill):
@@ -316,9 +317,11 @@ class RandomPick(_JointTransform):
                                       1.0)
         matrix[0, 2] += (new_w - w) / 2
         matrix[1, 2] += (new_h - h) / 2
-        rotated = _warp_affine(arr, matrix, (new_w, new_h), is_mask,
-                               "BORDER_CONSTANT", 0)
-        crop = rotated[top:top + self.crop_size, left:left + self.crop_size]
+        # the crop of the rotated canvas, computed alone
+        crop = _warp_affine(arr, matrix, (new_w, new_h), is_mask,
+                            "BORDER_CONSTANT", 0,
+                            window=(slice(top, top + self.crop_size),
+                                    slice(left, left + self.crop_size)))
         # guard against edge rounding: pad to exact crop size if needed
         ph = self.crop_size - crop.shape[0]
         pw = self.crop_size - crop.shape[1]

@@ -19,8 +19,11 @@ where OpenCV is not installed:
   constant, replicated, reflected or wrapped border.  OpenCV 5 warps a
   float image in float on every border (OpenCV 4 quantised the source
   coordinates to 1/32 pixel; 5 does not), so the two agree to float
-  rounding: within 3e-6 on [0, 1] images, and every nearest pixel equal,
-  on all five borders; :func:`rotation_matrix` is
+  rounding: within 3e-6 on [0, 1] images.  Nearest computes the source
+  coordinates in float32 as OpenCV 5's loop does (fused multiply-adds in
+  its vectorised columns, another order in its scalar tail), so every
+  nearest pixel is OpenCV's, on all five borders, also where a
+  coordinate falls on a half pixel; :func:`rotation_matrix` is
   ``cv2.getRotationMatrix2D``.
 * :func:`warp_affine_fixed`: ``cv2.warpAffine`` of a float64 image with a
   constant border, which OpenCV 5 still runs through its fixed-point map
@@ -31,7 +34,7 @@ Images are (H, W) or (H, W, C) arrays.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -103,20 +106,32 @@ def resize(img: np.ndarray, size: Tuple[int, int],
         by1 = np.rint(fy * one).astype(np.int64)[(slice(None), None) + extra]
         by0 = np.rint((1 - fy) * one).astype(np.int64)[
             (slice(None), None) + extra]
-        src = img.astype(np.int64)
-        rows0 = src[y0][:, x0] * ax0 + src[y0][:, x1] * ax1
-        rows1 = src[y1][:, x0] * ax0 + src[y1][:, x1] * ax1
+        rows0, rows1 = (_horizontal(img[y].astype(np.int64), x0, x1, ax0,
+                                    ax1) for y in (y0, y1))
         # OpenCV's vectorised vertical pass: 16-bit high products, +2 >> 2
         out = ((by0 * (rows0 >> 4)) >> 16) + ((by1 * (rows1 >> 4)) >> 16)
         return np.clip((out + 2) >> 2, 0, 255).astype(np.uint8)
-    src = img.astype(work)
     ax1 = fx.astype(work)[(slice(None),) + extra]
     ax0 = (weights(1) - fx).astype(work)[(slice(None),) + extra]
     by1 = fy.astype(work)[(slice(None), None) + extra]
     by0 = (weights(1) - fy).astype(work)[(slice(None), None) + extra]
-    rows0 = src[y0][:, x0] * ax0 + src[y0][:, x1] * ax1
-    rows1 = src[y1][:, x0] * ax0 + src[y1][:, x1] * ax1
-    return (rows0 * by0 + rows1 * by1).astype(img.dtype)
+    rows0, rows1 = (_horizontal(img[y].astype(work, copy=False), x0, x1,
+                                ax0, ax1) for y in (y0, y1))
+    rows0 *= by0
+    rows1 *= by1
+    rows0 += rows1
+    return rows0.astype(img.dtype, copy=False)
+
+
+def _horizontal(rows: np.ndarray, x0, x1, a0, a1) -> np.ndarray:
+    """``rows[:, x0] * a0 + rows[:, x1] * a1``, the horizontal pass, in
+    place of its temporaries (the same products and sums)."""
+    out = rows[:, x0]
+    out *= a0
+    right = rows[:, x1]
+    right *= a1
+    out += right
+    return out
 
 
 def rotation_matrix(center: Tuple[float, float], angle: float,
@@ -159,12 +174,15 @@ def _inverse_affine(matrix) -> np.ndarray:
 def warp_affine(img: np.ndarray, matrix: np.ndarray,
                 dsize: Tuple[int, int], nearest: bool = False,
                 border: str = "BORDER_CONSTANT",
-                fill: float = 0.0) -> np.ndarray:
+                fill: float = 0.0,
+                window: Optional[Tuple[slice, slice]] = None) -> np.ndarray:
     """``cv2.warpAffine(img, matrix, dsize=(width, height))`` in float32.
 
     Each output pixel (x, y) samples the input at ``M^-1 (x, y)``; a tap
     outside the input reads *fill* (constant border; a scalar or one value
-    per channel) or the pixel the border rule maps it to."""
+    per channel) or the pixel the border rule maps it to.  *window*, a
+    (rows, columns) pair of slices, computes only that part of the output,
+    ``warp_affine(...)[window]`` pixel for pixel."""
     border = border_name(border)
     img = np.asarray(img, np.float32)
     squeeze = img.ndim == 2
@@ -172,10 +190,10 @@ def warp_affine(img: np.ndarray, matrix: np.ndarray,
         img = img[..., None]
     h, w = img.shape[:2]
     ow, oh = int(dsize[0]), int(dsize[1])
+    rows, cols = window or (slice(None), slice(None))
+    ys = np.arange(oh)[rows][:, None]
+    xs = np.arange(ow)[cols][None]
     inv = _inverse_affine(matrix)
-    ys, xs = np.mgrid[:oh, :ow].astype(np.float64)
-    sx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
-    sy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
 
     def tap(yi, xi):
         if border == "BORDER_CONSTANT":
@@ -185,8 +203,11 @@ def warp_affine(img: np.ndarray, matrix: np.ndarray,
         return img[_border_index(yi, h, border), _border_index(xi, w, border)]
 
     if nearest:
+        sx, sy = _nearest_coordinates(inv, ow, xs, ys)
         out = tap(np.rint(sy).astype(np.int64), np.rint(sx).astype(np.int64))
     else:
+        sx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
+        sy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
         x0, y0 = np.floor(sx), np.floor(sy)
         fx, fy = (sx - x0)[..., None], (sy - y0)[..., None]
         x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
@@ -194,6 +215,34 @@ def warp_affine(img: np.ndarray, matrix: np.ndarray,
                + fy * ((1 - fx) * tap(y0 + 1, x0) + fx * tap(y0 + 1, x0 + 1)))
     out = out.astype(np.float32)
     return out[..., 0] if squeeze else out
+
+
+#: output columns per step of OpenCV 5's vectorised warp loop (two
+#: 8-lane float32 vectors); the columns past the last full step take its
+#: scalar loop
+_WARP_STEP = 16
+
+
+def _nearest_coordinates(inv: np.ndarray, ow: int, xs: np.ndarray,
+                         ys: np.ndarray):
+    """The float32 source coordinates of OpenCV 5's nearest warp to an
+    output *ow* pixels wide, at columns *xs* (1, n) and rows *ys* (m, 1):
+    the map in float32; per row ``b * y + c``; ``fma(a, x, b * y + c)`` in
+    the vectorised columns and ``fma(a, x, b * y) + c`` in the scalar
+    tail.  Rounded half to even, they pick OpenCV's taps, also where a
+    coordinate lies on a half pixel in exact arithmetic."""
+    f32 = inv.astype(np.float32)
+    vector = xs < ow - ow % _WARP_STEP
+    xs, ys = xs.astype(np.float64), ys.astype(np.float32)
+    out = []
+    for a, b, c in f32:
+        by = b * ys
+        # a float32 times an integer is exact in double: the sum rounds
+        # once to float32, as the fused multiply-add does
+        fused = (a.astype(np.float64) * xs + (by + c)).astype(np.float32)
+        tail = (a.astype(np.float64) * xs + by).astype(np.float32) + c
+        out.append(np.where(vector, fused, tail))
+    return out
 
 
 def warp_affine_fixed(img: np.ndarray, matrix: np.ndarray,

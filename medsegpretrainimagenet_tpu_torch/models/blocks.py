@@ -43,7 +43,9 @@ __all__ = [
     "make_layer_norm", "dropout", "drop_path", "Stochastic", "draws",
     "Identity", "Conv2d", "MaxPool2d",
     "Upsample", "AvgPool2d", "AdaptiveAvgPool2d", "Flatten", "Linear",
-    "TorchLayerNorm", "BatchNorm", "ConvBlock", "UpConvBlock", "ConcatBlock",
+    "TorchLayerNorm", "BatchNorm", "ConvBlock", "UpConvBlock",
+    "ChannelwiseLayerNorm", "LayerScale", "ResNeXtBlock",
+    "InvertedBottleneckBlock", "ConvNeXtBlock", "ResConnection", "ConcatBlock",
     "ConcatLinearBlock", "AttentionBlock", "set_dropout_generator",
     "mixing_out_channels", "block_accepts", "make_block_builder",
 ]
@@ -177,8 +179,9 @@ class Conv(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """flax ``nn.LayerNorm``: epsilon 1e-6 (not torch's 1e-5); float32
-    statistics and float32 output whatever the input dtype."""
+    """flax ``nn.LayerNorm``: epsilon 1e-6 (not torch's 1e-5); statistics
+    and output in the parameters' dtype (float32) or the input's when it is
+    wider, as flax promotes them."""
 
     def __init__(self, features: int, eps: float = 1e-6):
         super().__init__()
@@ -192,8 +195,9 @@ class LayerNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.weight.shape, self.weight,
-                            self.bias, self.eps)
+        x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
+        return F.layer_norm(x, self.weight.shape, self.weight, self.bias,
+                            self.eps)
 
 
 def make_layer_norm(features: int) -> LayerNorm:
@@ -550,6 +554,243 @@ class UpConvBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.Activation_0(self.Conv_0(self.Upsample_0(x)))
+
+
+# ---------------------------------------------------------------------------
+# the residual block zoo, layer scaling and the U-Net's shortcuts
+# ---------------------------------------------------------------------------
+
+@register("segmentation.models.blocks.ChannelwiseLayerNorm",
+          "channelwise_layer_norm")
+class ChannelwiseLayerNorm(nn.Module):
+    """LayerNorm over the channel axis, the last one of an NHWC tensor."""
+
+    def __init__(self, num_features: int = 0, smoothing_term: float = 1e-6):
+        super().__init__()
+        self.LayerNorm_0 = LayerNorm(num_features, eps=smoothing_term)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.LayerNorm_0(x)
+
+
+@register("segmentation.models.blocks.LayerScale", "layer_scale")
+class LayerScale(nn.Module):
+    """``x * scale`` per channel.  The scale (flax's ``scale``, named
+    ``weight`` here as every flax ``scale`` is) stays float32 and is cast
+    to the activation's dtype, so a bf16 branch stays bf16."""
+
+    def __init__(self, n_channels: int = 0, init_value: float = 1e-6):
+        super().__init__()
+        self.init_value = float(init_value)
+        self.weight = nn.Parameter(torch.empty(n_channels))
+        self.reset_parameters()
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        nn.init.constant_(self.weight, self.init_value)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.weight.to(x.dtype)
+
+
+class _BottleneckTriple(nn.Module):
+    """1 x 1 -> depthwise k x k -> 1 x 1, each conv + BN + act, through
+    *mid* channels."""
+
+    def __init__(self, in_channels: int, mid: int, out_channels: int,
+                 kernel_size: int, activations: Any):
+        super().__init__()
+        self.Conv_0 = Conv(in_channels, mid, 1, padding="SAME")
+        self.Conv_1 = Conv(mid, mid, kernel_size, padding="SAME", groups=mid)
+        self.Conv_2 = Conv(mid, out_channels, 1, padding="SAME")
+        for i in range(3):
+            setattr(self, f"BatchNorm_{i}", BatchNorm(
+                out_channels if i == 2 else mid))
+            setattr(self, f"Activation_{i}", make_activation(activations))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(3):
+            x = getattr(self, f"Conv_{i}")(x)
+            x = getattr(self, f"BatchNorm_{i}")(x)
+            x = getattr(self, f"Activation_{i}")(x)
+        return x
+
+
+@register("segmentation.models.blocks.ResNeXtBlock", "resnext_block")
+class ResNeXtBlock(_BottleneckTriple):
+    """(1 x 1 C -> C/4) -> (depthwise k x k) -> (1 x 1 C/4 -> C)."""
+
+    @staticmethod
+    def fill_kwargs(config_dict: ConfigDict):
+        fill_activation_spec(config_dict, "activations")
+
+    def __init__(self, in_channels: int = 0, out_channels: int = 0,
+                 kernel_size: int = 3, activations: Any = "relu"):
+        super().__init__(in_channels, out_channels // 4, out_channels,
+                         kernel_size, activations)
+
+
+@register("segmentation.models.blocks.InvertedBottleneckBlock",
+          "inverted_bottleneck_block")
+class InvertedBottleneckBlock(_BottleneckTriple):
+    """(1 x 1 C -> 4C) -> (depthwise k x k) -> (1 x 1 4C -> C)."""
+
+    @staticmethod
+    def fill_kwargs(config_dict: ConfigDict):
+        fill_activation_spec(config_dict, "activations")
+
+    def __init__(self, in_channels: int = 0, out_channels: int = 0,
+                 kernel_size: int = 3, activations: Any = "relu"):
+        super().__init__(in_channels, out_channels * 4, out_channels,
+                         kernel_size, activations)
+
+
+@register("segmentation.models.blocks.ConvNeXtBlock", "convnext_block")
+class ConvNeXtBlock(nn.Module):
+    """Depthwise k x k conv -> norm -> 1 x 1 (4x) -> act -> 1 x 1.  The
+    depthwise conv has ``min(in_channels, channels[0])`` groups; with
+    ``reduce_number_of_*`` off, a norm follows each 1 x 1 conv and an
+    activation each norm.  The norm is any registered one; its width fills
+    ``num_features`` or ``normalized_shape``."""
+
+    #: the flax module name of a norm, where it is not its class's name
+    _FLAX_NAMES = {"TorchLayerNorm": "LayerNorm"}
+
+    @staticmethod
+    def fill_kwargs(config_dict: ConfigDict):
+        fill_activation_spec(config_dict, "activations")
+
+    def __init__(self, in_channels: int = 0, out_channels: int = 0,
+                 kernel_size: int = 3, activations: Any = "gelu",
+                 normalisation: Any =
+                 "segmentation.models.blocks.ChannelwiseLayerNorm",
+                 reduce_number_of_activations: bool = True,
+                 reduce_number_of_norm_layers: bool = True,
+                 channel_change_index: int = 1):
+        super().__init__()
+        if channel_change_index not in (1, 2, 3):
+            raise ValueError("channel_change_index should be in (1, 2, 3)")
+        i = channel_change_index
+        channels = (in_channels,) * (i - 1) + (out_channels,) * (3 - i)
+        self.full = (not reduce_number_of_activations,
+                     not reduce_number_of_norm_layers)
+        self.Conv_0 = Conv(in_channels, channels[0], kernel_size,
+                           padding="SAME",
+                           groups=min(in_channels, channels[0]))
+        self.Conv_1 = Conv(channels[0], 4 * channels[1], 1, padding="SAME")
+        self.Conv_2 = Conv(4 * channels[1], out_channels, 1, padding="SAME")
+        widths = [channels[0]]
+        if not reduce_number_of_norm_layers:
+            widths += [4 * channels[1], out_channels]
+        self.norms = [self._add_norm(normalisation, k, width)
+                      for k, width in enumerate(widths)]
+        for k in range(3 if not reduce_number_of_activations else 1):
+            setattr(self, f"Activation_{k}", make_activation(activations))
+
+    def _add_norm(self, cfg, k: int, num_features: int) -> str:
+        if isinstance(cfg, str):
+            name, params = cfg, ConfigDict()
+        else:
+            name, params = cfg.item()
+            if not isinstance(params, ConfigDict):
+                params = ConfigDict()
+        constructor = resolve(name)
+        kwargs = get_kwargs(constructor, params)
+        for field in ("num_features", "normalized_shape"):
+            if block_accepts(constructor, field):
+                kwargs[field] = num_features
+                break
+        attr = f"{self._FLAX_NAMES.get(constructor.__name__, constructor.__name__)}_{k}"
+        setattr(self, attr, constructor(**kwargs))
+        return attr
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        full_acts, full_norms = self.full
+        x = getattr(self, self.norms[0])(self.Conv_0(x))
+        if full_acts:
+            x = self.Activation_0(x)
+        x = self.Conv_1(x)
+        if full_norms:
+            x = getattr(self, self.norms[1])(x)
+        x = getattr(self, f"Activation_{int(full_acts)}")(x)
+        x = self.Conv_2(x)
+        if full_norms:
+            x = getattr(self, self.norms[2])(x)
+        if full_acts:
+            x = self.Activation_2(x)
+        return x
+
+
+class ResConnection(nn.Module):
+    """A U-Net block's shortcut: identity, with the channels adapted by
+    ``fill_with_zeros`` / ``repeat`` (more out than in) or ``add`` /
+    ``cut_off`` (fewer), or a projection, a conv (1 x 1 by default, stride
+    2 when the block downsamples) with optional BatchNorm and ReLU."""
+
+    CONV_PARAMS = {"kernel_size": 1, "batch_norm": True, "activation": False}
+
+    def __init__(self, in_channels: int = 0, out_channels: int = 0,
+                 downsampling: bool = False, type_config: Any = "identity"):
+        super().__init__()
+        if isinstance(type_config, str):
+            kind, params = type_config, ConfigDict()
+        else:
+            kind, params = type_config.item()
+            if not isinstance(params, ConfigDict):
+                params = ConfigDict()
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.kind, self.method = kind, None
+        if kind == "identity":
+            if downsampling:
+                raise NotImplementedError(
+                    "identity shortcut with spatial downsampling")
+            if in_channels < out_channels:
+                self.method = params.get_str("expand_method") \
+                    if params.has("expand_method") else "fill_with_zeros"
+                if self.method == "repeat" and out_channels % in_channels:
+                    raise ValueError("repeat expand needs divisibility")
+                if self.method not in ("fill_with_zeros", "repeat"):
+                    raise ValueError(
+                        f"unknown expand_method {self.method!r}")
+            elif in_channels > out_channels:
+                self.method = params.get_str("contract_method") \
+                    if params.has("contract_method") else "add"
+                if self.method == "add" and in_channels % out_channels:
+                    raise ValueError("add contract needs divisibility")
+                if self.method not in ("add", "cut_off"):
+                    raise ValueError(
+                        f"unknown contract_method {self.method!r}")
+        elif kind in ("conv", "convolution"):
+            merged = dict(self.CONV_PARAMS)
+            merged.update({k.replace(" ", "_"): v
+                           for k, v in params.trim().to_dict().items()})
+            kernel = merged["kernel_size"]
+            self.Conv_0 = Conv(in_channels, out_channels, kernel,
+                               stride=2 if downsampling else 1,
+                               padding="VALID" if kernel == 1 else "SAME")
+            if merged["batch_norm"]:
+                self.BatchNorm_0 = BatchNorm(out_channels)
+            self.relu = bool(merged["activation"])
+        else:
+            raise ValueError(f"shortcut type must be identity/convolution, "
+                             f"got {kind!r}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cin, cout = self.in_channels, self.out_channels
+        if self.kind == "identity":
+            if self.method == "fill_with_zeros":
+                return torch.cat([x, x.new_zeros(x.shape[:-1]
+                                                 + (cout - cin,))], dim=-1)
+            if self.method == "repeat":
+                return torch.cat([x] * (cout // cin), dim=-1)
+            if self.method == "add":
+                return x.reshape(x.shape[:-1] + (cin // cout, cout)).sum(-2)
+            if self.method == "cut_off":
+                return x[..., :cout]
+            return x
+        y = self.Conv_0(x)
+        if hasattr(self, "BatchNorm_0"):
+            y = self.BatchNorm_0(y)
+        return F.relu(y) if self.relu else y
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,9 @@ blocks, PatchMerging / PatchExpand and ConcatLinear mixing; the ResNet-50
 attention U-Net is this U-Net with an external encoder
 (``architecture/encoder``: ``classification.models.DeepResNet``) and
 ``AttentionBlock`` mixing.  Blocks run on NHWC images or (B, L, C) token
-sequences.
-
-Residual shortcuts and layer scaling are not ported yet; asking for them
-raises NotImplementedError.
+sequences.  A basic block may carry a residual shortcut
+(:class:`blocks.ResConnection`), a layer scale and, on the residual
+branch, stochastic depth drawn from the train step's generator.
 """
 from __future__ import annotations
 
@@ -83,13 +82,38 @@ def _make_mixing_builder(mixing_cfg):
     return build, out_ch
 
 
-def _not_ported(residual_connections, layer_scaling):
-    if residual_connections or layer_scaling is not False:
-        raise NotImplementedError(
-            "residual connections and layer scaling are not ported yet")
+class _ResidualLevels(B.Stochastic):
+    """The basic blocks of a U-Net half with their optional shortcuts and
+    layer scales, kept in lists parallel to the blocks' (``*_shortcuts``,
+    ``*_scales``; empty when off).  A block's output is scaled, then, with
+    a shortcut, dropped per sample at its stochastic-depth rate and added
+    to the shortcut of its input."""
+
+    RATES = ("residual_drop_rate",)
+
+    def _extras(self, shortcuts: nn.ModuleList, scales: nn.ModuleList,
+                residual_connections, layer_scaling, cin: int, cout: int,
+                downsampling: bool = False) -> None:
+        if residual_connections:
+            shortcuts.append(B.ResConnection(cin, cout, downsampling,
+                                             residual_connections))
+        if layer_scaling is not False:
+            scales.append(B.LayerScale(n_channels=cout,
+                                       init_value=float(layer_scaling)))
+
+    def _run_block(self, x, conv, scales, shortcuts, j, prob):
+        y = conv(x)
+        if scales:
+            y = scales[j](y)
+        if shortcuts:
+            if self.residual_drop_rate:
+                y = B.drop_path(y, float(prob), self.training,
+                                self.generator)
+            return y + shortcuts[j](x)
+        return y
 
 
-class UNetEncoder(nn.Module):
+class UNetEncoder(_ResidualLevels, nn.Module):
     """General U-Net encoder: ``depth`` levels of ``width`` basic blocks
     with a downsampling block between levels (or stride-in-block when
     ``downsampling`` is None), plus a bottom level.  ``forward`` optionally
@@ -132,7 +156,6 @@ class UNetEncoder(nn.Module):
                  stochastic_depth_rate: float = 0.0,
                  layer_scaling: Any = False):
         super().__init__()
-        _not_ported(residual_connections, layer_scaling)
         self.depth, self.in_channel_size = depth, in_channel_size
         channels = _as_channels(channels, depth)
         if len(channels) < depth + 2:
@@ -158,49 +181,68 @@ class UNetEncoder(nn.Module):
             basic_block))
         down_builder = None if down_cfg is None \
             else B.make_block_builder(down_cfg)
-        down_probs, bottom_probs, _ = stoch_depth_probs(
+        self._down_probs, self._bottom_probs, _ = stoch_depth_probs(
             depth, width, stochastic_depth_rate or 0.0)
+        self.residual_drop_rate = float(stochastic_depth_rate or 0.0) \
+            if residual_connections else 0.0
 
         self.level_convs = nn.ModuleList()
+        self.level_shortcuts = nn.ModuleList()
+        self.level_scales = nn.ModuleList()
         self.downsamples = nn.ModuleList()
         for i in range(depth):
-            convs = nn.ModuleList()
+            convs, shortcuts, scales = (nn.ModuleList(), nn.ModuleList(),
+                                        nn.ModuleList())
             for j in range(width):
                 cin = channels[i + (not ccib)] if j == 0 else channels[i + 1]
                 downs = self._integrated_downsample and j == width - 1
                 convs.append(block_builder(
                     cin, channels[i + 1], downsample_in_block=downs,
-                    position=j, stochastic_depth_rate=float(down_probs[i][j])))
+                    position=j,
+                    stochastic_depth_rate=float(self._down_probs[i][j])))
+                self._extras(shortcuts, scales, residual_connections,
+                             layer_scaling, cin, channels[i + 1], downs)
             self.level_convs.append(convs)
+            self.level_shortcuts.append(shortcuts)
+            self.level_scales.append(scales)
             if down_builder is not None:
                 out = channels[i + 1 + (not ccib)] if trainable_downsampling \
                     else channels[i + 1]
                 self.downsamples.append(down_builder(channels[i + 1], out))
 
         self.bottom_convs = nn.ModuleList()
+        self.bottom_shortcuts = nn.ModuleList()
+        self.bottom_scales = nn.ModuleList()
         for j in range(width):
             cin = channels[-2 + (not ccib)] if j == 0 else channels[-1]
             self.bottom_convs.append(block_builder(
                 cin, channels[-1], downsample_in_block=False, position=j,
-                stochastic_depth_rate=float(bottom_probs[j])))
+                stochastic_depth_rate=float(self._bottom_probs[j])))
+            self._extras(self.bottom_shortcuts, self.bottom_scales,
+                         residual_connections, layer_scaling, cin,
+                         channels[-1])
 
     def forward(self, x: torch.Tensor, return_skip_vals: bool = False):
         skip_values = []
         x = self.stem_block(x)
         for i in range(self.depth):
-            for conv in self.level_convs[i]:
-                x = conv(x)
+            for j, conv in enumerate(self.level_convs[i]):
+                x = self._run_block(x, conv, self.level_scales[i],
+                                    self.level_shortcuts[i], j,
+                                    self._down_probs[i][j])
             skip_values.append(x)
             if not self._integrated_downsample:
                 x = self.downsamples[i](x)
-        for conv in self.bottom_convs:
-            x = conv(x)
+        for j, conv in enumerate(self.bottom_convs):
+            x = self._run_block(x, conv, self.bottom_scales,
+                                self.bottom_shortcuts, j,
+                                self._bottom_probs[j])
         if return_skip_vals:
             return x, skip_values
         return x
 
 
-class UNetDecoder(nn.Module):
+class UNetDecoder(_ResidualLevels, nn.Module):
     """General U-Net decoder: per level an upsampling block, a mixing block
     with the skip value, and ``width`` basic blocks; then a final block."""
 
@@ -215,7 +257,6 @@ class UNetDecoder(nn.Module):
                  final_block: Any = None, layer_scaling: Any = False,
                  skip_con_channels_list: Any = None):
         super().__init__()
-        _not_ported(residual_connections, layer_scaling)
         self.depth = depth
         channels = list(channels)
         skip_channels = list(skip_con_channels_list or [])
@@ -228,12 +269,16 @@ class UNetDecoder(nn.Module):
         if isinstance(ups_cfg.value(), ConfigDict):
             ratio = ups_cfg.value().get("channel_decrease_ratio", 0.5)
         mix_builder, mix_out_ch = _make_mixing_builder(mixing_block)
-        _, _, up_probs = stoch_depth_probs(depth, width,
-                                           stochastic_depth_rate or 0.0)
+        _, _, self._up_probs = stoch_depth_probs(
+            depth, width, stochastic_depth_rate or 0.0)
+        self.residual_drop_rate = float(stochastic_depth_rate or 0.0) \
+            if residual_connections else 0.0
 
         self.upsamples = nn.ModuleList()
         self.mixings = nn.ModuleList()
         self.level_convs = nn.ModuleList()
+        self.level_shortcuts = nn.ModuleList()
+        self.level_scales = nn.ModuleList()
         for i in range(depth):
             ups_out = int(channels[i] * ratio)
             self.upsamples.append(ups_builder(channels[i], ups_out))
@@ -246,13 +291,18 @@ class UNetDecoder(nn.Module):
                 mixed_ch = mix_out_ch(**ch_kwargs)
             else:
                 mixed_ch = ups_out
-            convs = nn.ModuleList()
+            convs, shortcuts, scales = (nn.ModuleList(), nn.ModuleList(),
+                                        nn.ModuleList())
             for j in range(width):
                 cin = mixed_ch if j == 0 else channels[i + 1]
                 convs.append(block_builder(
                     cin, channels[i + 1], position=j,
-                    stochastic_depth_rate=float(up_probs[i][j])))
+                    stochastic_depth_rate=float(self._up_probs[i][j])))
+                self._extras(shortcuts, scales, residual_connections,
+                             layer_scaling, cin, channels[i + 1])
             self.level_convs.append(convs)
+            self.level_shortcuts.append(shortcuts)
+            self.level_scales.append(scales)
 
         if final_block is not None:
             self.final = B.make_block_builder(_normalize_block_cfg(
@@ -268,9 +318,46 @@ class UNetDecoder(nn.Module):
                 x = self.mixings[i](x, x_up, skip_values.pop())
             else:
                 x = x_up
-            for conv in self.level_convs[i]:
-                x = conv(x)
+            for j, conv in enumerate(self.level_convs[i]):
+                x = self._run_block(x, conv, self.level_scales[i],
+                                    self.level_shortcuts[i], j,
+                                    self._up_probs[i][j])
         return self.final(x)
+
+
+def _is_identity(cfg) -> bool:
+    return cfg == "identity" or (isinstance(cfg, ConfigDict)
+                                 and cfg.key() == "identity")
+
+
+def _fill_residual_connections(config_dict: ConfigDict, res_con) -> None:
+    """``architecture/residual_connections`` as ``{down: ..., up: ...}``
+    with the defaults filled: identity on both sides, the encoder's
+    identity expanding by zeros where blocks change the channels, the
+    decoder's contracting by adding channel groups, a conv shortcut's
+    ``CONV_PARAMS``."""
+    if isinstance(res_con, str):
+        res_con = ConfigDict({res_con: {}})
+    if len(res_con) == 1 and res_con.key() not in ("up", "down"):
+        res_cons = ConfigDict({"down": res_con.copy().to_dict(),
+                               "up": res_con.copy().to_dict()})
+    else:
+        res_cons = res_con
+    down = res_cons.get_or_update("down", "identity")
+    up = res_cons.get_or_update("up", "identity")
+    res_cons.expand()
+    if down and _is_identity(down) \
+            and config_dict["architecture/change_channels_in_block"]:
+        res_cons.get_or_update("down/identity/expand_method",
+                               "fill_with_zeros")
+    if up and _is_identity(up):
+        res_cons.get_or_update("up/identity/contract_method", "add")
+    for kw in ("down", "up"):
+        sub = res_cons.get(kw)
+        if sub and isinstance(sub, ConfigDict) \
+                and sub.key() in ("conv", "convolution"):
+            sub.value().fill_with_defaults(B.ResConnection.CONV_PARAMS)
+    config_dict["architecture/residual_connections"] = res_cons
 
 
 class UNet(nn.Module):
@@ -343,14 +430,22 @@ class UNet(nn.Module):
         if isinstance(mixing, ConfigDict) and mixing.key() != "concatenate":
             fill_spec(mixing)
 
+        res_con = config_dict["architecture/residual_connections"]
+        if res_con:
+            _fill_residual_connections(config_dict, res_con)
+
         if config_dict.get("architecture/encoder") is None:
             config_dict.pop("architecture/encoder", None)
         else:
             # the external encoder takes the image as it comes: no stem,
-            # downsampling or channel options of the U-Net's own encoder
+            # downsampling or channel options of the U-Net's own encoder,
+            # and no shortcuts on its side
             for key in ("in_channel_size", "stem", "downsampling",
                         "trainable_downsampling", "change_channels_in_block"):
                 config_dict.pop("architecture/" + key, None)
+            if res_con:
+                config_dict.pop("architecture/residual_connections/down",
+                                None)
             fill_spec(config_dict["architecture/encoder"])
 
     def __init__(self, img_ch: int = 3, output_ch: int = 1, depth: int = 4,
@@ -371,7 +466,6 @@ class UNet(nn.Module):
                  change_channels_in_block: bool = True,
                  trainable_downsampling: bool = False, encoder: Any = None):
         super().__init__()
-        _not_ported(residual_connections, layer_scaling)
         channels = _as_channels(channels, depth)
         enc_cfg = _normalize_block_cfg(encoder)
         if enc_cfg is not None:
@@ -387,6 +481,11 @@ class UNet(nn.Module):
         dec_channels = channels[::-1] if decoder_channels is None \
             else [enc_channels[-1], *decoder_channels]
         skip_list = skip_con_channels or enc_channels[:-1][::-1]
+        down_res = up_res = residual_connections or False
+        if isinstance(residual_connections, ConfigDict) and (
+                "down" in residual_connections or "up" in residual_connections):
+            down_res = residual_connections.get("down", False)
+            up_res = residual_connections.get("up", False)
 
         if enc_cfg is not None:
             constructor = resolve(enc_cfg.key())
@@ -404,20 +503,21 @@ class UNet(nn.Module):
             self.enc = UNetEncoder(
                 in_channel_size=img_ch, basic_block=basic_block, stem=stem,
                 downsampling=down, depth=len(enc_channels) - 1, width=width,
-                channels=enc_channels,
+                channels=enc_channels, residual_connections=down_res,
                 change_channel_in_block=change_channels_in_block,
                 trainable_downsampling=trainable_downsampling,
-                stochastic_depth_rate=stochastic_depth_rate)
+                stochastic_depth_rate=stochastic_depth_rate,
+                layer_scaling=layer_scaling)
 
         final = final_block if final_block != "default_final" \
             else ConfigDict({"torch.nn.Conv2d": {"kernel_size": 1}})
         self.dec = UNetDecoder(
             basic_block=basic_block, mixing_block=mixing_block,
-            upsampling_block=upsampling_block,
+            upsampling_block=upsampling_block, residual_connections=up_res,
             stochastic_depth_rate=stochastic_depth_rate,
             output_ch=output_ch, depth=len(dec_channels) - 1, width=width,
             skip_con_channels_list=skip_list, channels=dec_channels,
-            final_block=final)
+            final_block=final, layer_scaling=layer_scaling)
         self.final_act = None if final_activation is None \
             else make_activation(final_activation)
 

@@ -277,7 +277,25 @@ def test_full_width_config_builds_alike_and_keeps_the_size():
 @pytest.mark.parametrize("arch", [{"residual_connections": "identity"},
                                   {"layer_scaling": 0.1}])
 def test_residual_connections_and_layer_scaling_stay_refused(arch):
+    """Residual connections and layer scaling, refused until the residual
+    block zoo was ported, now build on the attention U-Net (the decoder's
+    side: the external encoder takes none) and give the JAX package's
+    output from the same weights, in eval mode."""
     cfg = attention_unet_config()
     cfg["model"]["segmentation.models.UNet"]["architecture"].update(arch)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(ConfigDict, registry, Model, cfg)
+    jmodel = build_model(JaxConfigDict, jax_registry, JaxModel, cfg)
+    variables = _perturbed_stats(jmodel.init(jax.random.key(2), {
+        "x": np.zeros((1, SIZE, SIZE, 3), np.float32)}), 3)
+    model = build_model(ConfigDict, registry, Model, cfg)
+    transplant(variables, model.module)
+    names = [n for n, _ in model.module.named_modules()]
+    kind = "level_shortcuts" if "residual_connections" in arch \
+        else "level_scales"
+    assert any(n.startswith(f"dec.{kind}.") for n in names)
+    assert not any(n.startswith(("enc.level_shortcuts", "enc.level_scales"))
+                   for n in names)
+    x, _ = _batch()
+    want = np.asarray(jmodel.apply(variables, jnp.asarray(x)))
+    with torch.no_grad():
+        got = model.apply(torch.from_numpy(x)).numpy()
+    assert relative_error(got, want) <= TOL["float32"]["eval"]

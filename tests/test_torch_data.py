@@ -5,6 +5,8 @@ same seed), and the segmentation transforms (the same numpy draws, outputs
 equal or within the stated tolerances of the JAX module's OpenCV maps)."""
 import json
 
+import cv2
+
 import numpy as np
 import pytest
 import yaml
@@ -24,6 +26,7 @@ from medsegpretrainimagenet_tpu_torch.data import BalancedDataLoader
 from medsegpretrainimagenet_tpu_torch.data.readers.covidqu import \
     COVIDQUDataset
 from medsegpretrainimagenet_tpu_torch.data.sampling import batch_index_plan
+from medsegpretrainimagenet_tpu_torch.data import warp
 from medsegpretrainimagenet_tpu_torch.data.transforms import segmentation
 
 #: float images resized by the port against OpenCV
@@ -207,6 +210,48 @@ def test_rotation_on_other_borders_matches_jax(name, cfg, border):
         got, want = port(**_sample(k)), ref(**_sample(k))
         np.testing.assert_allclose(got["x"], want["x"], atol=ROTATE_TOL)
         assert (got["mask"] == want["mask"]).mean() >= 0.999
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4, 5])
+def test_nearest_warp_picks_the_jax_modules_taps(channels):
+    """Nearest warps (masks) tap the pixels the JAX module's OpenCV warp
+    taps, every one, on every border: integer angles put source
+    coordinates on exact half pixels, where OpenCV's float32 arithmetic
+    (fused in its vectorised columns, not in its scalar tail) decides the
+    side; 5 channels go through the JAX module's groups of four."""
+    rng = np.random.default_rng(channels)
+    for k in range(40):
+        h, w = (int(v) for v in rng.integers(8, 60, 2))
+        mask = rng.integers(0, 3, (h, w, channels)).astype(np.float32)
+        angle = float(rng.integers(-180, 180))
+        rad = np.deg2rad(angle)
+        size = (int(abs(w * np.cos(rad)) + abs(h * np.sin(rad)) + 0.5),
+                int(abs(w * np.sin(rad)) + abs(h * np.cos(rad)) + 0.5))
+        matrix = warp.rotation_matrix((w / 2 - 0.5, h / 2 - 0.5), angle)
+        matrix[:, 2] += ((size[0] - w) / 2, (size[1] - h) / 2)
+        border = warp.BORDER_MODES[k % 5]
+        got = segmentation._warp_affine(mask, matrix, size, True, border, 2)
+        want = jax_seg._warp_affine(mask, matrix, size, cv2.INTER_NEAREST,
+                                    getattr(cv2, border), 2)
+        np.testing.assert_array_equal(got, want.reshape(got.shape),
+                                      err_msg=f"{angle} {border}")
+
+
+@pytest.mark.parametrize("nearest", [False, True])
+def test_warp_window_equals_the_full_warps_slice(nearest):
+    """``warp_affine(..., window=...)`` (RandomPick's crop, computed alone)
+    is the full warp's slice, bit for bit, also for windows that start
+    before the output (numpy's negative starts) or end after it."""
+    rng = np.random.default_rng(7)
+    img = rng.random((21, 25, 3)).astype(np.float32)
+    matrix = warp.rotation_matrix((12.0, 10.0), 37.0)
+    matrix[:, 2] += (4.5, 3.0)
+    full = warp.warp_affine(img, matrix, (34, 30), nearest=nearest)
+    for rows, cols in ((slice(3, 19), slice(5, 21)), (slice(20, 40),
+                       slice(-6, 40)), (slice(0, 30), slice(17, 18))):
+        got = warp.warp_affine(img, matrix, (34, 30), nearest=nearest,
+                               window=(rows, cols))
+        np.testing.assert_array_equal(got, full[rows, cols])
 
 
 @pytest.mark.parametrize("name, cfg", [

@@ -7,12 +7,14 @@ resizes the float64 volumes in double as OpenCV does, within 6e-14; a
 pixel then differs at most by the float32 rounding of the result, on
 these trees 0.06 % of them by one step).  The ImageNet reader gives the
 JAX reader's paths, labels and splits, and loads bit-equal images.  IDRiD
-and ``MixedDataset`` still raise NotImplementedError naming their ROADMAP
-item.  The float resize of 2 to 4 channels follows OpenCV."""
+and ``MixedDataset``, refused until their slice, build from their names.
+The float resize of 2 to 4 channels follows OpenCV."""
 import numpy as np
 import pytest
 
 from medsegpretrainimagenet_tpu.config import ConfigDict as JaxConfigDict
+from medsegpretrainimagenet_tpu.config import registry as jax_registry
+from medsegpretrainimagenet_tpu.data import Dataset as JaxDataset
 from medsegpretrainimagenet_tpu.data.readers import ACDC as JaxACDC
 from medsegpretrainimagenet_tpu.data.readers import load_nii as jax_load
 from medsegpretrainimagenet_tpu.data.readers import save_nii as jax_save
@@ -20,6 +22,8 @@ from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
 from medsegpretrainimagenet_tpu_torch.data import Dataset
 from medsegpretrainimagenet_tpu_torch.data.readers import (ACDC, load_nii,
                                                            save_nii)
+
+from torch_port_helpers import write_idrid_tree
 
 #: relative tolerance of the resized ACDC images against OpenCV's
 IMAGE_TOL = 1e-6
@@ -99,9 +103,41 @@ def test_acdc_builds_from_its_registry_names(tmp_path, monkeypatch):
     ("idrid", "M5"),
     ("data.MixedDataset", "M5"),
     ("mixed_dataset", "M5")])
-def test_unported_components_still_raise(name, item):
-    with pytest.raises(NotImplementedError, match=item):
-        registry.build(ConfigDict({name: {}}), wrapper=Dataset)
+def test_unported_components_still_raise(name, item, tmp_path, monkeypatch):
+    """The components that raised NotImplementedError naming ROADMAP item
+    *item* until its slice ported them now build from the same names: the
+    port's IDRiD reader (on an IDRiD tree, the JAX reader's images) and
+    its ``MixedDataset`` (of two ACDC readers, the JAX one's rows)."""
+    write_idrid_tree(tmp_path)
+    _acdc_tree(tmp_path)
+    monkeypatch.setenv("MST_DATA_DIR", str(tmp_path))
+    acdc = {"segmentation.datasets.ACDC": {"image_sizes": 8,
+                                           "validate_on_test": True}}
+    params = {"base_image_sizes": 16, "cropped_image_sizes": None,
+              "train_set_size": 4} if "idrid" in name.lower() else {
+        "datasets": (acdc, acdc), "switch_frequency": 3}
+    cd = ConfigDict({"data": {name: params}})
+    cd.expand()
+    registry.fill_spec(cd, "data")
+    ds = registry.build(cd["data"].trim(), wrapper=Dataset, seed=0)
+    jax_name = "segmentation.datasets.IDRiD" if "idrid" in name.lower() \
+        else "data.MixedDataset"
+    jcd = JaxConfigDict({"data": {jax_name: params}})
+    jcd.expand()
+    jax_registry.fill_spec(jcd, "data")
+    want = jax_registry.build(jcd["data"].trim(), wrapper=JaxDataset, seed=0)
+    assert type(ds).__name__ == type(want).__name__
+    assert type(ds).__module__.startswith("medsegpretrainimagenet_tpu_torch")
+    if "idrid" in name.lower():
+        np.testing.assert_array_equal(ds.train["x"], want.train["x"])
+        return
+    for k in range(len(want.train["x"])):
+        got_row = {kw: ds.load_function[kw](ds.train[kw][k])
+                   for kw in ds.train}
+        want_row = {kw: want.load_function[kw](want.train[kw][k])
+                    for kw in want.train}
+        np.testing.assert_array_equal(got_row["x"], want_row["x"])
+        assert got_row["ds_idx"] == want_row["ds_idx"]
 
 
 def _imagenet_tree(root, n=24, seed=0):

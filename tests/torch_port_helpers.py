@@ -1,12 +1,13 @@
 """Shared pieces of the tests that hold the PyTorch port against the JAX
 package: a small Swin U-Net and a small conv U-Net configuration, built by
-either package, and weight transplanting from a flax module into its torch
-counterpart."""
+either package, weight transplanting from a flax module into its torch
+counterpart, and a small IDRiD tree."""
 import contextlib
 
 import jax
 import numpy as np
 import torch
+from PIL import Image
 
 from medsegpretrainimagenet_tpu_torch import transfer
 from medsegpretrainimagenet_tpu_torch.transfer import state_dict_from_jax
@@ -68,6 +69,65 @@ def attention_unet_config(channel_sizes=(8, 16), widths=(1, 1), base=4,
         "mixing_block": mixing or {
             "segmentation.models.blocks.AttentionBlock": {}},
         "out_channel_size": 1, "decoder_channels": tuple(decoder)}}}}
+
+
+#: the IDRiD tree's image size and its tasks' mask directories
+IDRID_SIZE = (64, 224)
+IDRID_TASK_DIRS = {"MA": "1. Microaneurysms", "HE": "2. Haemorrhages",
+                   "EX": "3. Hard Exudates", "SE": "4. Soft Exudates",
+                   "OD": "5. Optic Disc"}
+
+
+def _idrid_mask_image(mask: np.ndarray, mode: str) -> Image.Image:
+    """A 0/255 mask as a gray, RGB (lesion in red), RGBA or palette
+    image."""
+    if mode == "L":
+        return Image.fromarray(mask)
+    if mode == "P":
+        image = Image.fromarray((mask > 0).astype(np.uint8), mode="P")
+        image.putpalette([0, 0, 0, 255, 0, 0])
+        return image
+    rgb = np.zeros(mask.shape + (len(mode),), np.uint8)
+    rgb[..., 0] = mask
+    if mode == "RGBA":
+        rgb[..., 3] = 255
+    return Image.fromarray(rgb, mode=mode)
+
+
+def write_idrid_tree(root, n_train=6, n_test=3, tasks=("MA", "HE"),
+                     seed=0):
+    """The real layout under *root*/idrid: ``IDRiD_NN.jpg`` fundus images
+    (a noisy bright field on a black rim, wider at the bottom, so that
+    crops there are darker; the reader's 96-px border crop keeps the
+    middle 32 columns) and one ``.tif`` mask per task and image; the HE
+    masks only for odd ids (the even ones are HE negatives), the EX, SE
+    and OD masks written as RGB, RGBA and palette images."""
+    rng = np.random.default_rng(seed)
+    base = root / "idrid" / "Segmentation" / "A. Segmentation"
+    imgs = base / "1. Original Images"
+    masks = base / "2. All Segmentation Groundtruths"
+    modes = {"MA": "L", "HE": "L", "EX": "RGB", "SE": "RGBA", "OD": "P"}
+    idx = 1
+    for part, n in (("a. Training Set", n_train), ("b. Testing Set", n_test)):
+        (imgs / part).mkdir(parents=True)
+        for task in tasks:
+            (masks / part / IDRID_TASK_DIRS[task]).mkdir(parents=True)
+        for _ in range(n):
+            arr = np.zeros(IDRID_SIZE + (3,), np.uint8)
+            arr[8:-20, 16:-16] = rng.integers(
+                100, 255, (IDRID_SIZE[0] - 28, IDRID_SIZE[1] - 32, 3))
+            Image.fromarray(arr).save(imgs / part / f"IDRiD_{idx:02d}.jpg")
+            for k, task in enumerate(tasks):
+                if task == "HE" and idx % 2 == 0:
+                    continue
+                m = np.zeros(IDRID_SIZE, np.uint8)
+                r = rng.integers(4, IDRID_SIZE[0] - 16)
+                c = rng.integers(100, 110)
+                m[r:r + 10, c + 2 * k:c + 2 * k + 20] = 255
+                _idrid_mask_image(m, modes[task]).save(
+                    masks / part / IDRID_TASK_DIRS[task]
+                    / f"IDRiD_{idx:02d}_{task}.tif")
+            idx += 1
 
 
 @contextlib.contextmanager
