@@ -114,6 +114,17 @@ kept serial; ``[cli idrid]`` trains the paper's IDRiD U-Net (the MA task,
 fundus images, two epochs and a third under ``--continued``, with the
 reader's host seconds per image, the crops it keeps and drops, the host
 assembly per batch, the epochs' images/s and the process's peak memory.
+``[export]`` exports ``swin_unet_224`` in bf16 with a symbolic batch
+through ``export.export_from_config``, on the windows layout and under
+``set_fused_image_mode("on")``: each artifact's graph holds 14 nodes of
+its registered operator (K1's or K2's) and no softmax, one forward of the
+loaded artifact launches the kernel 14 times, its outputs equal
+``predict_from_config``'s, and it is timed in turns against it; the
+float32 U-Net's artifact equals its module.  ``[ddp]`` runs a one-epoch
+COVID-QU CLI under ``torchrun --nproc_per_node 1`` on NCCL (the
+data-parallel path: shards, the global BatchNorm, gathered outputs,
+summed gradients) against the plain CLI, and times and profiles the
+data-parallel step beside ``[train]``.
 Any failure exits non-zero.  Without a CUDA
 card, or without the package beside it, it exits non-zero and prints no
 result.  It imports nothing of JAX.
@@ -122,7 +133,8 @@ The last lines are the card's name and power limit, a JSON line with each
 kernel's launches, error and times (K1 and K2 in bf16 per serving forward,
 and in float32 per Swin encoder forward of ``robustness_224``; K1's entry
 also carries its launches and its forward and backward per step of
-``swin_224_train``, K2's its launches there under the image layout), and
+``swin_224_train``, K2's its launches there under the image layout; both
+carry their launches in one forward of their exported artifact), and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -451,7 +463,7 @@ def phase_k1():
           f"{per_forward['library_warm_ms']:.4f}), bound "
           f"{per_forward['bound_ms']:.4f} ms", flush=True)
 
-    # one backward through the autograd Function (kernel forward,
+    # one backward through the registered operator (kernel forward,
     # recompute backward) against autograd through the plain version;
     # the same float32 math in another order, TF32 off
     q, k, v, bias, mask = _k1_inputs(0, 3, 64, True, torch.float32, gen)
@@ -641,9 +653,9 @@ def phase_k2():
           f"{per_forward['library_warm_ms']:.4f}), bound "
           f"{per_forward['bound_ms']:.4f} ms", flush=True)
 
-    # one backward through the autograd Function (kernel forward, backward
-    # through autograd of the plain version) against autograd through the
-    # plain version; TF32 off
+    # one backward through the registered operator (kernel forward, the
+    # recompute backward in the windows layout) against autograd through
+    # the plain version; TF32 off
     qkv = torch.randn(BATCH, 56, 56, 3 * 3 * HEAD_DIM,
                       generator=gen).cuda()
     bias, mask = _tables(0, 3, True, gen)
@@ -817,6 +829,158 @@ def phase_serve(tmp: Path):
         profile_serving(functools.partial(serve, path=path), path,
                         SERVE_IMAGES / statistics.median(rates[path]))
     return k1_launches, k2_launches
+
+
+#: [export]: the two swin_unet_224 artifacts' operator: (fused image
+#: mode, operator, its launch counter's name, the other counter's name)
+EXPORT_PATHS = (("off", "window_attention", "window_attention_cuda",
+                 "image_attention_cuda"),
+                ("on", "image_attention", "image_attention_cuda",
+                 "window_attention_cuda"))
+#: [export]: the U-Net artifact in float32 against its module
+EXPORT_F32_TOL = 1e-5
+
+
+def phase_export(tmp: Path) -> dict:
+    """[export]: swin_unet_224 in bf16 (the [serve] weights and images)
+    through ``export.export_from_config`` with a symbolic batch, on the
+    windows layout and under ``set_fused_image_mode("on")``.  Each
+    artifact's graph holds 14 nodes of its attention operator and no
+    softmax (nothing falls back to the plain version); one forward of the
+    loaded artifact at batch BATCH launches the kernel 14 times; its
+    outputs equal [serve]'s eager ones (predict_from_config) within
+    SERVE_TOL; its images/s is timed in turns against predict_from_config.
+    Then the full-width U-Net exported in float32 against its module.
+    Returns {operator: {"launches", ...}}."""
+    import numpy as np
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch import export, ops
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+    from medsegpretrainimagenet_tpu_torch.predict import predict_from_config
+
+    imgs = np.load(tmp / "imgs.npy")
+
+    @torch.inference_mode()
+    def artifact_serve(served):
+        """The artifact over all SERVE_IMAGES in batches of BATCH, fed as
+        predict_from_config feeds its module: under inference mode, the
+        channel repeat on the host, uint8 through pinned memory, float/255
+        on the card; one read-back at the end.  Returns (images/s,
+        outputs)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = []
+        for lo in range(0, SERVE_IMAGES, BATCH):
+            x = torch.from_numpy(np.repeat(
+                imgs[lo:lo + BATCH].transpose(0, 2, 3, 1), 3, axis=-1))
+            x = x.pin_memory().cuda(non_blocking=True).float().div(255.0)
+            outs.append(served(x).float())
+        out = torch.cat(outs).cpu().numpy()
+        return SERVE_IMAGES / (time.perf_counter() - t0), out
+
+    def eager_serve(mode):
+        ops.set_fused_image_mode(mode)
+        try:
+            return predict_from_config(
+                ConfigDict(swin_unet_224_config()), str(tmp / "w.pt"),
+                str(tmp / "imgs.npy"), str(tmp / "eager.npy"),
+                batch_size=BATCH, mixed_precision=True,
+                device="cuda")["images_per_sec"]
+        finally:
+            ops.set_fused_image_mode("off")
+
+    results = {}
+    for mode, op, counter, other in EXPORT_PATHS:
+        path = tmp / f"swin_{op}.pt2"
+        ops.set_fused_image_mode(mode)
+        try:
+            stats = export.export_from_config(
+                ConfigDict(swin_unet_224_config()), str(tmp / "w.pt"),
+                str(path), image_size=224, channels=3, mixed_precision=True,
+                device="cuda")
+        finally:
+            ops.set_fused_image_mode("off")
+        check(stats["out_avals"] == ["bfloat16[b,224,224,1]"]
+              and stats["platforms"] == ["cuda"],
+              f"[export] {op}: stats {stats}")
+        targets = [str(n.target) for n in torch.export.load(
+            str(path)).graph.nodes if n.op == "call_function"]
+        nodes = targets.count(f"medseg_torch.{op}.default")
+        others = sum("medseg_torch" in t for t in targets) - nodes
+        softmax = sum("softmax" in t for t in targets)
+        check(nodes == 14 and others == 0 and softmax == 0,
+              f"[export] {op} artifact: {nodes} nodes of its operator (want "
+              f"14), {others} of the other, {softmax} softmax")
+        served = export.load_exported(str(path))
+        x = torch.from_numpy(np.repeat(imgs[:BATCH].transpose(0, 2, 3, 1),
+                                       3, axis=-1)).cuda().float() / 255.0
+        served(x)  # first call: cuBLAS set-up for the artifact's shapes
+        torch.cuda.synchronize()
+        wa.window_attention_cuda.launches = 0
+        wa.image_attention_cuda.launches = 0
+        served(x)
+        torch.cuda.synchronize()
+        launches = getattr(wa, counter).launches
+        stray = getattr(wa, other).launches
+        check(launches == 14 and stray == 0,
+              f"[export] one forward of the {op} artifact launched "
+              f"{launches} (want 14), the other kernel {stray}")
+        _, got = artifact_serve(served)
+        want = np.load(tmp / ("k1.npy" if mode == "off" else "k2.npy"))
+        diff = float(np.abs(got - want).max())
+        check(got.shape == want.shape and np.isfinite(got).all()
+              and diff < SERVE_TOL,
+              f"[export] {op} artifact vs predict's eager forward: shape "
+              f"{got.shape}, max |diff| {diff} (bar {SERVE_TOL})")
+        # in turns: eager, artifact, artifact, eager
+        rates = {"eager": [], "artifact": []}
+        for kind in ("eager", "artifact", "artifact", "eager"):
+            rates[kind].append(eager_serve(mode) if kind == "eager"
+                               else artifact_serve(served)[0])
+        eager_rate = statistics.median(rates["eager"])
+        artifact_rate = statistics.median(rates["artifact"])
+        print(f"[export] swin_unet_224 bf16, {op} "
+              f"(fused image mode {mode}), symbolic batch: exported in "
+              f"{stats['export_seconds']} s, {stats['bytes']} bytes; "
+              f"{nodes} {op} nodes, no softmax; {launches} launches in one "
+              f"forward at batch {BATCH}; max |artifact - predict| "
+              f"{diff:.3g} (bar {SERVE_TOL}); in turns, artifact median "
+              f"{artifact_rate:.1f} images/s of "
+              f"{[round(r, 1) for r in sorted(rates['artifact'])]}, "
+              f"predict_from_config {eager_rate:.1f} of "
+              f"{[round(r, 1) for r in sorted(rates['eager'])]}; "
+              f"{card_line()}", flush=True)
+        results[op] = {"launches": launches, "nodes": nodes,
+                       "seconds": stats["export_seconds"],
+                       "bytes": stats["bytes"], "diff": diff,
+                       "images_per_sec": artifact_rate,
+                       "predict_images_per_sec": eager_rate}
+
+    # the full-width U-Net in float32: the artifact against its module
+    model, _, _, _ = build_trainer(unet_256_train_config(), "cuda")
+    module = model.module.eval()
+    exported = export.export_forward(module, (TRAIN_SIZE, TRAIN_SIZE, 3))
+    path = tmp / "unet.pt2"
+    export.save_exported(exported, str(path))
+    served = export.load_exported(str(path))
+    errs = []
+    for b in (1, 3, 5):
+        x = torch.rand(b, TRAIN_SIZE, TRAIN_SIZE, 3, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(b))
+        with torch.no_grad():
+            want = module(x)
+        errs.append((served(x) - want).abs().max().item())
+    check(max(errs) < EXPORT_F32_TOL,
+          f"[export] unet_256 float32 artifact vs module: max |diff| "
+          f"{errs} (bar {EXPORT_F32_TOL})")
+    print(f"[export] unet_256 float32, symbolic batch, at b = 1, 3 and 5: max "
+          f"|artifact - module| {max(errs):.3g} (bar {EXPORT_F32_TOL})",
+          flush=True)
+    del model, module, exported, served
+    torch.cuda.empty_cache()
+    return results
 
 
 #: kernel-name fragments -> the layer they belong to, for the breakdown
@@ -2013,6 +2177,185 @@ def phase_cli_deterministic() -> None:
               f"Dice {rows[0]['val_metrics/dice_index_threshold_0.5']}",
               flush=True)
     print(f"[cli det] {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+#: [ddp]: images of the tree, and the bar on |torchrun - plain| of every
+#: epoch_logs.csv column
+DDP_IMAGES, DDP_TOL = 64, 1e-4
+#: what torchrun runs: this script's ddp_worker in the launched process
+_DDP_LAUNCHER = """import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+sys.exit(chip_smoke.ddp_worker(sys.argv[2]))
+"""
+
+
+def ddp_worker(config_path: str) -> int:
+    """The process ``torchrun`` starts for [ddp]: join the NCCL group on
+    cuda:LOCAL_RANK, run the experiment CLI on *config_path* (its
+    data-parallel path: shard, global BatchNorm statistics, gathered
+    outputs, summed gradients), then time unet_256_train's step on a
+    sharded batch as [train] times it and print its images/s."""
+    import torch
+    import torch.distributed as dist
+
+    from medsegpretrainimagenet_tpu_torch import parallel
+    from medsegpretrainimagenet_tpu_torch.cli.experiment import \
+        main as cli_main
+    from medsegpretrainimagenet_tpu_torch.models import blocks
+
+    device = parallel.initialize_distributed()
+    try:
+        check(dist.get_backend() == "nccl" and device.type == "cuda",
+              f"[ddp] backend {dist.get_backend()} on {device}")
+        cli_main([config_path])
+        torch.backends.cudnn.benchmark = True
+        blocks.set_compute_dtype(torch.bfloat16)
+        try:
+            _, state, calculator, step = build_trainer(
+                unet_256_train_config(), device)
+            batch = parallel.shard_batch({k: v.to(device) for k, v in
+                                          segmentation_batch(
+                                              1, TRAIN_BATCH, TRAIN_SIZE,
+                                              seed=0).items()})
+            check(batch.get(parallel.SHARDED_KEY, False),
+                  "[ddp] the batch was not marked as a shard")
+            metrics_state = calculator.init_state(device)
+            losses = []
+
+            def run_steps(n):
+                nonlocal state, metrics_state
+                for _ in range(n):
+                    state, metrics_state, per_batch = step(
+                        state, metrics_state, batch)
+                    losses.append(per_batch["dice_loss"])
+
+            run_steps(3)  # cuDNN autotuning, NCCL set-up
+            rates = [TRAIN_BATCH * TURN_STEPS / t for t in _timed_turns(
+                run_steps, "[ddp] a host sync in a data-parallel step")]
+            profile_train(run_steps, 3,
+                          1e3 * TRAIN_BATCH / statistics.median(rates),
+                          tag="ddp step")
+            tail = torch.stack(losses).cpu()
+            check(bool(torch.isfinite(tail).all()) and tail[-1] < tail[0],
+                  f"[ddp] step losses {tail[0].item()} -> "
+                  f"{tail[-1].item()}")
+        finally:
+            blocks.set_compute_dtype(None)
+        print(f"[ddp rate] {statistics.median(rates):.1f} "
+              f"{[round(r, 1) for r in sorted(rates)]}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_ddp(step_rate: float) -> None:
+    """[ddp]: ``torchrun --standalone --nproc_per_node 1`` of a one-epoch
+    COVID-QU CLI run (the [cli] config in float32, DDP_IMAGES images,
+    deterministic algorithms) under NCCL, against the same run of the
+    plain CLI: every epoch_logs.csv value within DDP_TOL, the same files.
+    Then the data-parallel step's images/s under the group beside
+    [train]'s.  The card's machine has one card, so two ranks' equality
+    to one process is held on the CPU (tests/test_torch_parallel.py).
+    Both processes run with TF32 off (``NVIDIA_TF32_OVERRIDE=0``): TF32
+    rounds each conv's inputs to 10 bits, which turns the global-batch
+    BatchNorm's float32 sums, ordered otherwise than cuDNN's, into
+    differences above the bar."""
+    import os
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    saved_tf32 = os.environ.get("NVIDIA_TF32_OVERRIDE")
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"  # the two subprocesses only
+    try:
+        _ddp_runs(step_rate)
+    finally:
+        if saved_tf32 is None:
+            os.environ.pop("NVIDIA_TF32_OVERRIDE")
+        else:
+            os.environ["NVIDIA_TF32_OVERRIDE"] = saved_tf32
+
+
+def _ddp_runs(step_rate: float) -> None:
+    """The two runs of :func:`phase_ddp` and their checks."""
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        runs = {}
+        for kind in ("plain", "torchrun"):
+            workdir = Path(tmp) / kind
+            workdir.mkdir()
+            if kind == "plain":
+                write_covidqu_tree(workdir / "data", images=DDP_IMAGES)
+            else:
+                (workdir / "data").symlink_to(Path(tmp) / "plain" / "data")
+            cfg = cli_config(workdir, 1, measured=False)
+            cfg["meta"]["technical"].update(
+                mixed_precision=False, use_deterministic_algorithms=True,
+                async_checkpointing=False)
+            if kind == "torchrun":
+                seconds, out = _torchrun_cli(workdir, cfg)
+            else:
+                seconds, out = _cli_process(workdir, cfg)
+            marks = [m for m in ENVELOPE_MARKS if m in out.stderr]
+            check(out.returncode == 0 and not marks,
+                  f"[ddp] {kind} run: exit {out.returncode}, envelope marks "
+                  f"{marks}; stderr tail:\n{out.stderr[-4000:]}")
+            (run,) = (workdir / "logs").glob("*/Experiment/run_1")
+            runs[kind] = (run, _csv_rows(run / "epoch_logs.csv"), seconds,
+                          out.stdout)
+        (plain_run, want, plain_s, _), (ddp_run, got, ddp_s, stdout) = \
+            runs["plain"], runs["torchrun"]
+        files = [sorted(p.name for p in run.iterdir())
+                 for run in (plain_run, ddp_run)]
+        check(files[0] == files[1] and len(got) == len(want) == 1
+              and list(got[0]) == list(want[0]),
+              f"[ddp] run files {files}, rows {got} vs {want}")
+        diffs = {k: abs(float(got[0][k]) - float(want[0][k]))
+                 for k in want[0]}
+        worst = max(diffs, key=diffs.get)
+        check(diffs[worst] < DDP_TOL,
+              f"[ddp] epoch_logs.csv under torchrun vs plain: {worst} "
+              f"differs by {diffs[worst]} (bar {DDP_TOL}); every column: "
+              f"{diffs}")
+        rate_line = [line for line in stdout.splitlines()
+                     if line.startswith("[ddp rate]")]
+        check(len(rate_line) == 1, f"[ddp] no rate line in {stdout[-2000:]}")
+        median, turns = rate_line[0].split(" ", 3)[2:]
+        print(f"[ddp] torchrun --nproc_per_node 1 (NCCL), one epoch of "
+              f"{DDP_IMAGES} images through the CLI in float32 (TF32 off) "
+              f"under deterministic algorithms: {ddp_s:.1f} s of wall time "
+              f"(with "
+              f"the step's timing below) against {plain_s:.1f} s for the "
+              f"plain CLI; epoch_logs.csv "
+              f"equal within {DDP_TOL} (worst {worst}: {diffs[worst]:.3g}); "
+              f"the same run files", flush=True)
+        print(f"[ddp] unet_256_train bf16 step on a sharded batch under the "
+              f"process group: median {median} images/s of {turns} "
+              f"({TURNS} turns of {TURN_STEPS} steps, no host sync), "
+              f"[train]'s {step_rate:.1f}; {card_line()}", flush=True)
+        print("\n".join(line for line in stdout.splitlines()
+                        if line.startswith("[profile ddp step")), flush=True)
+
+
+def _torchrun_cli(workdir: Path, config: dict):
+    """``torchrun --standalone --nproc_per_node 1`` of :func:`ddp_worker`
+    on *config* in *workdir*.  Returns (wall seconds, the finished
+    process)."""
+    import os
+
+    from medsegpretrainimagenet_tpu_torch.config import dump_yaml
+
+    path = workdir / "cli_ddp.yaml"
+    path.write_text(dump_yaml(config))
+    (workdir / "launch.py").write_text(_DDP_LAUNCHER)
+    env = dict(os.environ, MST_DATA_DIR=str(workdir / "data"),
+               PYTHONPATH=str(ROOT) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", str(workdir / "launch.py"), str(ROOT),
+         str(path)], cwd=workdir, env=env, capture_output=True, text=True,
+        timeout=400)
+    return time.perf_counter() - t0, out
 
 
 #: [cli acdc]: a synthetic ACDC tree, ACDC_TRAIN + ACDC_TEST patients of
@@ -3594,7 +3937,7 @@ def train_cell(tag: str, cfg: dict, batch_size: int, size: int,
                   f"memory {res['peak'] / 2 ** 30:.2f} GiB", flush=True)
         main = routes[0]
         with attention_route(main):
-            profile_train(run_steps, 5, results[main]["step_ms"], tag=tag,
+            profile_train(run_steps, 3, results[main]["step_ms"], tag=tag,
                           groups_of=_SWIN_TRAIN_GROUPS if "swin" in tag
                           else None)
         return results
@@ -4430,12 +4773,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         timed("small", phase_small_vs_cpu)
         k1_launches, k2_launches = timed("serve", phase_serve, Path(tmp))
+        exported = timed("export", phase_export, Path(tmp))
     timed("train small", phase_train_small)
     timed("train bf16", phase_train_bf16)
     step_rate = timed("train", phase_train_full)
     timed("metrics", phase_metrics, step_rate)
     timed("cli", phase_cli, step_rate)
     timed("cli det", phase_cli_deterministic)
+    timed("ddp", phase_ddp, step_rate)
     timed("cli acdc", phase_cli_acdc, step_rate)
     timed("pretrain small", phase_pretrain_small)
     pretrain_rate = timed("pretrain", phase_pretrain_full)
@@ -4504,6 +4849,12 @@ def main() -> int:
         "swin_train_bwd_rel_err": pair["bwd_err"],
         "cli_swin_val_launches": cli_swin_launches})
     kernels[1]["swin_train_launches"] = swin_train["k2_launches"]
+    # [export]: launches in one forward (batch 24) of the loaded artifact,
+    # K1's on the windows layout, K2's under set_fused_image_mode("on"),
+    # with the operator nodes of its graph
+    for entry, op in zip(kernels, ("window_attention", "image_attention")):
+        entry.update({"export_launches": exported[op]["launches"],
+                      "export_nodes": exported[op]["nodes"]})
     # the float32 instances: the 8 calls of one Swin encoder forward of
     # robustness_224, summed, L2-cold (warm_ms: warm inputs); launches from
     # the in-process sweep (K2's with set_fused_image_mode("on")); the

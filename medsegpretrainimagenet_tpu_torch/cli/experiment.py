@@ -11,7 +11,11 @@ failing experiment is reported and the grid goes on with the next one.
 
 ``--device NAME`` (anywhere on the line) picks the device for every
 experiment; without it the port runs on the card, and raises when there
-is none.
+is none.  Under a launcher, data-parallel over one device per process
+(rank 0 writes the files)::
+
+    torchrun --nproc_per_node 2 -m medsegpretrainimagenet_tpu_torch.cli \
+        config.yaml [--device cpu]
 """
 from __future__ import annotations
 
@@ -26,11 +30,12 @@ import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from ..config import ConfigDict, parse
+from ..parallel import initialize_distributed, is_main_process
 from ..plotting import GeneralPlotter, export_plot
 from ..utils import handle_exception
-from ..utils.device import resolve_device
 from .run_experiment import (_read_csv_columns, experiment,
                              get_logs_from_path)
 
@@ -78,18 +83,25 @@ def _pop_device(args: List[str]):
 def main(argv: Optional[List[str]] = None) -> None:
     device, args = _pop_device(list(argv if argv is not None
                                      else sys.argv[1:]))
-    # outside every error envelope: no card and no --device ends the run
-    device = resolve_device(device)
-    args_iter = iter(args)
-    arg = next(args_iter, "")
-    while arg:
-        modifiers = []
-        next_arg = next(args_iter, "")
-        while next_arg.startswith("-"):
-            modifiers.append(next_arg)
+    # outside every error envelope: no card and no --device ends the run;
+    # under a launcher this process joins the group on its own device
+    joined = not dist.is_initialized()
+    device = initialize_distributed(device)
+    joined = joined and dist.is_initialized()
+    try:
+        args_iter = iter(args)
+        arg = next(args_iter, "")
+        while arg:
+            modifiers = []
             next_arg = next(args_iter, "")
-        run_experiment_from_dict(arg, modifiers, device=device)
-        arg = next_arg
+            while next_arg.startswith("-"):
+                modifiers.append(next_arg)
+                next_arg = next(args_iter, "")
+            run_experiment_from_dict(arg, modifiers, device=device)
+            arg = next_arg
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 def run_experiment_from_dict(file_path: str, modifiers=(), device=None):
@@ -113,10 +125,11 @@ def run_experiment_from_dict(file_path: str, modifiers=(), device=None):
 
 
 def compare_experiments(logs: List[Dict], extensions=("html", "json")):
-    """Cross-experiment overlay plots and best/last value tables."""
+    """Cross-experiment overlay plots and best/last value tables, written
+    by the main process."""
     logs = [log for log in logs if log]
     num_exps = len(logs)
-    if num_exps < 2:
+    if num_exps < 2 or not is_main_process():
         return
     logs_dict: Dict[str, list] = {}
     for log in logs:

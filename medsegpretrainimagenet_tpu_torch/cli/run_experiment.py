@@ -12,9 +12,12 @@ a memory limit, deterministic algorithms, cuDNN autotuning, the number of
 CPU threads; ``debug_nans`` makes the epoch loop check every step's scalars
 (``train/loop.py``).
 
-The port trains on one device: the card unless the caller names another.
-Data parallelism, spatial sharding and tensor parallelism are ROADMAP queue
-M12 and raise NotImplementedError.
+The port trains on one device (the card unless the caller names another)
+or, under a launcher (``torchrun``), data-parallel on one device per
+process (``parallel``): rank 0 writes every file, the resume counters and
+the directory suffix are rank 0's, and the number of processes must divide
+the fragment batch.  Spatial sharding and tensor parallelism are ROADMAP
+queue M12 and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -43,6 +46,8 @@ from ..metrics import MetricsCalculator, build_host_loggers
 from ..models import Model
 from ..models.blocks import set_compute_dtype
 from ..optim import Optimizer
+from ..parallel import (broadcast_from_main, device_count, is_main_process,
+                        launched, put_replicated, rank)
 from ..plotting import GeneralPlotter, export_plot
 from ..train import TrainState, checkpoint as ckpt
 from ..train.loop import train_model
@@ -111,6 +116,10 @@ def check_for_continued(modifiers: Optional[List[str]],
         if num_epochs == epoch_start:
             run_start += 1
             epoch_start = 0
+        # the counts were read off the filesystem, which rank 0 writes:
+        # every process resumes from rank 0's position
+        run_start, epoch_start = broadcast_from_main((run_start,
+                                                      epoch_start))
     return continued, run_start, epoch_start
 
 
@@ -274,19 +283,32 @@ def build_transform_pipelines(config_dict: ConfigDict, seed: int,
             device_augment)
 
 
-def _refuse_parallelism(tech: ConfigDict) -> None:
-    """Several devices, spatial sharding and tensor parallelism are ROADMAP
-    M12; the port trains on one device."""
+def _refuse_parallelism(tech: ConfigDict, fragment_bs: int) -> None:
+    """Spatial sharding and tensor parallelism are ROADMAP M12.  Data
+    parallelism runs one process per device under a launcher; several
+    visible cards without one are refused rather than left idle, and so is
+    a process count that does not divide the fragment batch."""
     for knob in ("spatial_sharding", "tensor_parallel"):
         if int(tech.get(knob, 1) or 1) > 1:
             raise NotImplementedError(
                 f"meta/technical/{knob} > 1 is not ported yet "
                 f"(ROADMAP.md M12: multi-GPU)")
-    if torch.cuda.is_available() and torch.cuda.device_count() > 1:
+    if not launched() and torch.cuda.is_available() \
+            and torch.cuda.device_count() > 1:
         raise NotImplementedError(
-            f"{torch.cuda.device_count()} CUDA devices are visible: data "
-            f"parallelism is not ported yet (ROADMAP.md M12); make one "
-            f"visible with CUDA_VISIBLE_DEVICES")
+            f"{torch.cuda.device_count()} CUDA devices are visible to one "
+            f"process: start one process per device with torchrun "
+            f"(`torchrun --nproc_per_node {torch.cuda.device_count()} -m "
+            f"medsegpretrainimagenet_tpu_torch.cli config.yaml`), or make "
+            f"one visible with CUDA_VISIBLE_DEVICES")
+    processes = device_count()
+    if fragment_bs % processes:
+        divisors = [d for d in _divisors(fragment_bs) if d <= processes]
+        raise ValueError(
+            f"{processes} data-parallel processes must divide the fragment "
+            f"batch size {fragment_bs} (data/sampling/batch_size within "
+            f"meta/technical/maximum_actual_batch_size); run {divisors[-1]} "
+            f"processes, or a fragment batch that {processes} divides")
 
 
 def apply_host_switches(tech: ConfigDict, device: torch.device) -> None:
@@ -344,14 +366,15 @@ def experiment(config_dict: ConfigDict, original: Optional[dict] = None,
     config_dict.fill_with_defaults(default_experiment_config())
     tech = config_dict["meta/technical"].trim()
     config_dict["meta/technical"] = tech
-    _refuse_parallelism(tech)
-    apply_host_switches(tech, device)
 
     BalancedDataLoader.fill_kwargs(
         config_dict.get_or_update("data/sampling", ConfigDict()))
     max_bs = tech["maximum actual batch size"]
     batch_size = config_dict["data/sampling/batch size"]
     bs = effective_batch_size(batch_size, max_bs)
+    _refuse_parallelism(tech, bs)
+    apply_host_switches(tech, device)
+    main_proc = is_main_process()
 
     seed = tech["seed"] + epoch_start
 
@@ -376,15 +399,23 @@ def experiment(config_dict: ConfigDict, original: Optional[dict] = None,
         save_destination = os.path.abspath(
             tech.get_or_update("save destination", "../logs/")) + "/"
         save_destination += str(datetime.now()).split(" ")[0] + "/"
-        os.makedirs(save_destination, exist_ok=True)
+        if main_proc:
+            os.makedirs(save_destination, exist_ok=True)
         if tech["log to device"]:
             save_destination += str(tech["experiment_name"])
-            candidate, i = save_destination, 1
-            while os.path.isdir(candidate):
-                i += 1
-                candidate = f"{save_destination}_{i}"
+            i = 1
+            if main_proc:
+                while os.path.isdir(save_destination if i == 1
+                                    else f"{save_destination}_{i}"):
+                    i += 1
+            # every process carries rank 0's suffix (it lands in the dumped
+            # config, which a later --continued reads)
+            (i,) = broadcast_from_main((i,))
+            candidate = save_destination if i == 1 \
+                else f"{save_destination}_{i}"
             save_destination = os.path.abspath(candidate) + "/"
-            os.makedirs(save_destination)
+            if main_proc:
+                os.makedirs(save_destination)
             tech["server"] = socket.gethostname()
             tech["absolute path"] = save_destination
             tech["series_id"] = series_id
@@ -395,7 +426,7 @@ def experiment(config_dict: ConfigDict, original: Optional[dict] = None,
         tech.get_or_update("model_evaluation", ConfigDict()) \
             .fill_with_defaults(default_model_eval)
 
-    if not continued and tech["log to device"]:
+    if not continued and tech["log to device"] and main_proc:
         config_dict["meta/technical/start time"] = \
             "".join(str(datetime.now()).split(".")[:-1])
         with open(save_destination + "config.yaml", "w") as fh:
@@ -428,6 +459,12 @@ def experiment(config_dict: ConfigDict, original: Optional[dict] = None,
             # parallel lazy-load pool; batches stay bit-identical
             num_workers = int(config_dict.get(
                 "meta/technical/number_of_data_loader_workers", 0) or 0)
+            # per-host input slicing: each process assembles only its
+            # slice of every full batch
+            proc_shard = None
+            if config_dict.get("meta/technical/per_host_input_slicing",
+                               False) and device_count() > 1:
+                proc_shard = (rank(), device_count())
 
             def make_loader(data, split_cfg, pipeline, ds_type):
                 return BalancedDataLoader(
@@ -436,7 +473,7 @@ def experiment(config_dict: ConfigDict, original: Optional[dict] = None,
                     partition_count=partition_count[ds_type],
                     load_function=load_function, seed=curr_seed,
                     datapoints_per_sample=datapoint_count[ds_type],
-                    num_workers=num_workers)
+                    process_shard=proc_shard, num_workers=num_workers)
 
             train_ds = make_loader(train_data,
                                    config_dict["data/sampling/train"],
@@ -463,7 +500,7 @@ def experiment(config_dict: ConfigDict, original: Optional[dict] = None,
                 exc, f"Exception occured in run {i} of experiment "
                      f"'{tech.get('experiment name')}'.")
 
-    if tech["log to device"]:
+    if tech["log to device"] and main_proc:
         modules = {}
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
@@ -500,7 +537,8 @@ def run_exp(train_data, val_data, test_data, destination: str,
     tech = config_dict["meta/technical"]
     name = f"run_{idx}"
     log_to_device = tech.get("log to device", True)
-    if log_to_device and not continued:
+    main_proc = is_main_process()
+    if log_to_device and not continued and main_proc:
         os.makedirs(destination, exist_ok=True)
 
     np.random.seed(curr_seed)
@@ -527,14 +565,17 @@ def run_exp(train_data, val_data, test_data, destination: str,
     if continued:
         weights_path = os.path.join(destination, "last_model_state_dict.pt")
         model.module.load_state_dict(ckpt.load_params_file(weights_path))
-        shutil.copy(weights_path, os.path.join(
-            destination, "last_model_state_dict_checkpoint.pt"))
+        if main_proc:
+            shutil.copy(weights_path, os.path.join(
+                destination, "last_model_state_dict_checkpoint.pt"))
     else:
         model.init_weight(model_dict,
                           torch.Generator().manual_seed(curr_seed + 1))
     model.freeze_and_unfreeze(model_dict)
     trainable_mask = model.trainable_mask() if model.frozen_paths else None
     model.module.to(device)
+    # data parallelism: every process starts from rank 0's weights
+    put_replicated(model.module)
 
     batches_per_epoch = math.ceil(len(train_data) / batch_size * bs)
     optimizer = Optimizer(
@@ -552,8 +593,9 @@ def run_exp(train_data, val_data, test_data, destination: str,
             state.step = int(restored["step"])
             state.micro_step = int(restored.get("micro_step",
                                                 restored["step"]))
-            shutil.copy(opt_path, os.path.join(
-                destination, "optimizer_state_dict_checkpoint.pt"))
+            if main_proc:
+                shutil.copy(opt_path, os.path.join(
+                    destination, "optimizer_state_dict_checkpoint.pt"))
 
     prediction_index = int(config_dict.get("training/prediction_index", 0)
                            or 0)
@@ -582,7 +624,8 @@ def run_exp(train_data, val_data, test_data, destination: str,
                 device=device, device_augment=device_augment,
                 prediction_index=prediction_index, host_loggers=host_loggers)
 
-    if log_to_device and tech.get("log metric and loss plots", False):
+    if log_to_device and tech.get("log metric and loss plots", False) \
+            and main_proc:
         plot_destination = destination + "plots/"
         os.makedirs(plot_destination, exist_ok=True)
         extensions = tech.get_str_tuple("export_plots_as")
@@ -682,8 +725,8 @@ def _baselines_for_metric(metric: str, all_baselines) -> Dict[str, list]:
 
 def compare_experiments(num_trials: int, save_path: str, extensions=()):
     """Multi-trial variance statistics and comparison plots (reference
-    ``run_experiment.py:518-582``)."""
-    if num_trials < 2:
+    ``run_experiment.py:518-582``), written by the main process."""
+    if num_trials < 2 or not is_main_process():
         return
     os.makedirs(save_path + "variance_comparisons", exist_ok=True)
     labels = [f"run {k}" for k in range(1, num_trials + 1)]

@@ -19,6 +19,7 @@ from __future__ import annotations
 import collections
 import math
 import os
+import warnings
 from typing import Any, Callable, Dict, Iterator, Optional
 
 import numpy as np
@@ -32,6 +33,10 @@ __all__ = ["BalancedDataLoader", "prefetch_to_device", "PinnedCopier"]
 
 class BalancedDataLoader:
     """Iterable of numpy batch dicts built from raw column data."""
+
+    #: reserved batch key marking a per-process input slice (popped by the
+    #: training loop before the batch reaches the step)
+    LOCAL_SLICE_KEY = "_mst_local_slice"
 
     PARAMS = {
         "epoch": {"argument name": "epoch_samling_method",
@@ -81,13 +86,27 @@ class BalancedDataLoader:
         """``num_workers`` (config ``meta/technical/
         number_of_data_loader_workers``) parallelizes the rng-free lazy-load
         stage of batch assembly over a thread pool; batches stay
-        bit-identical to ``num_workers=0``.  ``process_shard=(rank,
-        count)``, the JAX package's per-host input slicing, needs more
-        than one process, which the port does not run yet (ROADMAP M12)."""
-        if process_shard is not None and tuple(process_shard)[1] > 1:
-            raise NotImplementedError(
-                "per-host input slicing (process_shard) needs several "
-                "processes: multi-GPU is not ported yet (ROADMAP.md M12)")
+        bit-identical to ``num_workers=0``.
+
+        ``process_shard=(rank, count)`` turns on per-host input slicing
+        under data parallelism: every process computes the same seeded
+        index plan but assembles only its ``1/count`` slice of each full
+        batch, marked with :attr:`LOCAL_SLICE_KEY`, so
+        ``parallel.shard_batch(..., already_local=True)`` takes it as it is.
+        A short tail is assembled whole on every process and replicates.
+        A fragment size that *count* does not divide turns the slicing off
+        with a warning."""
+        self.process_shard = tuple(process_shard) if process_shard else None
+        if self.process_shard is not None:
+            rank, count = self.process_shard
+            if not 0 <= rank < count:
+                raise ValueError(f"bad process_shard {process_shard}")
+            if count > 1 and actual_bs % count != 0:
+                warnings.warn(
+                    f"actual batch size {actual_bs} not divisible by "
+                    f"process count {count}: per-host input slicing "
+                    "disabled (every batch would replicate)", stacklevel=2)
+                self.process_shard = None
         self.empty = not data or any(len(v) == 0 for v in data.values())
         self.num_workers = max(0, int(num_workers or 0))
         self._executor = None
@@ -205,6 +224,16 @@ class BalancedDataLoader:
             chunk = indices[start:start + self.actual_bs]
             if self._mode == "planned" and len(chunk) < self.actual_bs:
                 break  # reference DataIterator stops before a ragged tail
+            if self.process_shard is not None \
+                    and len(chunk) == self.actual_bs:
+                rank, count = self.process_shard
+                per = len(chunk) // count
+                batch = assemble_batch(
+                    self.source, chunk[rank * per:(rank + 1) * per],
+                    pad_with=self.pad_with, executor=executor)
+                batch[self.LOCAL_SLICE_KEY] = np.ones((), bool)
+                yield batch
+                continue
             yield assemble_batch(self.source, chunk, pad_with=self.pad_with,
                                  executor=executor)
 

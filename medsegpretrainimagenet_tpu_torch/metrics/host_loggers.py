@@ -9,7 +9,9 @@ plot, so the hot loop stays free of host syncs.
 
 The curves are computed in numpy with scikit-learn's rules
 (``roc_curve`` with its dropped collinear points, ``precision_recall_curve``)
-and exported through ``plotting``; json needs nothing installed.
+and exported through ``plotting``; json needs nothing installed.  Under
+data parallelism every process walks the loaders as the main process does
+(their data streams stay in step) and only the main process writes.
 ``ImageLogger`` draws with matplotlib, imported when it draws: without it
 the logger raises inside the trainer's error envelope and the run goes on.
 """
@@ -22,6 +24,7 @@ from typing import Callable, Sequence
 import numpy as np
 
 from ..config import ConfigDict
+from ..parallel import is_main_process
 from ..utils import handle_exception
 
 __all__ = ["HostLogger", "ImageLogger", "CurveLogger", "ROCCurve",
@@ -205,7 +208,11 @@ class ImageLogger(HostLogger):
 
         out_dir = os.path.join(self.save_path, f"epoch_{epoch}",
                                "train" if train else "val")
-        os.makedirs(out_dir, exist_ok=True)
+        # under data parallelism every process walks the loaders alike (so
+        # their data streams stay in step); the main process draws
+        write = is_main_process()
+        if write:
+            os.makedirs(out_dir, exist_ok=True)
         saved, last_progress = 0, 0
         stall_window = self.stall_window if not last else 0
         for batch_idx, batch in enumerate(loader):
@@ -240,6 +247,10 @@ class ImageLogger(HostLogger):
                 if img.ndim == 2:
                     img = 1 - img
                 y_hat = np.squeeze(pred[i])
+                if not write:
+                    saved += 1
+                    last_progress = batch_idx
+                    continue
                 try:
                     if self.num_classes == 1:
                         fig = self._binary_figure(plt, img, np.squeeze(y),
@@ -309,7 +320,7 @@ class CurveLogger(HostLogger):
     def log(self, epoch: int, loader, forward: Callable, train: bool,
             last: bool = False) -> None:
         y, y_hat = self._collect(loader, forward)
-        if y is None:
+        if y is None or not is_main_process():
             return
         os.makedirs(self.save_path, exist_ok=True)
         self._export(epoch, y, y_hat, train)

@@ -30,11 +30,13 @@ import math
 from typing import Any, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..config import ConfigDict, register
 from ..config.registry import fill_spec, get_kwargs, resolve
+from ..parallel.mesh import all_reduce_sum, batch_stats_synced
 from .activations import fill_activation_spec, make_activation
 from .init import lecun_normal_
 
@@ -442,7 +444,8 @@ class BatchNorm(nn.Module):
     1e-5, the running averages updated with weight 0.1 on the batch
     (flax's momentum 0.9) and the *unbiased* batch variance, as torch
     does.  The input is cast to the compute dtype and the output has it;
-    statistics, scale and bias stay float32."""
+    statistics, scale and bias stay float32.  Under data parallelism
+    (``parallel.sync_batch_stats``) the batch is the global one."""
 
     def __init__(self, num_features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
@@ -469,11 +472,92 @@ class BatchNorm(nn.Module):
         dtype = compute_dtype() or torch.promote_types(x.dtype, torch.float32)
         if self.training:
             self.num_batches_tracked.add_(1)
+            if batch_stats_synced():
+                return self._global_batch_norm(x.to(dtype))
         return F.batch_norm(x.to(dtype).permute(0, 3, 1, 2),
                             self.running_mean, self.running_var,
                             self.weight, self.bias, training=self.training,
                             momentum=self.momentum,
                             eps=self.eps).permute(0, 2, 3, 1)
+
+    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """Training on one process's slice of a data-parallel batch: the
+        statistics of the global batch, as flax's BatchNorm takes them on a
+        sharded batch.  On the card, PyTorch's fused SyncBatchNorm
+        primitives (:class:`_GlobalBatchNorm`); on the CPU, which has none,
+        two float32 sums over every process with autograd (each process's
+        gradient then reaches the others' statistics): the channel sums
+        with the element count, then the squared deviations from the global
+        mean."""
+        if x.is_cuda:
+            return _GlobalBatchNorm.apply(
+                x.permute(0, 3, 1, 2), self.weight, self.bias,
+                self.running_mean, self.running_var, self.eps,
+                self.momentum).permute(0, 2, 3, 1)
+        dims = tuple(range(x.dim() - 1))
+        x32 = x.float()
+        count = x32.new_full((1,), x32.numel() // x32.shape[-1])
+        totals = all_reduce_sum(torch.cat([x32.sum(dims), count]))
+        n = totals[-1]
+        mean = totals[:-1] / n
+        centred = x32 - mean
+        var = all_reduce_sum((centred * centred).sum(dims)) / n
+        with torch.no_grad():
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var * n / (n - 1), self.momentum)
+        out = centred * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return out.to(x.dtype)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """BatchNorm over the global batch of every process, on the card: the
+    fused kernels behind ``torch.nn.SyncBatchNorm`` (per-process mean and
+    inverse std, their all-gather with the counts, the running statistics'
+    update with the global unbiased variance, the elementwise map; in the
+    backward the two channel sums, all-reduced).  Unlike SyncBatchNorm's
+    own Function it filters no empty slice, which reads the card from the
+    host: every process holds a slice of the same size.
+
+    Each process differentiates the global loss through its own rows only
+    (``parallel.gather_shards``), so the all-reduced sums are the global
+    batch's, and the weight and bias gradients are this slice's share,
+    summed later with the other parameters' (``parallel.reduce_gradients``).
+    x is NCHW (a channels-last view)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, eps,
+                momentum):
+        channels = x.shape[1]
+        mean, invstd = torch.batch_norm_stats(x, eps)
+        count = mean.new_full((1,), x.numel() // channels)
+        local = torch.cat([mean, invstd, count])
+        gathered = local.new_empty(dist.get_world_size() * local.numel())
+        dist.all_gather_into_tensor(gathered, local)
+        gathered = gathered.view(dist.get_world_size(), -1)
+        counts = gathered[:, 2 * channels]
+        mean, invstd = torch.batch_norm_gather_stats_with_counts(
+            x, gathered[:, :channels], gathered[:, channels:2 * channels],
+            running_mean, running_var, momentum, eps, counts)
+        ctx.save_for_backward(x, weight, mean, invstd,
+                              counts.to(torch.int32))
+        return torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, mean, invstd, counts = ctx.saved_tensors
+        g = g.contiguous(memory_format=torch.channels_last) \
+            if x.is_contiguous(memory_format=torch.channels_last) \
+            else g.contiguous()
+        sum_dy, sum_dy_xmu, grad_weight, grad_bias = \
+            torch.batch_norm_backward_reduce(g, x, mean, invstd, weight,
+                                             True, True, True)
+        sums = torch.cat([sum_dy, sum_dy_xmu])
+        dist.all_reduce(sums)
+        sum_dy, sum_dy_xmu = sums.chunk(2)
+        grad_input = torch.batch_norm_backward_elemt(
+            g, x, mean, invstd, weight.to(mean.dtype), sum_dy, sum_dy_xmu,
+            counts)
+        return grad_input, grad_weight, grad_bias, None, None, None, None
 
 
 @register("segmentation.models.blocks.ConvBlock", "conv_block")

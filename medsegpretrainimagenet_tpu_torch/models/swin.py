@@ -87,12 +87,10 @@ class PatchEmbed(B.Stochastic, nn.Module):
                  patch_size: int = 4, bias: bool = True, dilation: int = 1,
                  groups: int = 1, drop_rate: float = 0.0):
         super().__init__()
-        if dilation != 1 or groups != 1:
-            raise NotImplementedError(
-                "PatchEmbed with dilation or groups is not ported")
         self.drop_rate = drop_rate
         self.Conv_0 = B.Conv(in_channels, out_channels, patch_size,
-                             stride=patch_size, use_bias=bias)
+                             stride=patch_size, use_bias=bias,
+                             dilation=dilation, groups=groups)
         self.LayerNorm_0 = B.make_layer_norm(out_channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

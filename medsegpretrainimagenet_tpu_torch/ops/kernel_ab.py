@@ -1,7 +1,7 @@
 """Time this tree's K1 and K2 against another checkout's, on the card, in turns.
 
     python -m medsegpretrainimagenet_tpu_torch.ops.kernel_ab OTHER_CHECKOUT \
-        [--dtype bfloat16|float32]
+        [--dtype bfloat16|float32] [--serve]
 
 Each tree's kernels are built from its own ``csrc/`` and called through its
 own wrappers (``window_attention_cuda``, ``image_attention_cuda``) in a
@@ -17,6 +17,16 @@ within the dtype's bar (bf16 0.05, float32 1e-4); each ``[ab]`` line says
 whether they are equal bit for bit.  Prints the card's name and power
 limit, ``[ab]`` lines per shape, the sums per forward, and exits non-zero
 on any failure.
+
+``--serve`` times serving instead, each tree through its own package in
+turns (other, this, this, other, twice): ``swin_unet_224`` in bf16 at
+batch 24 with random weights from one seed, on each attention layout (K1,
+K2): the wall time of a no-grad eager forward, the host's time to queue
+one, the host's time per attention call, and
+``predict_from_config``'s images/s over 96 images (``[ab serve]`` lines).
+The first turn of each tree saves its K1 path's output, and the two must
+agree within the bf16 bar.  That is where a change to the wrappers' host
+side (the operators' dispatch) shows.
 
 Then it compares the two trees' kernel libraries instance by instance
 (``cuobjdump``): ``[ab sass]`` lines give each instance's instruction
@@ -61,6 +71,32 @@ CASES = {"bfloat16": (BATCH, LEVELS, BF16_TOL, "bf16 forward of "
                      "f32 Swin encoder forward of robustness_224")}
 
 THIS = Path(__file__).resolve().parents[2]
+
+#: --serve: images per predict_from_config call, forwards per timed run
+SERVE_IMAGES, SERVE_FORWARDS = 96, 20
+
+
+def swin_unet_224_config() -> dict:
+    """``swin_unet_224`` as ``chip_smoke.py`` serves it: Swin-Unet (Cao et
+    al., arXiv:2105.05537) as the reference ships it in
+    config/downstream/covidqu/swin_unet.yaml."""
+    return {"model": {"segmentation.models.UNet": {"architecture": {
+        "in_channel_size": 3, "out_channel_size": 1, "depth": 3, "width": 2,
+        "channels": (96, 192, 384, 768), "change_channels_in_block": False,
+        "trainable_downsampling": True, "stochastic depth rate": 0.2,
+        "basic_block": {"segmentation.models.blocks.SwinTransformerBlock": {
+            "img_size": 224, "patch_size": 4, "embed_dim": 96,
+            "num_heads_layers": (3, 6, 12, 24), "window_size": 7,
+            "mlp_ratio": 4.0}},
+        "stem": {"segmentation.models.blocks.PatchEmbed": {"patch_size": 4}},
+        "downsampling": {"segmentation.models.blocks.PatchMerging": {}},
+        "upsampling": {"segmentation.models.blocks.PatchExpand": {
+            "dim_scale": 2}},
+        "mixing_block": {"segmentation.models.blocks.ConcatLinearBlock": {}},
+        "final_block": {"segmentation.models.blocks.FinalPatchExpand_X4": {
+            "dim_scale": 4}},
+        "activation function": {"final": "sigmoid"},
+    }}}}
 
 
 def hold_stream(calls: int) -> None:
@@ -218,8 +254,168 @@ def _worker(tree: Path, save: Optional[Path], dtype_name: str) -> None:
     print(json.dumps({"times": times, "libraries": libraries}), flush=True)
 
 
-def _turn(tree: Path, save: Optional[Path], dtype: str) -> dict:
+def _serve_worker(tree: Path, save: Optional[Path]) -> None:
+    """Time *tree*'s serving of swin_unet_224 in bf16 at batch BATCH, on
+    the windows layout (K1) and the image layout (K2): the wall time per
+    no-grad forward over SERVE_FORWARDS back-to-back forwards (median of
+    three runs), the host's time to queue one forward (median of seven),
+    the host's time per attention call (:func:`_call_host_us`), and
+    predict_from_config's images/s over SERVE_IMAGES images (median of
+    three calls).  Print them as JSON and, with *save*,
+    write the K1 path's output there."""
+    sys.path[0] = str(tree)
+    import time
+
+    import numpy as np
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch import ops
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
+    from medsegpretrainimagenet_tpu_torch.models import Model
+    from medsegpretrainimagenet_tpu_torch.models.blocks import \
+        set_compute_dtype
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+    from medsegpretrainimagenet_tpu_torch.predict import predict_from_config
+    from medsegpretrainimagenet_tpu_torch.train.checkpoint import \
+        save_params_file
+
+    if not Path(ops.__file__).resolve().is_relative_to(tree):
+        raise RuntimeError(f"imported {ops.__file__}, not {tree}'s package")
+    work = tree / "build" / "serve_ab"
+    work.mkdir(parents=True, exist_ok=True)
+    imgs = (np.random.default_rng(0).random((SERVE_IMAGES, 1, 224, 224))
+            * 255).astype(np.uint8)
+    np.save(work / "imgs.npy", imgs)
+    set_compute_dtype(torch.bfloat16)
+    cd = ConfigDict(swin_unet_224_config())
+    cd.expand()
+    registry.fill_spec(cd, "model")
+    model = registry.build(cd, key="model", wrapper=Model)
+    save_params_file(str(work / "w.pt"), model.init(seed=0))
+    module = model.module.cuda().eval()
+    x = torch.from_numpy(np.repeat(imgs[:BATCH].transpose(0, 2, 3, 1), 3,
+                                   axis=-1)).cuda().float() / 255.0
+    times = {}
+    try:
+        for mode, path in (("off", "k1"), ("on", "k2")):
+            ops.set_fused_image_mode(mode)
+            with torch.inference_mode():
+                for _ in range(3):
+                    out = module(x)
+                torch.cuda.synchronize()
+                walls = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    for _ in range(SERVE_FORWARDS):
+                        out = module(x)
+                    torch.cuda.synchronize()
+                    walls.append(1e3 * (time.perf_counter() - t0)
+                                 / SERVE_FORWARDS)
+                # the host's share: one forward queued on the card, no wait
+                hosts = []
+                for _ in range(7):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    module(x)
+                    hosts.append(1e3 * (time.perf_counter() - t0))
+                torch.cuda.synchronize()
+            if path == "k1" and save is not None:
+                torch.save(out.float().cpu(), save)
+            times[f"{path} forward ms"] = statistics.median(walls)
+            times[f"{path} forward host ms"] = statistics.median(hosts)
+            times[f"{path} call host us"] = _call_host_us(wa, path)
+            times[f"{path} predict images/s"] = statistics.median(
+                predict_from_config(
+                    ConfigDict(swin_unet_224_config()), str(work / "w.pt"),
+                    str(work / "imgs.npy"), str(work / "out.npy"),
+                    batch_size=BATCH, mixed_precision=True,
+                    device="cuda")["images_per_sec"] for _ in range(3))
+    finally:
+        ops.set_fused_image_mode("off")
+        set_compute_dtype(None)
+    print(json.dumps({"times": times}), flush=True)
+
+
+def _call_host_us(wa, path: str, calls: int = 100) -> float:
+    """Host microseconds per no-grad call of the attention entry point of
+    *path* (``window_attention_core`` for "k1",
+    ``fused_image_window_attention`` for "k2") at level 0 of the serving
+    forward (a masked call), queued back to back without a wait: the
+    wrapper's dispatch and launch.  Median of seven runs."""
+    import time
+
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.models.swin import _shift_attn_mask
+
+    gen = torch.Generator().manual_seed(5)
+    heads, n_w = 3, 64
+    bias = (0.02 * torch.randn(heads, TOKENS, TOKENS, generator=gen)).cuda()
+    mask = torch.from_numpy(_shift_attn_mask((56, 56), WINDOW,
+                                             WINDOW // 2)).cuda()
+    scale = HEAD_DIM ** -0.5
+    if path == "k1":
+        q, k, v = (torch.randn(BATCH * n_w, heads, TOKENS, HEAD_DIM,
+                               generator=gen).to("cuda", torch.bfloat16)
+                   for _ in range(3))
+
+        def call():
+            return wa.window_attention_core(q, k, v, bias, mask, scale)
+    else:
+        qkv = torch.randn(BATCH, 56, 56, 3 * heads * HEAD_DIM,
+                          generator=gen).to("cuda", torch.bfloat16)
+
+        def call():
+            return wa.fused_image_window_attention(qkv, bias, mask, scale,
+                                                   WINDOW)
+    walls = []
+    with torch.inference_mode():
+        for _ in range(8):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                call()
+            walls.append(1e6 * (time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+    return statistics.median(walls[1:])
+
+
+def _serve_main(other: Path, card: str) -> int:
+    """--serve: the turns of :func:`_serve_worker`, their ``[ab serve]``
+    lines and the check that both trees serve the same outputs."""
+    import torch
+
+    out_dir = THIS / "build" / "kernel_ab"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    times = {"other": [], "this": []}
+    for who, tree in (("other", other), ("this", THIS), ("this", THIS),
+                      ("other", other)) * 2:
+        first = not times[who]
+        times[who].append(_turn(tree, out_dir / f"{who}-serve.pt" if first
+                                else None, "bfloat16", serve=True)["times"])
+    a, b = (torch.load(out_dir / f"{who}-serve.pt") for who in times)
+    err = (a - b).abs().max().item()
+    for key in times["this"][0]:
+        row = {who: [round(t[key], 4) for t in times[who]] for who in times}
+        print(f"[ab serve] swin_unet_224 bf16 batch {BATCH}, {key}: other "
+              f"median {statistics.median(row['other']):.4f} of "
+              f"{row['other']}, this median "
+              f"{statistics.median(row['this']):.4f} of {row['this']}",
+              flush=True)
+    print(f"[ab serve] K1 path's outputs: max |other - this| {err:.3g} "
+          f"(bar {BF16_TOL}), bit-equal {'yes' if torch.equal(a, b) else 'no'}",
+          flush=True)
+    print(card, flush=True)
+    if not err < BF16_TOL:
+        sys.exit(f"kernel_ab: the trees serve different outputs ({err})")
+    return 0
+
+
+def _turn(tree: Path, save: Optional[Path], dtype: str,
+          serve: bool = False) -> dict:
     cmd = [sys.executable, __file__, "--worker", str(tree), "--dtype", dtype]
+    if serve:
+        cmd.append("--serve")
     if save is not None:
         cmd += ["--save", str(save)]
     run = subprocess.run(cmd, cwd=tree, capture_output=True, text=True,
@@ -238,11 +434,18 @@ def main(argv=None) -> int:
                         default="bfloat16",
                         help="bfloat16: swin_unet_224's serving shapes "
                              "(the default); float32: robustness_224's")
+    parser.add_argument("--serve", action="store_true",
+                        help="time swin_unet_224's bf16 serving (eager "
+                             "forward, predict_from_config) instead of "
+                             "the kernels")
     parser.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     parser.add_argument("--save", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     if args.worker is not None:
-        _worker(args.worker.resolve(), args.save, args.dtype)
+        if args.serve:
+            _serve_worker(args.worker.resolve(), args.save)
+        else:
+            _worker(args.worker.resolve(), args.save, args.dtype)
         return 0
     if args.other is None:
         parser.error("the other checkout is missing")
@@ -257,6 +460,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
     print(card, flush=True)
+    if args.serve:
+        return _serve_main(other, card)
     out_dir = THIS / "build" / "kernel_ab"
     out_dir.mkdir(parents=True, exist_ok=True)
     times = {"other": [], "this": []}

@@ -3,11 +3,16 @@
 The port of ``medsegpretrainimagenet_tpu/ops/window_attention.py``.  On a
 CUDA tensor the forward is the hand-written kernel in
 ``csrc/window_attention.cu`` (the counterpart of the Pallas TPU kernel
-``_pallas_window_attention``); its gradient is an autograd Function whose
-backward recomputes the probabilities in plain torch, as the JAX custom VJP
-``_fused_bwd`` does in XLA.  On a CPU tensor the plain PyTorch version
+``_pallas_window_attention``), called as the registered torch operator
+``torch.ops.medseg_torch.window_attention``: ``torch.export`` keeps it as a
+node of the graph (its fake implementation gives the output's shape), and
+its gradient recomputes the probabilities in plain torch, as the JAX custom
+VJP ``_fused_bwd`` does in XLA.  On a CPU tensor the plain PyTorch version
 :func:`window_attention_torch` runs; it is also the kernel's oracle on the
-card.
+card.  An eager call with no gradient to record (serving) calls the kernel
+straight, without the operator's dispatch.  Importing this module
+registers both operators; a program exported on the card needs that
+(``export.load_exported`` imports it).
 
 ``window_attention_core(q, k, v, bias, mask, scale)``:
   q, k, v: (B_, H, N, D)   bias: (H, N, N)   mask: (nW, N, N) or None,
@@ -16,7 +21,8 @@ card.
 The image-layout path does the same attention straight from the (B, R, R,
 3C) output of the qkv projection: window partition, head split, attention,
 head merge and window reverse in one kernel, ``csrc/image_attention.cu``
-(the counterpart of ``_pallas_image_attention``), with the plain version
+(the counterpart of ``_pallas_image_attention``), the operator
+``torch.ops.medseg_torch.image_attention``, with the plain version
 :func:`image_attention_torch`.  ``set_fused_image_mode`` switches the Swin
 blocks onto it, as in the JAX package; it is off by default.
 
@@ -27,8 +33,10 @@ blocks onto it, as in the JAX package; it is off by default.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import _build
@@ -44,11 +52,25 @@ MAX_TOKENS = 64
 MAX_HEAD_DIM = 64
 
 
+def _rounded(scale: float, dtype: torch.dtype) -> float:
+    """*scale* rounded to *dtype* as torch rounds it, and JAX a weak-typed
+    python scalar: on the host, so a traced forward records a constant and
+    no tensor.  bfloat16 keeps 8 significant bits, to nearest even."""
+    if dtype == torch.bfloat16 and scale != 0:
+        mantissa, exponent = math.frexp(scale)
+        return math.ldexp(round(mantissa * 2 ** 8), exponent - 8)
+    if dtype == torch.float16:
+        return float(np.float16(np.float32(scale)))
+    if dtype == torch.float32:
+        return float(np.float32(scale))
+    return float(scale)
+
+
 def _logits(q, k, bias, mask, scale):
     # q * scale in the input dtype (scale rounded to it first, as JAX's
     # weak-typed python scalar is), then a float32 product: bf16 inputs
     # multiply exactly in float32, like preferred_element_type=float32
-    qs = q * float(torch.tensor(scale, dtype=q.dtype))
+    qs = q * _rounded(scale, q.dtype)
     logits = torch.matmul(qs.float(), k.float().transpose(-1, -2))
     logits = logits + bias[None].float()
     if mask is not None:
@@ -185,20 +207,37 @@ def window_attention_cuda(q, k, v, bias, mask: Optional[torch.Tensor],
 window_attention_cuda.launches = 0
 
 
-class _WindowAttentionKernel(torch.autograd.Function):
-    """Kernel forward, recompute backward (``window_attention_backward``)."""
+def _window_attention_fake(q, k, v, bias, mask, scale):
+    """The output's shape and dtype, after :func:`_check`'s checks (on a
+    traced batch its sizes are symbolic, and the checks decide on them
+    without pinning the batch)."""
+    _check(q, k, v, bias, mask)
+    return torch.empty_like(q)
 
-    @staticmethod
-    def forward(ctx, q, k, v, bias, mask, scale):
-        ctx.save_for_backward(q, k, v, bias, mask)
-        ctx.scale = scale
-        return window_attention_cuda(q, k, v, bias, mask, scale)
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, bias, mask = ctx.saved_tensors
-        return (*window_attention_backward(q, k, v, bias, mask, ctx.scale,
-                                           g), None)
+@torch.library.custom_op("medseg_torch::window_attention", mutates_args=())
+def _window_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: torch.Tensor, mask: Optional[torch.Tensor],
+                         scale: float) -> torch.Tensor:
+    """K1 as a torch operator: :func:`window_attention_cuda`, which raises
+    on a tensor that is not on the card."""
+    return window_attention_cuda(q, k, v, bias, mask, scale)
+
+
+def _save_inputs(ctx, inputs, output):
+    q, k, v, bias, mask, ctx.scale = inputs
+    ctx.save_for_backward(q, k, v, bias, mask)
+
+
+def _window_attention_grad(ctx, g):
+    """The recompute backward (``window_attention_backward``)."""
+    return (*window_attention_backward(*ctx.saved_tensors, ctx.scale, g),
+            None)
+
+
+_window_attention_op.register_fake(_window_attention_fake)
+_window_attention_op.register_autograd(_window_attention_grad,
+                                       setup_context=_save_inputs)
 
 
 def _impl(force: Optional[str], device: torch.device) -> str:
@@ -207,14 +246,27 @@ def _impl(force: Optional[str], device: torch.device) -> str:
     return "torch" if force == "torch" or device.type == "cpu" else "kernel"
 
 
+def _straight(*tensors) -> bool:
+    """Whether the kernel is called straight, without the operator's
+    dispatch (tens of microseconds of host time a call on the serving
+    path, PERF.md): in eager mode with no gradient to record.  Tracing
+    (``torch.export``, ``torch.compile``) and autograd take the operator."""
+    if torch.compiler.is_compiling():
+        return False
+    return not (torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors))
+
+
 def window_attention_core(q, k, v, bias, mask: Optional[torch.Tensor],
                           scale: float, force: Optional[str] = None,
                           train: bool = False) -> torch.Tensor:
     """Dispatch on where q lies: the CUDA kernel for a CUDA tensor (it
     raises on what it does not take; there is no fallback), the plain
     version for a CPU tensor.  ``force="torch"`` pins the plain version
-    (tests, and the kernel's comparison on the card).  Under autograd the
-    kernel's gradient is the recompute backward.
+    (tests, and the kernel's comparison on the card).  Under autograd and
+    under tracing the kernel is the operator ``medseg_torch::
+    window_attention``, its gradient the recompute backward; an eager
+    no-grad call launches it straight (:func:`_straight`).
 
     ``train`` is the JAX package's flag, which sends training to XLA on a
     TPU.  It changes nothing here: on the H100 the Swin U-Net's bf16 step
@@ -223,17 +275,27 @@ def window_attention_core(q, k, v, bias, mask: Optional[torch.Tensor],
     training takes the kernel as well."""
     if _impl(force, q.device) == "torch":
         return window_attention_torch(q, k, v, bias, mask, scale)
-    needs_grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (q, k, v, bias, mask))
-    if needs_grad:
-        return _WindowAttentionKernel.apply(q, k, v, bias, mask, scale)
-    return window_attention_cuda(q, k, v, bias, mask, scale)
+    if _straight(q, k, v, bias, mask):
+        return window_attention_cuda(q, k, v, bias, mask, scale)
+    return torch.ops.medseg_torch.window_attention(q, k, v, bias, mask,
+                                                   float(scale))
 
 
 # ---------------------------------------------------------------------------
 # Image-layout path: window partition + head split + attention + head merge
 # + window reverse in one kernel
 # ---------------------------------------------------------------------------
+
+def _image_windows(qkv, heads: int, window: int):
+    """(B, R, R, 3C) -> (3, B_, H, N, D): window partition and head split,
+    the layout of :func:`window_attention_torch`'s q, k and v."""
+    b, r, _, c3 = qkv.shape
+    n_wc = r // window
+    t = qkv.reshape(b, n_wc, window, n_wc, window, c3)
+    t = t.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, 3, heads,
+                                            c3 // 3 // heads)
+    return t.permute(2, 0, 3, 1, 4)
+
 
 def image_attention_torch(qkv, bias, mask: Optional[torch.Tensor],
                           scale: float, window: int) -> torch.Tensor:
@@ -242,28 +304,33 @@ def image_attention_torch(qkv, bias, mask: Optional[torch.Tensor],
     replaces.  qkv: (B, R, R, 3C) -> out: (B, R, R, C)."""
     b, r, _, c3 = qkv.shape
     c = c3 // 3
-    heads = bias.shape[0]
     n_wc = r // window
-    t = qkv.reshape(b, n_wc, window, n_wc, window, c3)
-    t = t.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, 3, heads,
-                                            c // heads)
-    t = t.permute(2, 0, 3, 1, 4)                      # (3, B_, H, N, D)
+    t = _image_windows(qkv, bias.shape[0], window)
     out = window_attention_torch(t[0], t[1], t[2], bias, mask, scale)
     out = out.transpose(1, 2).reshape(b, n_wc, n_wc, window, window, c)
     return out.permute(0, 1, 3, 2, 4, 5).reshape(b, r, r, c)
 
 
 def image_attention_backward(qkv, bias, mask, scale, window, g):
-    """Gradients of image-layout attention through autograd of the plain
-    version: the port of the JAX custom VJP's ``_fused_image_bwd``.
-    Returns ``(dqkv, dbias, dmask)``; ``dmask`` is None without a mask."""
-    leaves = [None if t is None else t.detach().requires_grad_()
-              for t in (qkv, bias, mask)]
-    with torch.enable_grad():
-        out = image_attention_torch(*leaves, scale, window)
-        grads = torch.autograd.grad(
-            out, [t for t in leaves if t is not None], g)
-    return (*grads, None) if mask is None else tuple(grads)
+    """Gradients of image-layout attention: the recompute backward of the
+    windows layout (:func:`window_attention_backward`) on the partitioned
+    qkv, its dq, dk and dv merged back into the image layout.  The port of
+    the JAX custom VJP's ``_fused_image_bwd`` (the vjp of the XLA op
+    sequence).  Returns ``(dqkv, dbias, dmask)``; ``dmask`` is None without
+    a mask."""
+    b, r, _, c3 = qkv.shape
+    heads, n_wc = bias.shape[0], r // window
+    t = _image_windows(qkv, heads, window)
+    # g (B, R, R, C) -> (B_, H, N, D), as the forward's out before its merge
+    g = g.reshape(b, n_wc, window, n_wc, window, heads, c3 // 3 // heads)
+    g = g.permute(0, 1, 3, 2, 4, 5, 6).reshape(-1, window * window, heads,
+                                               c3 // 3 // heads)
+    dq, dk, dv, dbias, dmask = window_attention_backward(
+        t[0], t[1], t[2], bias, mask, scale, g.transpose(1, 2))
+    d = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4)  # (B_, N, 3, H, D)
+    d = d.reshape(b, n_wc, n_wc, window, window, c3)
+    dqkv = d.permute(0, 1, 3, 2, 4, 5).reshape(b, r, r, c3)
+    return dqkv, dbias, dmask
 
 
 _IMAGE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
@@ -328,21 +395,37 @@ def image_attention_cuda(qkv, bias, mask: Optional[torch.Tensor],
 image_attention_cuda.launches = 0
 
 
-class _ImageAttentionKernel(torch.autograd.Function):
-    """Kernel forward, backward through the plain version
-    (``image_attention_backward``)."""
+def _image_attention_fake(qkv, bias, mask, scale, window):
+    """The output's shape and dtype, after :func:`_check_image`'s checks
+    (on symbolic sizes, as :func:`_window_attention_fake`)."""
+    _check_image(qkv, bias, mask, window)
+    b, r, _, c3 = qkv.shape
+    return qkv.new_empty((b, r, r, c3 // 3))
 
-    @staticmethod
-    def forward(ctx, qkv, bias, mask, scale, window):
-        ctx.save_for_backward(qkv, bias, mask)
-        ctx.scale, ctx.window = scale, window
-        return image_attention_cuda(qkv, bias, mask, scale, window)
 
-    @staticmethod
-    def backward(ctx, g):
-        qkv, bias, mask = ctx.saved_tensors
-        return (*image_attention_backward(qkv, bias, mask, ctx.scale,
-                                          ctx.window, g), None, None)
+@torch.library.custom_op("medseg_torch::image_attention", mutates_args=())
+def _image_attention_op(qkv: torch.Tensor, bias: torch.Tensor,
+                        mask: Optional[torch.Tensor], scale: float,
+                        window: int) -> torch.Tensor:
+    """K2 as a torch operator: :func:`image_attention_cuda`, which raises
+    on a tensor that is not on the card."""
+    return image_attention_cuda(qkv, bias, mask, scale, window)
+
+
+def _save_image_inputs(ctx, inputs, output):
+    qkv, bias, mask, ctx.scale, ctx.window = inputs
+    ctx.save_for_backward(qkv, bias, mask)
+
+
+def _image_attention_grad(ctx, g):
+    """The recompute backward (``image_attention_backward``)."""
+    return (*image_attention_backward(*ctx.saved_tensors, ctx.scale,
+                                      ctx.window, g), None, None)
+
+
+_image_attention_op.register_fake(_image_attention_fake)
+_image_attention_op.register_autograd(_image_attention_grad,
+                                      setup_context=_save_image_inputs)
 
 
 def fused_image_window_attention(qkv, bias, mask: Optional[torch.Tensor],
@@ -355,11 +438,10 @@ def fused_image_window_attention(qkv, bias, mask: Optional[torch.Tensor],
     ``train`` changes nothing, as there."""
     if _impl(force, qkv.device) == "torch":
         return image_attention_torch(qkv, bias, mask, scale, window)
-    needs_grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (qkv, bias, mask))
-    if needs_grad:
-        return _ImageAttentionKernel.apply(qkv, bias, mask, scale, window)
-    return image_attention_cuda(qkv, bias, mask, scale, window)
+    if _straight(qkv, bias, mask):
+        return image_attention_cuda(qkv, bias, mask, scale, window)
+    return torch.ops.medseg_torch.image_attention(qkv, bias, mask,
+                                                  float(scale), int(window))
 
 
 #: the Swin blocks' switch onto the image-layout path, as in the JAX

@@ -3,13 +3,12 @@
 The port's own copy of the part of ``medsegpretrainimagenet_tpu/plotting/
 plotters.py`` that the CLI uses: ``BasePlotter``, ``GeneralPlotter``
 (multi-line metric curves with legends, baselines, log scale) and
-``ConfMtxPlotter`` (the confusion-matrix export), exporting to
-json / png / svg / html.  JSON export writes the full parameter tree (so
+``ConfMtxPlotter`` (the confusion-matrix export), ``ScatterPlotter``
+and ``PCAPlotter`` (a 2-D PCA scatter, with the TensorFlow projector's tsv
+export), exporting to json / png / svg / html.  JSON export writes the full parameter tree (so
 plots can be re-rendered later) and needs nothing installed; png/svg use
 matplotlib and html uses bokeh, each imported only when its format is
 asked for (html falls back to png with a warning without bokeh).
-``ScatterPlotter`` and ``PCAPlotter`` are ROADMAP queue M (the remaining
-plotters).
 
 ``export_plot`` fans one plotter out to the configured formats under a
 watchdog timeout, mirroring ``utils/_utils.py:169-182``.
@@ -27,7 +26,7 @@ import numpy as np
 from ..utils import handle_exception
 
 __all__ = ["BasePlotter", "GeneralPlotter", "ConfMtxPlotter",
-           "export_plot"]
+           "ScatterPlotter", "PCAPlotter", "export_plot"]
 
 _EXPORT_TIMEOUT_S = 300
 
@@ -384,9 +383,209 @@ class ConfMtxPlotter(BasePlotter):
         save(fig)
 
 
+#: bokeh legend locations -> matplotlib loc strings
+_LEGEND_LOCS = {"top_left": "upper left", "top_right": "upper right",
+                "bottom_left": "lower left", "bottom_right": "lower right"}
+
+
+def _alpha(opacity) -> float:
+    """The reference's opacity: point alpha = 1 - opacity, within [0.05,
+    1]."""
+    return min(1.0, max(0.05, 1.0 - float(opacity or 0)))
+
+
+def _place_bokeh_legend(fig, legend) -> None:
+    loc = (legend or {}).get("location", "bottom_right")
+    for item in fig.legend:
+        item.location = loc
+
+
+class ScatterPlotter(BasePlotter):
+    """Scatter plot(s): multi-series ``Xs``/``Ys`` (or one ``x``/``y``
+    series), the 45-degree line (``line45_color``, None leaves it out), a
+    deterministic x jitter per series, the reference's opacity, circle size
+    and a placeable legend."""
+
+    DEFAULTS = {
+        "x": [], "y": [], "Xs": None, "Ys": None,
+        "xlabel": "", "ylabel": "", "title": "",
+        "dirname": ".", "fname": "scatter", "labels": None,
+        "line45_color": None, "circle_size": 10, "x_jitter": 0,
+        "opacity": 0, "colors": None,
+        "legend": {"labels": [], "location": "bottom_right"},
+    }
+
+    def _series(self):
+        """[(x, y), ...] float64 arrays, one pair per series."""
+        xs, ys = self.Xs, self.Ys
+        if xs is None or ys is None:
+            xs, ys = [self.x], [self.y]
+        elif len(xs) and np.ndim(xs[0]) == 0:
+            xs, ys = [xs], [ys]
+        return [(np.asarray(x, np.float64), np.asarray(y, np.float64))
+                for x, y in zip(xs, ys)]
+
+    def _labels(self, n: int):
+        labels = (self.legend or {}).get("labels", []) or self.labels or []
+        return [labels[i] if i < len(labels) else None for i in range(n)]
+
+    def _jittered(self, x: np.ndarray, i: int) -> np.ndarray:
+        if not self.x_jitter:
+            return x
+        # seeded by the series index: a re-export draws the same points
+        rng = np.random.default_rng(i)
+        return x + rng.uniform(-0.5, 0.5, x.shape) * float(self.x_jitter)
+
+    def _x_range(self, series):
+        xs = [x for x, _ in series if len(x)]
+        if not xs:
+            return 0.0, 1.0
+        return (float(min(x.min() for x in xs)),
+                float(max(x.max() for x in xs)))
+
+    def render_matplotlib(self, plt):
+        fig, ax = plt.subplots(figsize=(7, 6))
+        series = self._series()
+        labels = self._labels(len(series))
+        if self.line45_color:
+            lo, hi = self._x_range(series)
+            ax.plot([lo, hi], [lo, hi], color=self.line45_color, zorder=1)
+        colors = self.colors or []
+        for i, (x, y) in enumerate(series):
+            ax.scatter(self._jittered(x, i), y, s=self.circle_size,
+                       alpha=_alpha(self.opacity), label=labels[i],
+                       color=colors[i] if i < len(colors) else None)
+        ax.set_xlabel(self.xlabel)
+        ax.set_ylabel(self.ylabel)
+        if self.title:
+            ax.set_title(self.title)
+        if any(labels):
+            loc = (self.legend or {}).get("location", "bottom_right")
+            ax.legend(loc=_LEGEND_LOCS.get(loc, "best"))
+        ax.grid(alpha=0.3)
+        return fig
+
+    def render_bokeh(self):
+        from bokeh.io import output_file, save
+        from bokeh.plotting import figure
+        fig = figure(title=self.title or "", x_axis_label=self.xlabel,
+                     y_axis_label=self.ylabel)
+        series = self._series()
+        labels = self._labels(len(series))
+        if self.line45_color:
+            lo, hi = self._x_range(series)
+            fig.line([lo, hi], [lo, hi], line_color=self.line45_color,
+                     line_width=2)
+        colors = self.colors or []
+        for i, (x, y) in enumerate(series):
+            kwargs = {}
+            if labels[i]:
+                kwargs["legend_label"] = str(labels[i])
+            if i < len(colors) and colors[i]:
+                kwargs["color"] = colors[i]
+            fig.scatter(list(self._jittered(x, i)), list(y),
+                        size=self.circle_size, alpha=_alpha(self.opacity),
+                        **kwargs)
+        if any(labels) and fig.legend:
+            _place_bokeh_legend(fig, self.legend)
+        output_file(self._path("html"))
+        save(fig)
+
+
+class PCAPlotter(BasePlotter):
+    """A 2-D PCA scatter of one or more vector sets, and their export in
+    the TensorFlow projector's tsv format (``export_tsv``)."""
+
+    DEFAULTS = {
+        "vectors": [], "labels": None, "title": "", "xlabel": "x",
+        "ylabel": "y", "dirname": ".", "fname": "PCA_plot",
+        "legend": {"labels": [], "location": "bottom_right"},
+        "circle_size": 15, "opacity": 0.2,
+    }
+
+    def _groups(self):
+        vectors = self.vectors
+        if vectors and not isinstance(vectors[0][0], (list, np.ndarray)):
+            vectors = [vectors]
+        return [np.asarray(group, np.float64) for group in vectors]
+
+    def _project(self):
+        """Each group on the first two principal axes of all the vectors
+        together (numpy's SVD of the centred stack, so the axes' signs are
+        the JAX package's)."""
+        groups = self._groups()
+        stacked = np.concatenate(groups, axis=0)
+        centred = stacked - stacked.mean(axis=0, keepdims=True)
+        _, _, vt = np.linalg.svd(centred, full_matrices=False)
+        projected = centred @ vt[:2].T
+        out, start = [], 0
+        for group in groups:
+            out.append(projected[start:start + len(group)])
+            start += len(group)
+        return out
+
+    def _legend_labels(self):
+        return (self.legend or {}).get("labels", []) or []
+
+    def render_matplotlib(self, plt):
+        fig, ax = plt.subplots(figsize=(8, 6))
+        labels = self._legend_labels()
+        for i, pts in enumerate(self._project()):
+            ax.scatter(pts[:, 0], pts[:, 1], s=self.circle_size,
+                       alpha=_alpha(self.opacity),
+                       label=labels[i] if i < len(labels) else None)
+        ax.set_xlabel(self.xlabel)
+        ax.set_ylabel(self.ylabel)
+        if self.title:
+            ax.set_title(self.title)
+        if labels:
+            loc = (self.legend or {}).get("location", "bottom_right")
+            ax.legend(loc=_LEGEND_LOCS.get(loc, "best"))
+        ax.grid(alpha=0.3)
+        return fig
+
+    def render_bokeh(self):
+        from bokeh.io import output_file, save
+        from bokeh.plotting import figure
+        fig = figure(title=self.title or "", x_axis_label=self.xlabel,
+                     y_axis_label=self.ylabel)
+        labels = self._legend_labels()
+        for i, pts in enumerate(self._project()):
+            kwargs = {}
+            if i < len(labels) and labels[i]:
+                kwargs["legend_label"] = str(labels[i])
+            fig.scatter(list(pts[:, 0]), list(pts[:, 1]),
+                        size=self.circle_size, alpha=_alpha(self.opacity),
+                        **kwargs)
+        if labels and fig.legend:
+            _place_bokeh_legend(fig, self.legend)
+        output_file(self._path("html"))
+        save(fig)
+
+    def export_tsv(self):
+        """``<fname>_vectors.tsv`` (one vector per line) and
+        ``<fname>_metadata.tsv`` (its group's legend label)."""
+        groups = self._groups()
+        labels = self._legend_labels()
+        base = self._path("tsv")[:-4]
+        with open(base + "_vectors.tsv", "w") as fh:
+            for group in groups:
+                for vec in group:
+                    fh.write("\t".join(str(float(v)) for v in vec) + "\n")
+        with open(base + "_metadata.tsv", "w") as fh:
+            for i, group in enumerate(groups):
+                name = labels[i] if i < len(labels) else f"group_{i}"
+                fh.writelines(f"{name}\n" for _ in range(len(group)))
+
+
 def export_plot(plotter: BasePlotter, extensions: Iterable[str],
                 *args, **kwargs) -> None:
-    """Export a plotter to each requested format, non-fatally."""
+    """Export a plotter to each requested format, non-fatally.  Under data
+    parallelism only the main process writes: every process holds the same
+    plot."""
+    from ..parallel import is_main_process
+    if not is_main_process():
+        return
     # materialize up front: a generator argument would be exhausted by the
     # `requested` set and the loop below would silently export nothing
     normalized = [str(e).lower().strip(".") for e in extensions]

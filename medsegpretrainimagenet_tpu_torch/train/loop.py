@@ -17,6 +17,13 @@ the loop writes ``profile/epoch_times.csv`` (host wall time per phase) and
 ``profile/step_times.csv`` (per-step device time, from CUDA events) and a
 ``torch.profiler`` trace of the first epoch it runs under ``profile/trace/``.
 
+Under data parallelism (``parallel``) each batch is cut to this process's
+slice before its copy to the card (``parallel.shard_batch``; a batch the
+loader already assembled as the slice, under per-host input slicing,
+passes as it is), and only the main process writes: CSV rows, checkpoints,
+plots, the confusion-matrix export, the host loggers' files and the
+profile.
+
 Batches are regrouped on the host into ``(n_fragments, fragment_bs, ...)``
 stacks (the step accumulates gradients over the fragments) and copied to
 the card ahead of the step through pinned memory.  The loop reads the card
@@ -40,7 +47,9 @@ import numpy as np
 import torch
 
 from ..config import ConfigDict
+from ..data.loader import BalancedDataLoader
 from ..metrics.calculator import cm_log_epochs, to_host
+from ..parallel import is_main_process, shard_batch
 from ..utils import handle_exception, swallow
 from ..utils.device import resolve_device
 from . import checkpoint as ckpt
@@ -94,6 +103,8 @@ def _stop_trace(trace, directory: str) -> None:
 
 
 def append_csv_row(path: str, row: Dict[str, Any]) -> None:
+    if not is_main_process():  # every process holds the same row
+        return
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     write_header = not os.path.isfile(path)
     with open(path, "a", newline="") as fh:
@@ -189,15 +200,22 @@ def _prefetched(iterator, device: torch.device, depth: int = 2,
                 threaded=None):
     """Copy *depth* batches ahead to *device*, through pinned memory, so
     the copy overlaps the step; a batch whose transfer fails is logged and
-    skipped (the per-batch error envelope)."""
-    from ..data.loader import prefetch_to_device
+    skipped (the per-batch error envelope).  Under data parallelism only
+    this process's slice of a batch is copied."""
+    from ..data.loader import PinnedCopier, prefetch_to_device
+    copy = PinnedCopier(device)
+
+    def put(batch):
+        local = batch.pop(BalancedDataLoader.LOCAL_SLICE_KEY,
+                          None) is not None
+        return copy(shard_batch(batch, batch_dim=1, already_local=local))
 
     def on_error(exc):
         if is_sticky_cuda_error(exc):
             raise exc
         handle_exception(exc, "Exception while transferring a batch.")
 
-    return prefetch_to_device(iterator, size=depth, device=device,
+    return prefetch_to_device(iterator, size=depth, put=put,
                               on_error=on_error, threaded=threaded)
 
 
@@ -378,7 +396,8 @@ def train_model(model, train_data, val_data, test_data,
                                prediction_index=prediction_index)
     module = getattr(model, "module", model)
 
-    profile_cfg = tech.get("profile", False)
+    main_process = is_main_process()
+    profile_cfg = tech.get("profile", False) and main_process
     timer = _StepTimer(device) if profile_cfg else None
     if profile_cfg:
         profile_dir = destination + "profile/"
@@ -399,7 +418,7 @@ def train_model(model, train_data, val_data, test_data,
     def save(filenames, payload):
         """Write *payload* to every file in *filenames*: encoded once, on
         the worker thread in async mode."""
-        if not filenames:
+        if not filenames or not main_process:
             return
         paths = [destination + f for f in filenames]
         if async_writer is not None:
@@ -461,6 +480,9 @@ def train_model(model, train_data, val_data, test_data,
     host_loggers = list(host_loggers or ())
 
     def run_host_loggers(epoch_1idx: int, last: bool = False) -> None:
+        # on every process: the loggers draw batches from the loaders, and
+        # the processes' streams must stay in step (they write on the main
+        # process only)
         for logger in host_loggers:
             if not logger.active(epoch_1idx, last=last):
                 continue

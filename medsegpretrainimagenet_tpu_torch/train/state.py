@@ -7,6 +7,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel import device_count, rank
+
 __all__ = ["TrainState"]
 
 
@@ -34,11 +36,17 @@ class TrainState:
                seed: int) -> "TrainState":
         return cls(module=module, optimizer=optimizer, seed=int(seed))
 
-    def fragment_generator(self, fragment: int,
-                           device: torch.device) -> torch.Generator:
+    def fragment_generator(self, fragment: int, device: torch.device,
+                           sharded: bool = False) -> torch.Generator:
         """The generator of fragment *fragment* of the current step, on
-        *device*: seeded from (seed, micro_step, fragment) on the host."""
-        seed = np.random.SeedSequence(
-            [self.seed, self.micro_step, fragment]).generate_state(
-                1, np.uint64)[0]
+        *device*: seeded from (seed, micro_step, fragment) on the host, and
+        the process's rank when *sharded*, that is when this process holds
+        its slice of the fragment (so the slices' dropout masks differ).
+        A fragment replicated on every process (a ragged tail) draws the
+        same masks everywhere, so the processes' updates stay equal."""
+        entropy = [self.seed, self.micro_step, fragment]
+        if sharded and device_count() > 1:
+            entropy.append(rank())
+        seed = np.random.SeedSequence(entropy).generate_state(
+            1, np.uint64)[0]
         return torch.Generator(device=device).manual_seed(int(seed))

@@ -14,6 +14,16 @@ stack of batch tensors on the device:
   first;
 * the metric-state fold-in over the merged fragments.
 
+Under data parallelism (``parallel``) a batch stack marked by
+``parallel.shard_batch`` holds this process's slice of each fragment: the
+forward runs on the slice with BatchNorm taking the global batch's
+statistics, the predictions and targets of every slice are gathered (the
+predictions with autograd), and the loss and the metrics are those of the
+global fragment, as the JAX step computes them on its sharded batch.  The
+processes' gradients are summed once per step, before clipping.  A stack
+that is not marked (a ragged tail, replicated on every process) draws the
+same masks on every process, and the processes' gradients are averaged.
+
 A step queues device work only: it returns device tensors and reads no
 value back (no ``.item()``, no ``.cpu()``, no branch on a tensor), so the
 host runs ahead of the card.  The learning rate is a host float.
@@ -25,6 +35,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..models.blocks import draws, set_dropout_generator
+from ..parallel import (SHARDED_KEY, gather_batch, gather_shards,
+                        reduce_gradients, sync_batch_stats)
 from .state import TrainState
 
 __all__ = ["make_train_step", "make_eval_step", "global_norm"]
@@ -85,6 +97,15 @@ def _fragments(batch_stack: Dict[str, Any]):
             for i in range(n_frag)]
 
 
+def _split_sharded(batch_stack: Dict[str, Any]):
+    """(batch stack without the shard mark, is it a slice of the global
+    batch?)"""
+    if SHARDED_KEY not in batch_stack:
+        return batch_stack, False
+    rest = {k: v for k, v in batch_stack.items() if k != SHARDED_KEY}
+    return rest, bool(batch_stack[SHARDED_KEY])
+
+
 def make_train_step(model, loss_fn: Callable, calculator, optimizer,
                     grad_clip_value: Optional[float] = None,
                     grad_clip_norm_type: float = 2.0,
@@ -107,6 +128,7 @@ def make_train_step(model, loss_fn: Callable, calculator, optimizer,
     uses_rng = device_augment is not None or draws(module)
 
     def train_step(state: TrainState, metrics_state, batch_stack):
+        batch_stack, sharded = _split_sharded(batch_stack)
         fragments = _fragments(batch_stack)
         n_frag = len(fragments)
         module.train()
@@ -119,11 +141,16 @@ def make_train_step(model, loss_fn: Callable, calculator, optimizer,
             generator = None
             if uses_rng:
                 generator = state.fragment_generator(
-                    i, fragment["x"].device)
+                    i, fragment["x"].device, sharded)
                 set_dropout_generator(module, generator)
             if device_augment is not None:
                 fragment = device_augment(generator, fragment)
-            pred = module(fragment["x"])
+            with sync_batch_stats(sharded):
+                pred = module(fragment["x"])
+            if sharded:
+                # the global fragment's loss, on every process
+                pred = gather_shards(pred)
+                fragment = gather_batch(fragment)
             loss = loss_fn(pred, fragment)
             loss.backward()
             loss = loss.detach()
@@ -142,6 +169,7 @@ def make_train_step(model, loss_fn: Callable, calculator, optimizer,
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
         grads = [p.grad for p in module.parameters() if p.grad is not None]
+        reduce_gradients(grads, replicated=not sharded)
         if n_frag > 1:
             torch._foreach_mul_(grads, 1.0 / n_frag)
         loss_value = loss_sum * (1.0 / n_frag)
@@ -180,10 +208,18 @@ def make_eval_step(model, loss_fn: Optional[Callable], calculator,
     module = getattr(model, "module", model)
 
     def eval_step(state: TrainState, metrics_state, batch_stack):
+        batch_stack, sharded = _split_sharded(batch_stack)
         module.eval()
         with torch.inference_mode():
             preds = [module(_dequantize_inputs(f)["x"])
                      for f in _fragments(batch_stack)]
+            if sharded:
+                preds = [gather_shards(p) for p in preds]
+                batch_stack = gather_batch(
+                    {k: v.transpose(0, 1) for k, v in batch_stack.items()
+                     if isinstance(v, torch.Tensor)})
+                batch_stack = {k: v.transpose(0, 1)
+                               for k, v in batch_stack.items()}
             # the loss sees the full (possibly multi-output) prediction and
             # applies its own train_prediction_index; metrics get the
             # training/prediction_index selection

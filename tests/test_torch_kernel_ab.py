@@ -95,3 +95,14 @@ def test_sass_is_read_per_instance_without_addresses_or_encodings():
     assert kernel_ab.instance_label(
         "_ZN12_GLOBAL__N_121window_attention_bf16ILi32EEEvPK13__nv_"
         "bfloat16S3_S3_PKfS5_PS1_iiiiiifii") == "window_attention<bf16, DP 32>"
+
+
+def test_serve_times_the_model_that_chip_smoke_serves():
+    """``--serve`` builds chip_smoke.py's swin_unet_224 and serves it at
+    the kernels' batch."""
+    import chip_smoke
+
+    assert kernel_ab.swin_unet_224_config() == \
+        chip_smoke.swin_unet_224_config()
+    assert kernel_ab.BATCH == chip_smoke.BATCH
+    assert kernel_ab.SERVE_IMAGES == chip_smoke.SERVE_IMAGES

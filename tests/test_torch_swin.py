@@ -47,6 +47,14 @@ CASES = [
     ("patch_embed",
      lambda: jax_swin.PatchEmbed(in_channels=3, out_channels=8),
      lambda: swin.PatchEmbed(in_channels=3, out_channels=8), (2, 16, 16, 3)),
+    ("patch_embed_dilation_2",
+     lambda: jax_swin.PatchEmbed(in_channels=3, out_channels=96, dilation=2),
+     lambda: swin.PatchEmbed(in_channels=3, out_channels=96, dilation=2),
+     (2, 23, 23, 3)),
+    ("patch_embed_groups_3",
+     lambda: jax_swin.PatchEmbed(in_channels=3, out_channels=96, groups=3),
+     lambda: swin.PatchEmbed(in_channels=3, out_channels=96, groups=3),
+     (2, 16, 16, 3)),
     ("patch_merging",
      lambda: jax_swin.PatchMerging(in_channels=8, out_channels=16),
      lambda: swin.PatchMerging(in_channels=8, out_channels=16), (2, 64, 8)),

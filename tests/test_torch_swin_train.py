@@ -14,7 +14,7 @@
   SW-MSA) in train mode against the JAX package's: the output and the
   gradient of every parameter (the pull-back of one cotangent through
   ``jax.vjp`` and autograd), with the attention on its plain autograd
-  path, through K1's autograd Function (the kernel's forward, here its
+  path, through K1's registered operator (the kernel's forward, here its
   plain version, and the recompute backward ``window_attention_backward``)
   and through K2's under ``set_fused_image_mode("on")``; and the Dice loss
   and ``jax.grad`` of it end to end."""
@@ -197,9 +197,10 @@ def pair():
 
 
 def _kernel_routes(monkeypatch, route, counts):
-    """Send the Swin blocks' attention through K1's or K2's autograd
-    Function (forward: the kernel's wrapper, here its plain version on the
-    CPU tensor; backward: the recompute), counting the forwards."""
+    """Send the Swin blocks' attention through K1's or K2's registered
+    torch operator (forward: the kernel's wrapper, here its plain version
+    on the CPU tensor; backward: the operator's registered recompute),
+    counting the forwards."""
     def plain_k1(q, k, v, bias, mask, scale):
         counts["k1"] += 1
         return wa.window_attention_torch(q, k, v, bias, mask, scale)
@@ -213,13 +214,15 @@ def _kernel_routes(monkeypatch, route, counts):
         monkeypatch.setattr(
             swin, "window_attention_core",
             lambda q, k, v, bias, mask, scale, train:
-            wa._WindowAttentionKernel.apply(q, k, v, bias, mask, scale))
+            torch.ops.medseg_torch.window_attention(q, k, v, bias, mask,
+                                                    scale))
     else:
         wa.set_fused_image_mode("on")
         monkeypatch.setattr(
             swin, "fused_image_window_attention",
             lambda qkv, bias, mask, scale, window, train:
-            wa._ImageAttentionKernel.apply(qkv, bias, mask, scale, window))
+            torch.ops.medseg_torch.image_attention(qkv, bias, mask, scale,
+                                                   window))
 
 
 @pytest.mark.parametrize("route", ["plain", "k1_recompute", "k2_recompute"])
@@ -227,7 +230,7 @@ def test_swin_unet_gradients_match_jax(pair, monkeypatch, route):
     """Train mode at rate 0: the output and every parameter's gradient
     (the bias table's through the gather of the relative-position index)
     within TOL; on the kernel routes every one of the 6 blocks' forwards
-    went through the autograd Function."""
+    went through the registered operator."""
     jmodel, variables = pair
     counts = {"k1": 0, "k2": 0}
     if route != "plain":
