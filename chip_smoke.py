@@ -124,7 +124,23 @@ float32 U-Net's artifact equals its module.  ``[ddp]`` runs a one-epoch
 COVID-QU CLI under ``torchrun --nproc_per_node 1`` on NCCL (the
 data-parallel path: shards, the global BatchNorm, gathered outputs,
 summed gradients) against the plain CLI, and times and profiles the
-data-parallel step beside ``[train]``.
+data-parallel step beside ``[train]``.  ``[tp]``, ``[sp]`` and ``[pp]``
+run in one ``torchrun --nproc_per_node 2`` launch whose two ranks share
+the card over gloo (asked for by name: NCCL refuses two ranks on one
+device), each held against one process on the card in float32 with TF32
+off: ``unet_256_train`` and ``swin_224_train`` with their wide layers
+column-parallel (data x model 1 x 2; K1 launched 14 times per Swin step on
+the gathered qkv), ``unet_256_train`` on two bands of 128 rows with halo
+exchanges (data x spatial 1 x 2), and two DoubleSwin stages of
+``swin_224``'s first level in a GPipe pipeline (data x pipe 1 x 2, K1
+inside the stages) in float32 and bf16; their ms are a correctness run's,
+not a speed.  ``python3 chip_smoke.py --only parallel`` runs the parallel
+phases alone on four cards, one rank per card over NCCL: ``[tp]``,
+``[sp]``, ``[pp]`` at 2 x 2 and 1 x 4 (the first two profiled), then the
+CLI under ``torchrun --nproc_per_node 4`` with data parallelism (and its
+step timed), with ``tensor_parallel: 2`` and with ``spatial_sharding: 2``
+against the plain CLI; with fewer cards it exits non-zero naming the
+count.
 Any failure exits non-zero.  Without a CUDA
 card, or without the package beside it, it exits non-zero and prints no
 result.  It imports nothing of JAX.
@@ -134,7 +150,9 @@ kernel's launches, error and times (K1 and K2 in bf16 per serving forward,
 and in float32 per Swin encoder forward of ``robustness_224``; K1's entry
 also carries its launches and its forward and backward per step of
 ``swin_224_train``, K2's its launches there under the image layout; both
-carry their launches in one forward of their exported artifact), and
+carry their launches in one forward of their exported artifact; K1's also
+per step of ``swin_224_train`` under tensor parallelism and per tick of
+the pipeline), and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -175,7 +193,9 @@ MEAN_TOL = {"torch.bfloat16": 1e-5, "torch.float32": 1e-6}
 FAULT_MARGIN = 10
 SERVE_IMAGES, SERVE_TOL = 96, 2e-2
 #: unet_256_train: batch, image side, steps per timed turn, timed turns
-TRAIN_BATCH, TRAIN_SIZE, TURN_STEPS, TURNS = 16, 256, 10, 5
+#: (every timed step of the script takes TURNS turns: 5 until PR 12, 3
+#: since the parallel phases came in)
+TRAIN_BATCH, TRAIN_SIZE, TURN_STEPS, TURNS = 16, 256, 10, 3
 #: card against CPU, the small float32 step (TF32 off)
 TRAIN_TOL = 1e-4
 #: unet_256_train in bf16 against the same port in float32 (TF32 off),
@@ -2186,16 +2206,18 @@ DDP_IMAGES, DDP_TOL = 64, 1e-4
 _DDP_LAUNCHER = """import sys
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
-sys.exit(chip_smoke.ddp_worker(sys.argv[2]))
+sys.exit(chip_smoke.ddp_worker(sys.argv[2], sys.argv[3] == "step"))
 """
 
 
-def ddp_worker(config_path: str) -> int:
+def ddp_worker(config_path: str, time_step: bool = True) -> int:
     """The process ``torchrun`` starts for [ddp]: join the NCCL group on
     cuda:LOCAL_RANK, run the experiment CLI on *config_path* (its
     data-parallel path: shard, global BatchNorm statistics, gathered
-    outputs, summed gradients), then time unet_256_train's step on a
-    sharded batch as [train] times it and print its images/s."""
+    outputs, summed gradients; or the layout its tensor_parallel or
+    spatial_sharding asks for), then, with *time_step*, time
+    unet_256_train's step on a sharded batch as [train] times it and print
+    its images/s."""
     import torch
     import torch.distributed as dist
 
@@ -2209,6 +2231,9 @@ def ddp_worker(config_path: str) -> int:
         check(dist.get_backend() == "nccl" and device.type == "cuda",
               f"[ddp] backend {dist.get_backend()} on {device}")
         cli_main([config_path])
+        if not time_step:
+            return 0
+        parallel.create_grid()
         torch.backends.cudnn.benchmark = True
         blocks.set_compute_dtype(torch.bfloat16)
         try:
@@ -2233,41 +2258,48 @@ def ddp_worker(config_path: str) -> int:
             run_steps(3)  # cuDNN autotuning, NCCL set-up
             rates = [TRAIN_BATCH * TURN_STEPS / t for t in _timed_turns(
                 run_steps, "[ddp] a host sync in a data-parallel step")]
-            profile_train(run_steps, 3,
-                          1e3 * TRAIN_BATCH / statistics.median(rates),
-                          tag="ddp step")
+            if parallel.is_main_process():
+                profile_train(run_steps, 1,
+                              1e3 * TRAIN_BATCH / statistics.median(rates),
+                              tag="ddp step", groups_of=_PARALLEL_GROUPS)
+            else:
+                run_steps(1)  # the profiled step's collectives
             tail = torch.stack(losses).cpu()
             check(bool(torch.isfinite(tail).all()) and tail[-1] < tail[0],
                   f"[ddp] step losses {tail[0].item()} -> "
                   f"{tail[-1].item()}")
         finally:
             blocks.set_compute_dtype(None)
-        print(f"[ddp rate] {statistics.median(rates):.1f} "
-              f"{[round(r, 1) for r in sorted(rates)]}", flush=True)
+        if parallel.is_main_process():
+            print(f"[ddp rate] {statistics.median(rates):.1f} "
+                  f"{[round(r, 1) for r in sorted(rates)]}", flush=True)
     finally:
         dist.destroy_process_group()
     return 0
 
 
-def phase_ddp(step_rate: float) -> None:
+def phase_ddp(step_rate: float, variants=None) -> None:
     """[ddp]: ``torchrun --standalone --nproc_per_node 1`` of a one-epoch
     COVID-QU CLI run (the [cli] config in float32, DDP_IMAGES images,
     deterministic algorithms) under NCCL, against the same run of the
     plain CLI: every epoch_logs.csv value within DDP_TOL, the same files.
     Then the data-parallel step's images/s under the group beside
-    [train]'s.  The card's machine has one card, so two ranks' equality
-    to one process is held on the CPU (tests/test_torch_parallel.py).
-    Both processes run with TF32 off (``NVIDIA_TF32_OVERRIDE=0``): TF32
-    rounds each conv's inputs to 10 bits, which turns the global-batch
+    [train]'s.  *variants* (``--only parallel``, four cards) runs other
+    launches against the same plain run: (tag, processes, the
+    meta/technical it adds, whether the step is timed after it).  Two or
+    more ranks' equality to one process is held on the CPU too
+    (tests/test_torch_parallel.py and the tensor, spatial and pipeline
+    tests).  Both processes run with TF32 off (``NVIDIA_TF32_OVERRIDE=0``):
+    TF32 rounds each conv's inputs to 10 bits, which turns the global-batch
     BatchNorm's float32 sums, ordered otherwise than cuDNN's, into
     differences above the bar."""
     import os
 
     (ROOT / "build").mkdir(exist_ok=True)
     saved_tf32 = os.environ.get("NVIDIA_TF32_OVERRIDE")
-    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"  # the two subprocesses only
+    os.environ["NVIDIA_TF32_OVERRIDE"] = "0"  # the subprocesses only
     try:
-        _ddp_runs(step_rate)
+        _ddp_runs(step_rate, variants or [("ddp", 1, {}, True)])
     finally:
         if saved_tf32 is None:
             os.environ.pop("NVIDIA_TF32_OVERRIDE")
@@ -2275,70 +2307,100 @@ def phase_ddp(step_rate: float) -> None:
             os.environ["NVIDIA_TF32_OVERRIDE"] = saved_tf32
 
 
-def _ddp_runs(step_rate: float) -> None:
-    """The two runs of :func:`phase_ddp` and their checks."""
+def _ddp_runs(step_rate: float, variants) -> None:
+    """The runs of :func:`phase_ddp` and their checks."""
+    import os
+
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         runs = {}
-        for kind in ("plain", "torchrun"):
-            workdir = Path(tmp) / kind
+        for tag, nproc, technical, time_step in [("plain", 0, {}, False),
+                                                  *variants]:
+            workdir = Path(tmp) / tag
             workdir.mkdir()
-            if kind == "plain":
+            if tag == "plain":
                 write_covidqu_tree(workdir / "data", images=DDP_IMAGES)
             else:
                 (workdir / "data").symlink_to(Path(tmp) / "plain" / "data")
             cfg = cli_config(workdir, 1, measured=False)
             cfg["meta"]["technical"].update(
                 mixed_precision=False, use_deterministic_algorithms=True,
-                async_checkpointing=False)
-            if kind == "torchrun":
-                seconds, out = _torchrun_cli(workdir, cfg)
+                async_checkpointing=False, **technical)
+            if tag == "plain":
+                # one card: the CLI refuses several visible to one process
+                saved = os.environ.get("CUDA_VISIBLE_DEVICES")
+                os.environ["CUDA_VISIBLE_DEVICES"] = "0"
+                try:
+                    seconds, out = _cli_process(workdir, cfg)
+                finally:
+                    if saved is None:
+                        os.environ.pop("CUDA_VISIBLE_DEVICES")
+                    else:
+                        os.environ["CUDA_VISIBLE_DEVICES"] = saved
             else:
-                seconds, out = _cli_process(workdir, cfg)
+                seconds, out = _torchrun_cli(workdir, cfg, nproc, time_step)
             marks = [m for m in ENVELOPE_MARKS if m in out.stderr]
             check(out.returncode == 0 and not marks,
-                  f"[ddp] {kind} run: exit {out.returncode}, envelope marks "
+                  f"[{tag}] run: exit {out.returncode}, envelope marks "
                   f"{marks}; stderr tail:\n{out.stderr[-4000:]}")
             (run,) = (workdir / "logs").glob("*/Experiment/run_1")
-            runs[kind] = (run, _csv_rows(run / "epoch_logs.csv"), seconds,
-                          out.stdout)
-        (plain_run, want, plain_s, _), (ddp_run, got, ddp_s, stdout) = \
-            runs["plain"], runs["torchrun"]
-        files = [sorted(p.name for p in run.iterdir())
-                 for run in (plain_run, ddp_run)]
-        check(files[0] == files[1] and len(got) == len(want) == 1
-              and list(got[0]) == list(want[0]),
-              f"[ddp] run files {files}, rows {got} vs {want}")
-        diffs = {k: abs(float(got[0][k]) - float(want[0][k]))
-                 for k in want[0]}
-        worst = max(diffs, key=diffs.get)
-        check(diffs[worst] < DDP_TOL,
-              f"[ddp] epoch_logs.csv under torchrun vs plain: {worst} "
-              f"differs by {diffs[worst]} (bar {DDP_TOL}); every column: "
-              f"{diffs}")
-        rate_line = [line for line in stdout.splitlines()
-                     if line.startswith("[ddp rate]")]
-        check(len(rate_line) == 1, f"[ddp] no rate line in {stdout[-2000:]}")
-        median, turns = rate_line[0].split(" ", 3)[2:]
-        print(f"[ddp] torchrun --nproc_per_node 1 (NCCL), one epoch of "
-              f"{DDP_IMAGES} images through the CLI in float32 (TF32 off) "
-              f"under deterministic algorithms: {ddp_s:.1f} s of wall time "
-              f"(with "
-              f"the step's timing below) against {plain_s:.1f} s for the "
-              f"plain CLI; epoch_logs.csv "
-              f"equal within {DDP_TOL} (worst {worst}: {diffs[worst]:.3g}); "
-              f"the same run files", flush=True)
-        print(f"[ddp] unet_256_train bf16 step on a sharded batch under the "
-              f"process group: median {median} images/s of {turns} "
-              f"({TURNS} turns of {TURN_STEPS} steps, no host sync), "
-              f"[train]'s {step_rate:.1f}; {card_line()}", flush=True)
-        print("\n".join(line for line in stdout.splitlines()
-                        if line.startswith("[profile ddp step")), flush=True)
+            runs[tag] = (run, _csv_rows(run / "epoch_logs.csv"), seconds,
+                         out.stdout)
+        plain_run, want, plain_s, _ = runs["plain"]
+        failures = []  # every launch is read before one fails the phase
+        for tag, nproc, technical, time_step in variants:
+            ddp_run, got, ddp_s, stdout = runs[tag]
+            files = [sorted(p.name for p in run.iterdir())
+                     for run in (plain_run, ddp_run)]
+            if not (files[0] == files[1] and len(got) == len(want) == 1
+                    and list(got[0]) == list(want[0])):
+                failures.append(f"[{tag}] run files {files}, rows {got} vs "
+                                f"{want}")
+                continue
+            diffs = {k: abs(float(got[0][k]) - float(want[0][k]))
+                     for k in want[0]}
+            worst = max(diffs, key=diffs.get)
+            if diffs[worst] >= DDP_TOL:
+                failures.append(
+                    f"[{tag}] epoch_logs.csv under torchrun vs plain: "
+                    f"{worst} differs by {diffs[worst]} (bar {DDP_TOL}); "
+                    f"every column: {diffs}")
+            layout = ", ".join(f"{k} {v}" for k, v in technical.items()) \
+                or "data parallelism"
+            print(f"[{tag}] torchrun --nproc_per_node {nproc} (NCCL, "
+                  f"{layout}), one epoch of {DDP_IMAGES} images through "
+                  f"the CLI in float32 (TF32 off) under deterministic "
+                  f"algorithms: {ddp_s:.1f} s of wall time"
+                  f"{' (with the step timing below)' if time_step else ''} "
+                  f"against {plain_s:.1f} s for the plain CLI; "
+                  f"epoch_logs.csv against it (bar {DDP_TOL}): worst "
+                  f"{worst} {diffs[worst]:.3g}; the same run files",
+                  flush=True)
+            if not time_step:
+                continue
+            rate_line = [line for line in stdout.splitlines()
+                         if line.startswith("[ddp rate]")]
+            if len(rate_line) != 1:
+                failures.append(f"[{tag}] no rate line in {stdout[-2000:]}")
+                continue
+            median, turns = rate_line[0].split(" ", 3)[2:]
+            beside = f", [train]'s {step_rate:.1f} on one card" \
+                if step_rate else ""
+            print(f"[{tag}] unet_256_train bf16 step on a sharded batch "
+                  f"under the process group of {nproc}: median {median} "
+                  f"images/s of {turns} ({TURNS} turns of {TURN_STEPS} "
+                  f"steps, no host sync){beside}; {card_line()}",
+                  flush=True)
+            print("\n".join(line for line in stdout.splitlines()
+                            if line.startswith("[profile ddp step")),
+                  flush=True)
+        check(not failures, "; ".join(failures))
 
 
-def _torchrun_cli(workdir: Path, config: dict):
-    """``torchrun --standalone --nproc_per_node 1`` of :func:`ddp_worker`
-    on *config* in *workdir*.  Returns (wall seconds, the finished
-    process)."""
+def _torchrun_cli(workdir: Path, config: dict, nproc: int = 1,
+                  time_step: bool = True):
+    """``torchrun --standalone --nproc_per_node NPROC`` of
+    :func:`ddp_worker` on *config* in *workdir*.  Returns (wall seconds,
+    the finished process)."""
     import os
 
     from medsegpretrainimagenet_tpu_torch.config import dump_yaml
@@ -2352,10 +2414,456 @@ def _torchrun_cli(workdir: Path, config: dict):
     t0 = time.perf_counter()
     out = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node", "1", str(workdir / "launch.py"), str(ROOT),
-         str(path)], cwd=workdir, env=env, capture_output=True, text=True,
-        timeout=400)
+         "--nproc_per_node", str(nproc), str(workdir / "launch.py"),
+         str(ROOT), str(path), "step" if time_step else "cli"], cwd=workdir,
+        env=env, capture_output=True, text=True, timeout=400)
     return time.perf_counter() - t0, out
+
+
+#: [tp], [sp], [pp]: steps from the same weights and batch, and the bar on
+#: the relative |parallel - one process| of the losses, the first step's
+#: gradient norm and the worst parameter leaf (max |diff| over the leaf's
+#: max |value|), all float32 with TF32 off, as [train] holds the card
+#: against the CPU.  (unet_256_train's float32 gradient is itself 1e-3
+#: from a float64 run's in its first-level convs, its norm 8e-5: the
+#: later steps' norms part by more than the bar and are printed only); the
+#: Swin step's batch (swin_224_train's is 24) and its stochastic depth (off:
+#: on a data axis of 2 the two halves draw their own masks); the pipeline's
+#: microbatches, batch and DoubleSwin stage (swin_224's level 0)
+PARALLEL_STEPS, PARALLEL_TOL = 3, 1e-4
+TP_MIN_CHANNELS, TP_SWIN_BATCH = 256, 8
+PP_MICROBATCHES, PP_BATCH = 4, 8
+PP_STAGE = dict(in_channels=96, embed_dim=96, img_size=224, patch_size=4,
+                depth=2, num_heads_layers=(3, 6, 12, 24), window_size=7)
+#: what torchrun runs for them: this script's parallel_worker
+_PARALLEL_LAUNCHER = """import sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+sys.exit(chip_smoke.parallel_worker(sys.argv[2]))
+"""
+#: the profiles' kernel groups, with the collectives apart
+_PARALLEL_GROUPS = (("nccl", "collectives (NCCL)"),) + _TRAIN_GROUPS
+
+
+def _relative(got: dict, want: dict, count: int = 1):
+    """(worst leaf, max |got - want| over max |want| of it) over the
+    floating leaves of two state dicts; with *count* > 1 the *count* worst
+    such pairs."""
+    read = {k: ((got[k] - v).abs().max() / v.abs().max().clamp_min(1e-30))
+            .item() for k, v in want.items() if v.is_floating_point()}
+    order = sorted(read, key=read.get, reverse=True)
+    if count > 1:
+        return [(k, read[k]) for k in order[:count]]
+    return order[0], read[order[0]]
+
+
+def _grid_steps(cfg: dict, batch: dict, device, layout=None, inner=None,
+                tp_min_channels=None, profile_tag=None) -> dict:
+    """PARALLEL_STEPS steps of *cfg* (built as build_trainer builds it,
+    the biases and norm scales drawn by _trained_look) on *batch*: in one
+    process when *layout* is None, else on the grid ``("data", inner)`` of
+    *layout*, each process on its shard (its output channels under
+    ``tensor_parallel``, its rows under ``spatial``).  Returns the losses,
+    gradient norms, the whole parameters on the host, ms per step (each
+    step synchronised), K1's launches per step and the sharded share."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch import parallel
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+    from medsegpretrainimagenet_tpu_torch.parallel import tp
+
+    if layout is not None:
+        parallel.create_grid(("data", inner) if inner else ("data",), layout)
+    model, state, calculator, step = build_trainer(cfg, device)
+    _trained_look(model.module, seed=7)
+    model.module.to(device)
+    share = 0.0
+    if layout is not None:
+        parallel.put_replicated(model.module)
+        if tp_min_channels:
+            parallel.shard_train_state(model.module, state.optimizer,
+                                       min_channels=tp_min_channels)
+            share = tp.sharded_share(model.module)
+        batch = parallel.shard_batch(
+            batch, spatial_axis="spatial" if inner == "spatial" else None)
+        check(batch.get(parallel.SHARDED_KEY, False),
+              f"[parallel] {layout}: the batch was not marked as a shard")
+    metrics_state = calculator.init_state(device)
+    losses, norms, ms = [], [], []
+    wa.window_attention_cuda.launches = 0
+
+    def run(n):
+        nonlocal state, metrics_state
+        for _ in range(n):
+            state, metrics_state, per_batch = step(state, metrics_state,
+                                                   batch)
+            losses.append(per_batch["dice_loss"])
+            norms.append(per_batch["gradient_magnitude"])
+
+    for _ in range(PARALLEL_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(1)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launches = wa.window_attention_cuda.launches / PARALLEL_STEPS
+    # copied to the host before any further step: a state dict's tensors
+    # are the live parameters
+    names = {name for name, _ in model.module.named_parameters()}
+    params = {k: v.double().cpu() for k, v in
+              parallel.full_state_dict(model.module).items() if k in names}
+    if profile_tag is not None and parallel.rank() == 0:
+        profile_train(run, 1, statistics.median(ms), tag=profile_tag,
+                      groups_of=_PARALLEL_GROUPS)
+    elif profile_tag is not None:
+        run(1)  # the other ranks take the profiled step's collectives
+    out = {"loss": torch.stack(losses[:PARALLEL_STEPS]).double().cpu(),
+           "norm": torch.stack(norms[:PARALLEL_STEPS]).double().cpu(),
+           "params": params,
+           "ms": ms, "launches": launches, "share": share}
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _held(tag: str, got: dict, want: dict, extra: str = "") -> dict:
+    """Print and check one grid run against the one-process run: the
+    losses of every step, the gradient norm of the first (the later steps'
+    start from parameters that part by float32 rounding, and this norm
+    reads 8e-5 from a float64 run's in one process), the worst parameter
+    leaf after the steps."""
+    loss = ((got["loss"] - want["loss"]).abs()
+            / want["loss"].abs()).max().item()
+    norms = ((got["norm"] - want["norm"]).abs() / want["norm"]).tolist()
+    norm = norms[0]
+    worst, leaf = _relative(got["params"], want["params"])
+    worst_leaves = _relative(got["params"], want["params"], 4)
+    print(f"{tag} relative |diff| against one process: loss {loss:.3g}, "
+          f"first gradient norm {norm:.3g} (the steps' "
+          f"{[float(f'{n:.3g}') for n in norms]}), worst parameter leaf "
+          f"{leaf:.3g} ({worst}; bar {PARALLEL_TOL}; the next "
+          f"{[(k, float(f'{v:.3g}')) for k, v in worst_leaves[1:]]}); ms "
+          f"per step {[round(t, 1) for t in got['ms']]} against one "
+          f"process's {[round(t, 1) for t in want['ms']]}{extra}",
+          flush=True)
+    ok = max(loss, norm, leaf) < PARALLEL_TOL
+    return {"loss": loss, "norm": norm, "leaf": leaf, "ms": got["ms"],
+            "one_process_ms": want["ms"], "ok": ok,
+            "failure": None if ok else f"{tag}: loss {loss}, gradient norm "
+                                       f"{norm}, {worst} {leaf} (bar "
+                                       f"{PARALLEL_TOL})"}
+
+
+def _pipeline_run(device, dtype, layout=None, stages: int = 2) -> dict:
+    """Two (or as many as the pipe axis has) DoubleSwin stages of swin_224's
+    level 0 over PP_BATCH x 56 x 56 tokens, M = PP_MICROBATCHES, in
+    *dtype* compute: through ``pipeline_apply`` on the grid's pipe axis
+    (*layout*), or in one process as the sequential stack.  Returns the
+    outputs of this process's samples, the loss, the stacked parameters'
+    gradients (summed over the pipe axis), ms of the forward and backward,
+    and K1's launches per tick of the forward."""
+    import torch
+    import torch.distributed as dist
+    from torch.func import functional_call
+
+    from medsegpretrainimagenet_tpu_torch import parallel
+    from medsegpretrainimagenet_tpu_torch.models import blocks, swin
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+
+    stages = layout[1] if layout else stages
+    if layout is not None:
+        parallel.create_grid(("data", "pipe"), layout)
+    block = swin.DoubleSwinTransformerBlock(**PP_STAGE).to(device).train()
+    params = []
+    for i in range(stages):
+        torch.manual_seed(100 + i)
+        module = swin.DoubleSwinTransformerBlock(**PP_STAGE)
+        params.append({k: v.to(device) for k, v in
+                       module.named_parameters()})
+    stacked = {k: v.detach().requires_grad_() for k, v in
+               parallel.stack_stage_params(params).items()}
+    generator = torch.Generator(device=device).manual_seed(3)
+    side = PP_STAGE["img_size"] // PP_STAGE["patch_size"]
+    tokens = (PP_BATCH, side * side, PP_STAGE["embed_dim"])
+    x = torch.randn(tokens, device=device, generator=generator)
+    target = torch.randn(tokens, device=device, generator=generator)
+    if layout is not None and layout[0] > 1:
+        data = parallel.grid().data
+        x, target = (t.chunk(data.size)[data.index] for t in (x, target))
+
+    def stage_fn(p, h):
+        return functional_call(block, p, (h,))
+
+    blocks.set_compute_dtype(dtype)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wa.window_attention_cuda.launches = 0
+        if layout is None:
+            y = x
+            for i in range(stages):
+                y = stage_fn({k: v[i] for k, v in stacked.items()}, y)
+        else:
+            y = parallel.pipeline_apply(
+                stage_fn, stacked, x, num_microbatches=PP_MICROBATCHES,
+                data_axis="data")
+        ticks = PP_MICROBATCHES + stages - 1 if layout else stages
+        launches = wa.window_attention_cuda.launches / ticks
+        loss = ((y.float() - target) ** 2).mean()
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        blocks.set_compute_dtype(None)
+    grads = {k: v.grad for k, v in stacked.items()}
+    if layout is not None:
+        for grad in grads.values():
+            dist.all_reduce(grad, group=parallel.grid().inner.group)
+        if layout[0] > 1:  # every data rank's share of the mean
+            for grad in grads.values():
+                dist.all_reduce(grad, group=parallel.grid().data.group)
+                grad /= layout[0]
+    return {"y": y.detach().float().cpu(), "loss": loss.item(),
+            "grads": {k: v.double().cpu() for k, v in grads.items()},
+            "ms": ms, "launches": launches}
+
+
+def _pipeline_held(tag: str, got: dict, want: dict, bar: float) -> dict:
+    """Print and check a pipelined run against the sequential stack: the
+    outputs of this process's samples (max |diff|, relative to their
+    largest value in float32, absolute in bf16 as [k1] holds K1) and the
+    worst stacked gradient (relative to its largest value)."""
+    ref = want["y"][:got["y"].shape[0]]
+    diff = (got["y"] - ref).abs().max().item()
+    out = diff if bar == BF16_TOL else diff / ref.abs().max().item()
+    worst, grad = _relative(got["grads"], want["grads"])
+    print(f"{tag} outputs |diff| {out:.3g}, worst gradient {grad:.3g} "
+          f"({worst}; bar {bar}); forward and backward "
+          f"{got['ms']:.1f} ms against the sequential stack's "
+          f"{want['ms']:.1f}; K1 launches per tick {got['launches']:g} "
+          f"(the sequential stack: {want['launches']:g} per stage)",
+          flush=True)
+    ok = out < bar and grad < bar and got["launches"] == 2
+    return {"outputs": out, "gradient": grad, "ms": got["ms"],
+            "sequential_ms": want["ms"], "launches": got["launches"],
+            "ok": ok, "failure": None if ok else
+            f"{tag} outputs {out}, {worst} {grad} (bar {bar}), "
+            f"{got['launches']} K1 launches per tick (2: one a Swin block)"}
+
+
+def _parallel_cases(device) -> tuple:
+    """[tp] and [sp]'s configs and batches: unet_256_train at batch
+    TRAIN_BATCH, swin_224_train at TP_SWIN_BATCH without stochastic
+    depth."""
+    return (unet_256_train_config(), swin_224_train_config(rate=0.0),
+            {k: v.to(device) for k, v in segmentation_batch(
+                1, TRAIN_BATCH, TRAIN_SIZE, seed=0).items()},
+            {k: v.to(device) for k, v in segmentation_batch(
+                1, TP_SWIN_BATCH, 224, seed=1).items()})
+
+
+def parallel_references(path: Path, stages) -> None:
+    """The one-process runs that [tp], [sp] and [pp] are held against, on
+    this process's card (no process group, so no collective), written to
+    *path*: unet_256_train's and swin_224_train's steps, and the
+    sequential DoubleSwin stacks of each count in *stages*, in float32 and
+    bf16."""
+    import torch
+
+    with tf32_off():
+        unet, swin_cfg, unet_batch, swin_batch = _parallel_cases("cuda")
+        ref = {"unet": _grid_steps(unet, unet_batch, "cuda"),
+               "swin": _grid_steps(swin_cfg, swin_batch, "cuda")}
+        for count in sorted(set(stages)):
+            for dtype in (torch.float32, torch.bfloat16):
+                ref[f"pp {count} {dtype}"] = _pipeline_run(
+                    "cuda", dtype, stages=count)
+    torch.save(ref, path)
+    torch.cuda.empty_cache()
+
+
+def parallel_worker(spec_path: str) -> int:
+    """The process ``torchrun`` starts for [tp], [sp] and [pp]: ranks that
+    share one card over gloo (``spec["shared"]``, asked for by name: NCCL
+    refuses two ranks on one device) or one rank per card over NCCL.
+    Every grid run is held against the one-process runs that the launching
+    process wrote (:func:`parallel_references`; PARALLEL_TOL, float32, TF32
+    off), [pp] also in bf16 (BF16_TOL, as [k1]).  Prints its lines from
+    rank 0, and ends every rank at once when a check fails."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from medsegpretrainimagenet_tpu_torch import parallel
+
+    spec = json.loads(Path(spec_path).read_text())
+    shared = spec["shared"]
+    device = parallel.initialize_distributed(
+        "cuda:0" if shared else None, backend="gloo" if shared else None)
+    check(dist.get_backend() == ("gloo" if shared else "nccl"),
+          f"[parallel] backend {dist.get_backend()} on {device}")
+    main_rank = parallel.rank() == 0
+    result = {}
+    how = (f"{dist.get_world_size()} ranks sharing one card over gloo: a "
+           f"correctness run, not a speed" if shared else
+           f"{dist.get_world_size()} ranks, one per card, over NCCL")
+    ref = torch.load(spec["references"], weights_only=False) \
+        if main_rank else None
+
+    def held(key, reading):
+        result[key] = reading
+        if not reading["ok"]:
+            failures.append(reading["failure"])
+
+    failures = []
+    try:
+        with tf32_off():
+            unet, swin_cfg, unet_batch, swin_batch = _parallel_cases(device)
+            for layout in spec["layouts"]:
+                grid = f"{layout[0]} x {layout[1]}"
+                tag = None if shared else f"tp {grid}"
+                got = _grid_steps(unet, unet_batch, device, layout, "model",
+                                  TP_MIN_CHANNELS, profile_tag=tag)
+                if main_rank:
+                    held(f"tp unet {grid}", _held(
+                        f"[tp] unet_256_train data x model {grid} ({how}), "
+                        f"min channels {TP_MIN_CHANNELS}, "
+                        f"{100 * got['share']:.1f} % of the parameters "
+                        f"sharded:", got, ref["unet"]))
+                got = _grid_steps(swin_cfg, swin_batch, device, layout,
+                                  "model", TP_MIN_CHANNELS)
+                if main_rank:
+                    held(f"tp swin {grid}", _held(
+                        f"[tp] swin_224_train (batch {TP_SWIN_BATCH}, "
+                        f"float32, stochastic depth off) data x model "
+                        f"{grid}, {100 * got['share']:.1f} % sharded:",
+                        got, ref["swin"],
+                        f"; K1 launches per step {got['launches']:g}"))
+                    result["tp_swin_train_launches"] = got["launches"]
+                    if got["launches"] != 14:
+                        failures.append(f"[tp] swin step: {got['launches']} "
+                                        f"K1 launches per step, not 14")
+                tag = None if shared else f"sp {grid}"
+                got = _grid_steps(unet, unet_batch, device, layout,
+                                  "spatial", profile_tag=tag)
+                if main_rank:
+                    held(f"sp unet {grid}", _held(
+                        f"[sp] unet_256_train data x spatial {grid} "
+                        f"({TRAIN_SIZE // layout[1]} of {TRAIN_SIZE} rows a "
+                        f"rank):", got, ref["unet"]))
+                for dtype, bar in ((torch.float32, PARALLEL_TOL),
+                                   (torch.bfloat16, BF16_TOL)):
+                    got = _pipeline_run(device, dtype, layout)
+                    if main_rank:
+                        result["pp_launches_per_tick"] = got["launches"]
+                        held(f"pp {grid} {dtype}", _pipeline_held(
+                            f"[pp] {layout[1]} DoubleSwin stages (swin_224 "
+                            f"level 0: embed 96, 56 x 56 tokens, window 7, "
+                            f"heads 3), data x pipe {grid}, M = "
+                            f"{PP_MICROBATCHES}, batch {PP_BATCH}, "
+                            f"{str(dtype)[6:]} ({how}):", got,
+                            ref[f"pp {layout[1]} {dtype}"], bar))
+            if not shared:
+                # the data axis alone, every card on it, beside the layouts
+                # above: what the grid adds to data parallelism
+                world = dist.get_world_size()
+                got = _grid_steps(unet, unet_batch, device, (world,))
+                if main_rank:
+                    held(f"dp unet {world}", _held(
+                        f"[dp] unet_256_train data {world} ({how}):", got,
+                        ref["unet"]))
+        if main_rank:
+            Path(spec["out"]).write_text(json.dumps(result))
+            check(not failures, "; ".join(failures))
+    except SystemExit as exc:
+        # a failed check ends every rank at once: the launcher stops the
+        # others when one exits, where they would wait in a collective
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(exc.code if isinstance(exc.code, int) else 1)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _parallel_launch(nproc: int, spec: dict) -> dict:
+    """One ``torchrun --standalone --nproc_per_node NPROC`` of
+    :func:`parallel_worker` on *spec*; prints the [tp], [sp], [pp] and
+    profile lines of its rank 0 and returns what rank 0 wrote (K1's
+    launches in the Swin step under tensor parallelism and per pipeline
+    tick)."""
+    import os
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        spec_path = Path(tmp) / "spec.json"
+        result = Path(tmp) / "result.json"
+        references = Path(tmp) / "references.pt"
+        timed("parallel references", parallel_references, references,
+              [layout[1] for layout in spec["layouts"]])
+        spec_path.write_text(json.dumps({**spec, "out": str(result),
+                                         "references": str(references)}))
+        (Path(tmp) / "launch.py").write_text(_PARALLEL_LAUNCHER)
+        env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", str(nproc), str(Path(tmp) / "launch.py"),
+             str(ROOT), str(spec_path)], cwd=tmp, env=env,
+            capture_output=True, text=True, timeout=900)
+        print("\n".join(line for line in out.stdout.splitlines()
+                        if line.startswith(("[tp]", "[sp]", "[pp]", "[dp]",
+                                            "[profile"))), flush=True)
+        check(out.returncode == 0 and result.exists(),
+              f"[parallel] torchrun of {nproc} ranks: exit "
+              f"{out.returncode}; stderr tail:\n{out.stderr[-6000:]}")
+        return json.loads(result.read_text())
+
+
+def phase_parallel() -> dict:
+    """[tp], [sp] and [pp] on this card: one torchrun launch of two ranks
+    that share it over gloo (data x model, data x spatial and data x pipe
+    1 x 2), each held against one process on the card."""
+    return _parallel_launch(2, {"shared": True, "layouts": [[1, 2]]})
+
+
+def main_parallel(cards: int = 4) -> int:
+    """``chip_smoke.py --only parallel``: the parallel phases alone, one
+    rank per card over NCCL on *cards* cards: [tp], [sp] and [pp] at data
+    x inner 2 x 2 and 1 x 4 (profiled), then the CLI under ``torchrun
+    --nproc_per_node 4`` with data parallelism (and the step timed), with
+    ``tensor_parallel: 2`` and with ``spatial_sharding: 2``, each against
+    the plain CLI.  Exits non-zero, naming the count, where fewer cards are
+    visible."""
+    if not (ROOT / "medsegpretrainimagenet_tpu_torch").is_dir():
+        fail("run from a checkout: the package medsegpretrainimagenet_tpu_"
+             "torch is not beside this script")
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: the port's kernels run only on the card")
+    check(torch.cuda.device_count() >= cards,
+          f"--only parallel needs {cards} CUDA cards; "
+          f"{torch.cuda.device_count()} visible")
+    card = card_line()
+    print(card, flush=True)
+    timed("build", phase_build)
+    launches = timed("parallel", _parallel_launch, cards, {
+        "shared": False, "layouts": [[2, cards // 2], [1, cards]]})
+    timed("cli parallel", phase_ddp, None, [
+        ("ddp", cards, {}, True),
+        ("cli tp", cards, {"tensor_parallel": 2,
+                           "tensor_parallel_min_channels": TP_MIN_CHANNELS},
+         False),
+        ("cli sp", cards, {"spatial_sharding": 2}, False)])
+    print(card)
+    print(json.dumps({"parallel": launches}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
 
 
 #: [cli acdc]: a synthetic ACDC tree, ACDC_TRAIN + ACDC_TEST patients of
@@ -4781,6 +5289,7 @@ def main() -> int:
     timed("cli", phase_cli, step_rate)
     timed("cli det", phase_cli_deterministic)
     timed("ddp", phase_ddp, step_rate)
+    par = timed("parallel", phase_parallel)
     timed("cli acdc", phase_cli_acdc, step_rate)
     timed("pretrain small", phase_pretrain_small)
     pretrain_rate = timed("pretrain", phase_pretrain_full)
@@ -4847,7 +5356,12 @@ def main() -> int:
         "swin_train_bound_by": pair["bound_by"],
         "swin_train_fwd_rel_err": pair["fwd_err"],
         "swin_train_bwd_rel_err": pair["bwd_err"],
-        "cli_swin_val_launches": cli_swin_launches})
+        "cli_swin_val_launches": cli_swin_launches,
+        # [tp]: K1's launches per swin_224_train step with its qkv
+        # column-parallel over two ranks; [pp]: per pipeline tick of two
+        # DoubleSwin stages (one per Swin block)
+        "tp_swin_train_launches": par["tp_swin_train_launches"],
+        "pp_launches_per_tick": par["pp_launches_per_tick"]})
     kernels[1]["swin_train_launches"] = swin_train["k2_launches"]
     # [export]: launches in one forward (batch 24) of the loaded artifact,
     # K1's on the windows layout, K2's under set_fused_image_mode("on"),
@@ -4884,4 +5398,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--only", "parallel"]:
+        sys.exit(main_parallel())
+    if sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
+             f"--only parallel (four cards)")
     sys.exit(main())

@@ -13,11 +13,13 @@ CPU threads; ``debug_nans`` makes the epoch loop check every step's scalars
 (``train/loop.py``).
 
 The port trains on one device (the card unless the caller names another)
-or, under a launcher (``torchrun``), data-parallel on one device per
-process (``parallel``): rank 0 writes every file, the resume counters and
-the directory suffix are rank 0's, and the number of processes must divide
-the fragment batch.  Spatial sharding and tensor parallelism are ROADMAP
-queue M12 and raise NotImplementedError.
+or, under a launcher (``torchrun``), on one device per process
+(``parallel``): rank 0 writes every file, the resume counters and the
+directory suffix are rank 0's.  ``meta/technical/tensor_parallel`` (with
+``tensor_parallel_min_channels``, default 256) or ``spatial_sharding``
+lays the processes out as data x model or data x spatial, as the JAX CLI
+lays out its mesh; the data processes must divide the fragment batch, the
+factor the processes.
 """
 from __future__ import annotations
 
@@ -46,8 +48,10 @@ from ..metrics import MetricsCalculator, build_host_loggers
 from ..models import Model
 from ..models.blocks import set_compute_dtype
 from ..optim import Optimizer
-from ..parallel import (broadcast_from_main, device_count, is_main_process,
-                        launched, put_replicated, rank)
+from ..parallel import (broadcast_from_main, create_grid, data_parallel,
+                        device_count, is_main_process, launched,
+                        put_replicated, rank, shard_train_state)
+from ..parallel.spatial import check_supported
 from ..plotting import GeneralPlotter, export_plot
 from ..train import TrainState, checkpoint as ckpt
 from ..train.loop import train_model
@@ -69,11 +73,39 @@ def _divisors(n: int) -> List[int]:
     return sorted(set(out + [n // d for d in out]))
 
 
-def effective_batch_size(batch_size: int, max_bs: int) -> int:
-    """Largest divisor of the virtual batch within
-    ``maximum_actual_batch_size``: the fragment size of the gradient
-    accumulation (reference ``run_experiment.py:68-75``, one device)."""
-    return max(d for d in _divisors(batch_size) if d <= max_bs)
+def effective_batch_size(batch_size: int, max_bs: int, device_count: int,
+                         model_factor: int = 1) -> int:
+    """Largest divisor of the virtual batch whose *per-device* share stays
+    within ``maximum_actual_batch_size``: the fragment size of the gradient
+    accumulation (reference ``run_experiment.py:68-75`` is the one-device
+    case).  Spatial sharding and tensor parallelism take *model_factor* of
+    the devices, leaving ``device_count // model_factor`` on the data axis,
+    and the fragment is shared by the largest of its divisors within that
+    count, as the JAX CLI sizes it."""
+    data_devices = max(device_count // max(int(model_factor), 1), 1)
+
+    def per_device(d: int) -> int:
+        return d // max(n for n in _divisors(d) if n <= data_devices)
+
+    return max(d for d in _divisors(batch_size) if per_device(d) <= max_bs)
+
+
+def _model_factor(tech: ConfigDict) -> Tuple[Optional[str], int]:
+    """(the grid's inner axis, its size) from ``meta/technical``:
+    ("model", tensor_parallel), ("spatial", spatial_sharding) or
+    (None, 1)."""
+    sp = int(tech.get("spatial_sharding", 1) or 1)
+    tp = int(tech.get("tensor_parallel", 1) or 1)
+    if sp > 1 and tp > 1:
+        raise ValueError(
+            "meta/technical/spatial_sharding and tensor_parallel are both "
+            "above 1: the reference CLI does not offer both at once; use "
+            "one of them with data parallelism")
+    if tp > 1:
+        return "model", tp
+    if sp > 1:
+        return "spatial", sp
+    return None, 1
 
 
 def _count_csv_rows(path: str) -> int:
@@ -284,15 +316,27 @@ def build_transform_pipelines(config_dict: ConfigDict, seed: int,
 
 
 def _refuse_parallelism(tech: ConfigDict, fragment_bs: int) -> None:
-    """Spatial sharding and tensor parallelism are ROADMAP M12.  Data
-    parallelism runs one process per device under a launcher; several
-    visible cards without one are refused rather than left idle, and so is
-    a process count that does not divide the fragment batch."""
-    for knob in ("spatial_sharding", "tensor_parallel"):
-        if int(tech.get(knob, 1) or 1) > 1:
-            raise NotImplementedError(
-                f"meta/technical/{knob} > 1 is not ported yet "
-                f"(ROADMAP.md M12: multi-GPU)")
+    """The layouts the processes cannot take.  One process runs per device
+    under a launcher; several visible cards without one are refused rather
+    than left idle.  Tensor parallelism and spatial sharding are not taken
+    together (the reference CLI does not offer both at once), and their
+    factor must not exceed the processes (the JAX CLI's "exceeds the
+    available devices") and must divide them: a process cannot sit idle, so
+    the count to run is named, as it is for a data axis that does not
+    divide the fragment batch."""
+    inner, factor = _model_factor(tech)
+    knob = {"model": "tensor_parallel", "spatial": "spatial_sharding"}.get(
+        inner)
+    processes = device_count()
+    if factor > processes:
+        raise ValueError(
+            f"meta/technical/{knob}: {factor} exceeds the {processes} "
+            f"available devices (one process each); start {factor} or a "
+            f"multiple of {factor} processes with torchrun")
+    if processes % factor:
+        raise ValueError(
+            f"meta/technical/{knob}: {factor} must divide the {processes} "
+            f"processes; run {processes - processes % factor}")
     if not launched() and torch.cuda.is_available() \
             and torch.cuda.device_count() > 1:
         raise NotImplementedError(
@@ -301,14 +345,15 @@ def _refuse_parallelism(tech: ConfigDict, fragment_bs: int) -> None:
             f"(`torchrun --nproc_per_node {torch.cuda.device_count()} -m "
             f"medsegpretrainimagenet_tpu_torch.cli config.yaml`), or make "
             f"one visible with CUDA_VISIBLE_DEVICES")
-    processes = device_count()
-    if fragment_bs % processes:
-        divisors = [d for d in _divisors(fragment_bs) if d <= processes]
+    data = processes // factor
+    if fragment_bs % data:
+        divisors = [d for d in _divisors(fragment_bs) if d <= data]
         raise ValueError(
-            f"{processes} data-parallel processes must divide the fragment "
+            f"{data} data-parallel processes must divide the fragment "
             f"batch size {fragment_bs} (data/sampling/batch_size within "
-            f"meta/technical/maximum_actual_batch_size); run {divisors[-1]} "
-            f"processes, or a fragment batch that {processes} divides")
+            f"meta/technical/maximum_actual_batch_size); run "
+            f"{divisors[-1] * factor} processes, or a fragment batch that "
+            f"{data} divides")
 
 
 def apply_host_switches(tech: ConfigDict, device: torch.device) -> None:
@@ -371,8 +416,13 @@ def experiment(config_dict: ConfigDict, original: Optional[dict] = None,
         config_dict.get_or_update("data/sampling", ConfigDict()))
     max_bs = tech["maximum actual batch size"]
     batch_size = config_dict["data/sampling/batch size"]
-    bs = effective_batch_size(batch_size, max_bs)
+    inner, factor = _model_factor(tech)
+    bs = effective_batch_size(batch_size, max_bs, device_count(), factor)
     _refuse_parallelism(tech, bs)
+    if data_parallel():
+        # data x model or data x spatial, as the JAX CLI lays out its mesh
+        create_grid(("data", inner) if inner else ("data",),
+                    (device_count() // factor, factor) if inner else None)
     apply_host_switches(tech, device)
     main_proc = is_main_process()
 
@@ -555,11 +605,19 @@ def run_exp(train_data, val_data, test_data, destination: str,
 
     model = registry.build(config_dict, key="model", wrapper=Model)
     model_dict = config_dict["model"].value()
+    inner, factor = _model_factor(tech)
+    if inner == "spatial":
+        check_supported(model.module)
     # the JAX package draws one batch here to initialise its parameters
     # from the batch's shapes; the draw advances the loader's and the
     # transforms' generators, so the port draws it as well and both
     # packages' epochs see the same batches
-    next(iter(train_data))
+    first = next(iter(train_data))
+    if inner == "spatial" and np.shape(first["x"])[1] % factor:
+        raise ValueError(
+            f"meta/technical/spatial_sharding: {factor} does not divide the "
+            f"image height {np.shape(first['x'])[1]} (H must divide by the "
+            f"factor)")
     model.init(curr_seed)
 
     if continued:
@@ -596,6 +654,12 @@ def run_exp(train_data, val_data, test_data, destination: str,
             if main_proc:
                 shutil.copy(opt_path, os.path.join(
                     destination, "optimizer_state_dict_checkpoint.pt"))
+    if inner == "model":
+        # each model rank keeps its slice of the wide parameters and of
+        # their moments (restored whole above); the files stay whole
+        shard_train_state(model.module, state.optimizer,
+                          min_channels=int(tech.get(
+                              "tensor_parallel_min_channels", 256) or 256))
 
     prediction_index = int(config_dict.get("training/prediction_index", 0)
                            or 0)

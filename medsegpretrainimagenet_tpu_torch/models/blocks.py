@@ -36,14 +36,17 @@ from torch import nn
 
 from ..config import ConfigDict, register
 from ..config.registry import fill_spec, get_kwargs, resolve
-from ..parallel.mesh import all_reduce_sum, batch_stats_synced
+from ..parallel import spatial
+from ..parallel.mesh import (all_reduce_sum, batch_stats_axis,
+                             copy_to_axis, gather_axis)
+from ..parallel.tp import full, sharded
 from .activations import fill_activation_spec, make_activation
 from .init import lecun_normal_
 
 __all__ = [
     "set_compute_dtype", "compute_dtype", "Dense", "Conv", "LayerNorm",
     "make_layer_norm", "dropout", "drop_path", "Stochastic", "draws",
-    "Identity", "Conv2d", "MaxPool2d",
+    "Identity", "Conv2d", "MaxPool2d", "max_pool",
     "Upsample", "AvgPool2d", "AdaptiveAvgPool2d", "Flatten", "Linear",
     "TorchLayerNorm", "BatchNorm", "ConvBlock", "UpConvBlock",
     "ChannelwiseLayerNorm", "LayerScale", "ResNeXtBlock",
@@ -91,7 +94,13 @@ class Dense(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(*_cast(x, self.weight, self.bias))
+        shard = sharded(self.weight)
+        if shard is None:
+            return F.linear(*_cast(x, self.weight, self.bias))
+        # tensor parallelism: this rank's output features, gathered
+        x = copy_to_axis(x, shard.axis)
+        return gather_axis(F.linear(*_cast(x, self.weight, self.bias)), -1,
+                           shard.axis)
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -162,22 +171,38 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = compute_dtype() or torch.promote_types(x.dtype, torch.float32)
+        x, groups = x.to(dtype), self.groups
+        shard = sharded(self.weight)
+        if shard is not None:
+            # tensor parallelism: this rank's output channels (of a grouped
+            # conv, from its groups' input channels), gathered below
+            x = copy_to_axis(x, shard.axis)
+            if groups > 1:
+                per = x.shape[-1] // shard.axis.size
+                x = x[..., shard.axis.index * per:
+                      (shard.axis.index + 1) * per]
+                groups //= shard.axis.size
         # the NCHW view of an NHWC tensor is channels-last in memory, which
         # cuDNN convolves without a layout copy; the weight is cast into
         # that format in the same copy as into the compute dtype
-        x = x.to(dtype).permute(0, 3, 1, 2)
+        x = x.permute(0, 3, 1, 2)
         weight = self.weight.to(dtype, memory_format=torch.channels_last)
         bias = None if self.bias is None else self.bias.to(dtype)
-        pads = _axis_pads(self.padding, x.shape[2:], self.kernel_size,
-                          self.stride, self.dilation)
+        # the padding of the whole image; on a band of rows (spatial
+        # sharding) the halo rows take the place of the height padding
+        pads = _axis_pads(self.padding, spatial.global_size(x.shape[2:]),
+                          self.kernel_size, self.stride, self.dilation)
+        x, pads = spatial.halo(x, pads, self.kernel_size[0], self.stride[0],
+                               self.dilation[0])
         if all(lo == hi for lo, hi in pads):
             padding = tuple(lo for lo, _ in pads)
         else:
             (top, bottom), (left, right) = pads
             x, padding = F.pad(x, (left, right, top, bottom)), 0
-        return F.conv2d(x, weight, bias, stride=self.stride, padding=padding,
-                        dilation=self.dilation,
-                        groups=self.groups).permute(0, 2, 3, 1)
+        out = F.conv2d(x, weight, bias, stride=self.stride, padding=padding,
+                       dilation=self.dilation,
+                       groups=groups).permute(0, 2, 3, 1)
+        return out if shard is None else gather_axis(out, -1, shard.axis)
 
 
 class LayerNorm(nn.Module):
@@ -198,8 +223,8 @@ class LayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
-        return F.layer_norm(x, self.weight.shape, self.weight, self.bias,
-                            self.eps)
+        return F.layer_norm(x, x.shape[-1:], full(self.weight),
+                            full(self.bias), self.eps)
 
 
 def make_layer_norm(features: int) -> LayerNorm:
@@ -315,15 +340,24 @@ class MaxPool2d(nn.Module):
         self.padding = "VALID" if padding == 0 else _padding(padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        (top, bottom), (left, right) = _axis_pads(
-            self.padding, x.shape[1:3], self.kernel_size, self.stride,
-            (1, 1))
-        x = x.permute(0, 3, 1, 2)
-        if (top, left) != (bottom, right):
-            x = F.pad(x, (left, right, top, bottom), value=-math.inf)
-            top = left = 0
-        return F.max_pool2d(x, self.kernel_size, self.stride,
-                            padding=(top, left)).permute(0, 2, 3, 1)
+        return max_pool(x, self.kernel_size, self.stride, self.padding)
+
+
+def max_pool(x: torch.Tensor, kernel: Tuple[int, int],
+             stride: Tuple[int, int], padding: Any) -> torch.Tensor:
+    """Max pooling of an NHWC tensor with padding (-inf) as
+    ``_axis_pads`` reads it; on a band of rows (spatial sharding) with its
+    halo rows."""
+    x = x.permute(0, 3, 1, 2)
+    pads = _axis_pads(padding, spatial.global_size(x.shape[2:]), kernel,
+                      stride, (1, 1))
+    x, pads = spatial.halo(x, pads, kernel[0], stride[0], 1, -math.inf)
+    (top, bottom), (left, right) = pads
+    if (top, left) != (bottom, right):
+        x = F.pad(x, (left, right, top, bottom), value=-math.inf)
+        top = left = 0
+    return F.max_pool2d(x, kernel, stride,
+                        padding=(top, left)).permute(0, 2, 3, 1)
 
 
 @register("torch.nn.Upsample", "upsample")
@@ -357,10 +391,12 @@ class AvgPool2d(nn.Module):
         self.padding = "VALID" if padding == 0 else _padding(padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        (top, bottom), (left, right) = _axis_pads(
-            self.padding, x.shape[1:3], self.kernel_size, self.stride,
-            (1, 1))
-        x = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
+        x = x.permute(0, 3, 1, 2)
+        pads = _axis_pads(self.padding, spatial.global_size(x.shape[2:]),
+                          self.kernel_size, self.stride, (1, 1))
+        x, ((top, bottom), (left, right)) = spatial.halo(
+            x, pads, self.kernel_size[0], self.stride[0], 1)
+        x = F.pad(x, (left, right, top, bottom))
         return F.avg_pool2d(x, self.kernel_size,
                             self.stride).permute(0, 2, 3, 1)
 
@@ -470,42 +506,49 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = compute_dtype() or torch.promote_types(x.dtype, torch.float32)
+        weight, bias = full(self.weight), full(self.bias)
         if self.training:
             self.num_batches_tracked.add_(1)
-            if batch_stats_synced():
-                return self._global_batch_norm(x.to(dtype))
+            axis = batch_stats_axis()
+            if axis is not None:
+                return self._global_batch_norm(x.to(dtype), weight, bias,
+                                               axis)
         return F.batch_norm(x.to(dtype).permute(0, 3, 1, 2),
                             self.running_mean, self.running_var,
-                            self.weight, self.bias, training=self.training,
+                            weight, bias, training=self.training,
                             momentum=self.momentum,
                             eps=self.eps).permute(0, 2, 3, 1)
 
-    def _global_batch_norm(self, x: torch.Tensor) -> torch.Tensor:
-        """Training on one process's slice of a data-parallel batch: the
-        statistics of the global batch, as flax's BatchNorm takes them on a
-        sharded batch.  On the card, PyTorch's fused SyncBatchNorm
-        primitives (:class:`_GlobalBatchNorm`); on the CPU, which has none,
-        two float32 sums over every process with autograd (each process's
-        gradient then reaches the others' statistics): the channel sums
-        with the element count, then the squared deviations from the global
-        mean."""
-        if x.is_cuda:
+    def _global_batch_norm(self, x: torch.Tensor, weight: torch.Tensor,
+                           bias: torch.Tensor, axis) -> torch.Tensor:
+        """Training on one process's slice of a global batch: the
+        statistics of the global batch over *axis*, as flax's BatchNorm
+        takes them on a sharded batch.  A data-axis slice on the card takes
+        PyTorch's fused SyncBatchNorm primitives (:class:`_GlobalBatchNorm`,
+        an all-gather); on the CPU, which has none, and for the row bands of
+        spatial sharding (data x spatial, all-reduces only, so the same
+        code runs on NCCL and on gloo on the card): two float32 sums over
+        the axis with autograd (each process's gradient then reaches the
+        others' statistics), the channel sums with the element count, then
+        the squared deviations from the global mean (in float64 for a
+        float64 input)."""
+        if x.is_cuda and axis.name == "data":
             return _GlobalBatchNorm.apply(
-                x.permute(0, 3, 1, 2), self.weight, self.bias,
+                x.permute(0, 3, 1, 2), weight, bias,
                 self.running_mean, self.running_var, self.eps,
-                self.momentum).permute(0, 2, 3, 1)
+                self.momentum, axis.group).permute(0, 2, 3, 1)
         dims = tuple(range(x.dim() - 1))
-        x32 = x.float()
-        count = x32.new_full((1,), x32.numel() // x32.shape[-1])
-        totals = all_reduce_sum(torch.cat([x32.sum(dims), count]))
+        wide = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = wide.new_full((1,), wide.numel() // wide.shape[-1])
+        totals = all_reduce_sum(torch.cat([wide.sum(dims), count]), axis)
         n = totals[-1]
         mean = totals[:-1] / n
-        centred = x32 - mean
-        var = all_reduce_sum((centred * centred).sum(dims)) / n
+        centred = wide - mean
+        var = all_reduce_sum((centred * centred).sum(dims), axis) / n
         with torch.no_grad():
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var * n / (n - 1), self.momentum)
-        out = centred * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        out = centred * torch.rsqrt(var + self.eps) * weight + bias
         return out.to(x.dtype)
 
 
@@ -526,18 +569,20 @@ class _GlobalBatchNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, weight, bias, running_mean, running_var, eps,
-                momentum):
+                momentum, group):
         channels = x.shape[1]
         mean, invstd = torch.batch_norm_stats(x, eps)
         count = mean.new_full((1,), x.numel() // channels)
         local = torch.cat([mean, invstd, count])
-        gathered = local.new_empty(dist.get_world_size() * local.numel())
-        dist.all_gather_into_tensor(gathered, local)
-        gathered = gathered.view(dist.get_world_size(), -1)
+        members = dist.get_world_size(group)
+        gathered = local.new_empty(members * local.numel())
+        dist.all_gather_into_tensor(gathered, local, group=group)
+        gathered = gathered.view(members, -1)
         counts = gathered[:, 2 * channels]
         mean, invstd = torch.batch_norm_gather_stats_with_counts(
             x, gathered[:, :channels], gathered[:, channels:2 * channels],
             running_mean, running_var, momentum, eps, counts)
+        ctx.group = group
         ctx.save_for_backward(x, weight, mean, invstd,
                               counts.to(torch.int32))
         return torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
@@ -552,12 +597,13 @@ class _GlobalBatchNorm(torch.autograd.Function):
             torch.batch_norm_backward_reduce(g, x, mean, invstd, weight,
                                              True, True, True)
         sums = torch.cat([sum_dy, sum_dy_xmu])
-        dist.all_reduce(sums)
+        dist.all_reduce(sums, group=ctx.group)
         sum_dy, sum_dy_xmu = sums.chunk(2)
         grad_input = torch.batch_norm_backward_elemt(
             g, x, mean, invstd, weight.to(mean.dtype), sum_dy, sum_dy_xmu,
             counts)
-        return grad_input, grad_weight, grad_bias, None, None, None, None
+        return (grad_input, grad_weight, grad_bias, None, None, None, None,
+                None)
 
 
 @register("segmentation.models.blocks.ConvBlock", "conv_block")
@@ -673,7 +719,7 @@ class LayerScale(nn.Module):
         nn.init.constant_(self.weight, self.init_value)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x * self.weight.to(x.dtype)
+        return x * full(self.weight).to(x.dtype)
 
 
 class _BottleneckTriple(nn.Module):

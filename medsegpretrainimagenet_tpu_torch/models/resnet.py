@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import register
-from .blocks import BatchNorm, Conv, Dense, Stochastic
+from .blocks import BatchNorm, Conv, Dense, Stochastic, max_pool
 
 __all__ = ["DeepResNet", "BasicResBlock", "BottleneckResBlock", "drop_path"]
 
@@ -191,8 +191,7 @@ class DeepResNet(nn.Module):
         if self.version == "v1":
             y = F.relu(self.stem_bn(y))
         skip_values = [y]
-        y = F.max_pool2d(y.permute(0, 3, 1, 2), 3, 2,
-                         padding=1).permute(0, 2, 3, 1)
+        y = max_pool(y, (3, 3), (2, 2), ((1, 1), (1, 1)))
         for level in self.levels:
             for block in level:
                 y = block(y)

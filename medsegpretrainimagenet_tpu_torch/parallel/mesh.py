@@ -1,12 +1,21 @@
-"""Data parallelism over processes: the port of ``parallel/mesh.py``.
+"""The process grid and data parallelism over processes: the port of
+``parallel/mesh.py``.
 
 The JAX package shards the global batch over a ``'data'`` mesh axis and
 lets XLA compute the loss, the BatchNorm statistics and the metrics on the
 global batch.  The port runs one process per device under a launcher
 (``torchrun``) and does the same by hand:
 
-* :func:`shard_batch` gives each process its slice of the batch axis (a
-  ragged tail is replicated whole, as in the JAX package);
+* :func:`create_grid` lays the processes out as ``data x inner``, the inner
+  axis being ``'model'`` (tensor parallelism, ``parallel.tp``),
+  ``'spatial'`` (spatial sharding, ``parallel.spatial``) or ``'pipe'``
+  (``parallel.pp``); rank ``d * inner + i`` sits at (d, i), as the JAX
+  mesh reshapes its device list.  Each axis has its process group and, for
+  the neighbour exchanges of the spatial and pipe axes, a group per pair of
+  neighbours.  Without a grid every process is on the ``'data'`` axis;
+* :func:`shard_batch` gives each process its slice of the batch axis over
+  the data axis (a ragged tail is replicated whole, as in the JAX package)
+  and, with ``spatial_axis``, its rows of every image-like leaf;
 * the train and eval steps gather the predictions (with autograd) and the
   targets of every slice, so the loss and the metric state are those of the
   global batch on every process (:func:`gather_shards`);
@@ -20,6 +29,10 @@ global batch.  The port runs one process per device under a launcher
   and host decisions read off the filesystem go through
   :func:`broadcast_from_main`.
 
+The collectives of the inner axes are broadcasts and all-reduces only, so
+the same code runs on NCCL, one process per card, and on gloo with several
+processes sharing one card (gloo carries those two on CUDA tensors).
+
 Everything here is the identity in a process that has not joined a process
 group.  Under a launcher the data-parallel path runs also with one process,
 so it can be held against the plain run on one card.
@@ -27,9 +40,10 @@ so it can be held against the plain run on one card.
 from __future__ import annotations
 
 import contextlib
+import math
 import os
 import warnings
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -39,13 +53,17 @@ from ..utils.device import resolve_device
 __all__ = ["initialize_distributed", "launched", "data_parallel",
            "device_count", "rank", "is_main_process", "broadcast_from_main",
            "gather_tree_to_host", "put_replicated", "shard_batch",
-           "all_reduce_sum", "gather_shards", "gather_batch",
-           "reduce_gradients",
-           "sync_batch_stats", "batch_stats_synced", "SHARDED_KEY"]
+           "split_rows", "all_reduce_sum", "gather_shards", "gather_batch",
+           "reduce_gradients", "sync_batch_stats", "batch_stats_axis",
+           "batch_stats_synced", "create_grid", "grid", "Axis", "Grid",
+           "gather_axis", "copy_to_axis", "SHARDED_KEY", "ROWS_KEY"]
 
 #: reserved batch key that marks a batch as this process's slice of the
 #: global batch (set by shard_batch, popped by the train and eval steps)
 SHARDED_KEY = "_mst_sharded"
+#: reserved batch key that marks the image-like leaves of a batch as this
+#: process's rows of the spatial axis
+ROWS_KEY = "_mst_rows"
 
 
 def launched() -> bool:
@@ -57,18 +75,19 @@ def launched() -> bool:
 def initialize_distributed(device: Optional[Union[str, torch.device]] = None,
                            init_method: Optional[str] = None,
                            rank: Optional[int] = None,
-                           world_size: Optional[int] = None
-                           ) -> torch.device:
+                           world_size: Optional[int] = None,
+                           backend: Optional[str] = None) -> torch.device:
     """Join the launcher's process group and return this process's device.
 
     Reads ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` (and, through the
     default ``env://`` rendezvous, ``MASTER_ADDR`` and ``MASTER_PORT``);
     *init_method*, *rank* and *world_size* override them (tests rendezvous
     through a ``file://`` path).  The device is ``cuda:{LOCAL_RANK}`` unless
-    the caller names another; the backend is NCCL on the card and gloo on
-    the CPU, never one for the other.  Without a launcher and without
-    *world_size* there is no group to join: the device is the card unless
-    named, as everywhere in the port."""
+    the caller names another.  The backend is NCCL on the card and gloo on
+    the CPU unless the caller names one: gloo on the card is taken only when
+    asked for (several processes sharing one card, which NCCL refuses).
+    Without a launcher and without *world_size* there is no group to join:
+    the device is the card unless named, as everywhere in the port."""
     if world_size is None and not launched():
         return resolve_device(device)
     rank = int(os.environ.get("RANK", 0)) if rank is None else int(rank)
@@ -83,8 +102,10 @@ def initialize_distributed(device: Optional[Union[str, torch.device]] = None,
         if device.index is None:
             device = torch.device("cuda", local_rank)
         torch.cuda.set_device(device)
-        backend = "nccl"
+        backend = backend or "nccl"
     elif device.type == "cpu":
+        if backend not in (None, "gloo"):
+            raise ValueError(f"the {backend} backend does not run on the CPU")
         backend = "gloo"
     else:
         raise ValueError(f"data parallelism runs on cuda or cpu, not "
@@ -116,6 +137,149 @@ def is_main_process() -> bool:
     holds the same results."""
     return rank() == 0
 
+
+# ---------------------------------------------------------------------------
+# the process grid
+# ---------------------------------------------------------------------------
+
+class Axis:
+    """One axis of the grid as this process sees it: its *name*, *size*,
+    this process's *index* along it, the global ranks of its members in
+    axis order, the process *group* (None where the axis needs no
+    collective: a group of one in a grid with another axis), and *pairs*,
+    the groups of this process with its neighbours (``pairs[p]`` joins the
+    members p and p + 1)."""
+
+    def __init__(self, name: str, ranks: Sequence[int], group,
+                 pairs: Optional[Dict[int, Any]] = None):
+        self.name, self.ranks, self.group = name, list(ranks), group
+        self.size = len(self.ranks)
+        self.index = self.ranks.index(rank())
+        self.pairs = pairs or {}
+
+    def __repr__(self) -> str:
+        return f"Axis({self.name!r}, size={self.size}, index={self.index})"
+
+
+class Grid:
+    """The processes laid out as ``data x inner`` (:func:`create_grid`).
+    ``data`` and ``inner`` are this process's :class:`Axis` on each;
+    ``world`` spans every process (``data x inner``)."""
+
+    def __init__(self, names: Tuple[str, ...], shape: Tuple[int, ...]):
+        self.names, self.shape = names, shape
+        outer, inner = shape[0], (shape[1] if len(shape) > 1 else 1)
+        me = rank()
+        world = dist.group.WORLD if data_parallel() else None
+        self._world_group = world
+        self.world = Axis("world", range(outer * inner), world)
+        if len(shape) == 1:
+            self.data = Axis(names[0], range(outer), world)
+            self.inner = Axis("none", [me], None)
+            return
+        # every process creates every group, in one order (new_group is a
+        # collective over the world)
+        data = inner_axis = None
+        for i in range(inner):
+            ranks = [d * inner + i for d in range(outer)]
+            group = dist.new_group(ranks)
+            if me in ranks:
+                data = Axis(names[0], ranks, group if outer > 1 else None)
+        for d in range(outer):
+            ranks = [d * inner + i for i in range(inner)]
+            group = dist.new_group(ranks)
+            pairs = {p: dist.new_group(ranks[p:p + 2])
+                     for p in range(inner - 1)}
+            if me in ranks:
+                index = ranks.index(me)
+                inner_axis = Axis(names[1], ranks,
+                                  group if inner > 1 else None,
+                                  {p: g for p, g in pairs.items()
+                                   if p in (index - 1, index)})
+        self.data, self.inner = data, inner_axis
+
+    def current(self) -> bool:
+        """Was this grid made in the process group that runs now?"""
+        world = dist.group.WORLD if data_parallel() else None
+        return world is self._world_group \
+            and math.prod(self.shape) == device_count()
+
+    def axis(self, name: str) -> Axis:
+        for axis in (self.data, self.inner):
+            if axis.name == name:
+                return axis
+        raise KeyError(f"the grid {self.names} has no axis {name!r}")
+
+    def size(self, name: str) -> int:
+        return self.axis(name).size if name in self.names else 1
+
+    @property
+    def grad_axis(self) -> Axis:
+        """The processes whose gradient shares add up to the gradient: the
+        data axis under tensor parallelism (each model rank holds the whole
+        gradient of the replicated parameters and its slice's of the
+        sharded ones), every process otherwise."""
+        return self.data if self.inner.name == "model" else self.world
+
+    @property
+    def stats_axis(self) -> Axis:
+        """The processes whose slices make up a global batch: data x
+        spatial under spatial sharding, the data axis otherwise."""
+        return self.world if self.inner.name == "spatial" else self.data
+
+
+_GRIDS: Dict[Tuple, Grid] = {}
+_ACTIVE: List[Optional[Grid]] = [None]
+
+
+def create_grid(axis_names: Sequence[str] = ("data",),
+                shape: Optional[Sequence[int]] = None) -> Grid:
+    """Lay the processes out on a grid of *axis_names* (``("data",)`` or
+    ``("data", "model" | "spatial" | "pipe")``) and make it the active one.
+    Default: every process on the first axis (the JAX ``create_mesh``
+    default).  The groups of one layout are made once per process; every
+    process must call this with the same arguments."""
+    names = tuple(axis_names)
+    count = device_count()
+    shape = tuple(int(s) for s in shape) if shape is not None \
+        else (count,) + (1,) * (len(names) - 1)
+    if len(names) not in (1, 2) or len(shape) != len(names):
+        raise ValueError(f"a grid has one or two axes, got {names} of "
+                         f"shape {shape}")
+    if names[0] != "data" or (len(names) == 2 and names[1] not in
+                              ("model", "spatial", "pipe")):
+        raise ValueError(f"grid axes are ('data'[, 'model' | 'spatial' | "
+                         f"'pipe']), got {names}")
+    if math.prod(shape) != count:
+        raise ValueError(f"a grid of shape {shape} needs {math.prod(shape)} "
+                         f"processes, the run has {count}")
+    key = (names, shape)
+    if key not in _GRIDS or not _GRIDS[key].current():
+        _GRIDS[key] = Grid(names, shape)
+    _ACTIVE[0] = _GRIDS[key]
+    return _ACTIVE[0]
+
+
+def grid() -> Grid:
+    """The active grid: the last :func:`create_grid`, or every process on
+    the data axis."""
+    active = _ACTIVE[0]
+    if active is None or not active.current():
+        return create_grid()
+    return active
+
+
+def data_size() -> int:
+    return grid().data.size
+
+
+def data_rank() -> int:
+    return grid().data.index
+
+
+# ---------------------------------------------------------------------------
+# collectives along an axis (broadcasts and all-reduces)
+# ---------------------------------------------------------------------------
 
 def broadcast_from_main(values: Sequence[int]) -> List[int]:
     """Rank 0's small host integers on every process (identity in one
@@ -152,136 +316,264 @@ def put_replicated(module: torch.nn.Module) -> torch.nn.Module:
     return module
 
 
+def _gather_pieces(x: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
+    """Every member's *x* (equal shapes) concatenated along *dim* in axis
+    order: one broadcast per member, the bytes of an all-gather.  The
+    member's own piece goes out as a copy: gloo writes a broadcast's
+    result back into the source tensor too, on the card, which autograd
+    would take for an in-place change of *x*."""
+    parts = []
+    for j, src in enumerate(axis.ranks):
+        part = x.clone(memory_format=torch.contiguous_format) \
+            if j == axis.index else torch.empty_like(
+                x, memory_format=torch.contiguous_format)
+        dist.broadcast(part, src=src, group=axis.group)
+        parts.append(part)
+    return torch.cat(parts, dim)
+
+
+class _GatherAxis(torch.autograd.Function):
+    """Gather along *dim* over an axis.  Every member computes the same
+    function of the gathered tensor, so the incoming gradient is already
+    the whole one: the backward keeps this member's piece."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.index, ctx.rows = dim, axis.index, x.shape[dim]
+        return _gather_pieces(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.index * ctx.rows, ctx.rows), None, None
+
+
+def gather_axis(x: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
+    """*x* gathered along *dim* over *axis*, differentiable in this
+    member's piece; the identity on an axis without a group."""
+    if axis.group is None:
+        return x
+    return _GatherAxis.apply(x, dim, axis)
+
+
+class _CopyToAxis(torch.autograd.Function):
+    """The identity; its backward sums the members' gradients (each member
+    differentiates through its own part of what follows)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.axis.group)
+        return g, None
+
+
+def copy_to_axis(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The input of a computation split over *axis* (tensor parallelism's
+    column-parallel layers): its gradient is summed over the axis."""
+    if axis.group is None:
+        return x
+    return _CopyToAxis.apply(x, axis)
+
+
+# ---------------------------------------------------------------------------
+# batches
+# ---------------------------------------------------------------------------
+
+def split_rows(batch: Dict[str, Any], axis: Axis,
+               batch_dim: int = 0) -> Dict[str, Any]:
+    """This member's rows (the dim after *batch_dim*) of every image-like
+    leaf of *batch* (tensors or host arrays with ``ndim >= batch_dim + 3``:
+    an H and a W dim); labels, scalar or one-hot, pass whole.  The rows
+    must split evenly."""
+    def local(value):
+        if not hasattr(value, "shape") or len(value.shape) < batch_dim + 3:
+            return value
+        height = value.shape[batch_dim + 1]
+        if height % axis.size:
+            raise ValueError(
+                f"spatial sharding: image height {height} does not divide "
+                f"by the {axis.size}-way '{axis.name}' axis (H must divide "
+                f"by meta/technical/spatial_sharding)")
+        per = height // axis.size
+        index = [slice(None)] * len(value.shape)
+        index[batch_dim + 1] = slice(axis.index * per, (axis.index + 1) * per)
+        return value[tuple(index)]
+    return {k: local(v) for k, v in batch.items()}
+
+
 def shard_batch(batch: Dict[str, Any], batch_dim: int = 1,
+                spatial_axis: Optional[str] = None,
                 already_local: bool = False) -> Dict[str, Any]:
     """This process's slice of *batch* along *batch_dim* (1 for the
-    ``(n_fragments, fragment_bs, ...)`` stacks of the loop), marked with
-    :data:`SHARDED_KEY`.
+    ``(n_fragments, fragment_bs, ...)`` stacks of the loop) over the data
+    axis, marked with :data:`SHARDED_KEY`.  With *spatial_axis* (the
+    grid's ``'spatial'``) the image-like leaves (``ndim >= batch_dim + 3``)
+    are also cut to this process's rows of the height dim
+    (``batch_dim + 1``) and marked with :data:`ROWS_KEY`; labels stay
+    batch-only.
 
     ``already_local=True`` declares the arrays to be this process's slice
-    already (per-host input slicing: the loader assembled only it).  A
-    batch axis that the number of processes does not divide (a ragged
-    epoch tail) is replicated whole instead, with a warning: every process
-    computes the whole tail, which is exact, and it is not marked.  In a
-    process without a group the batch passes through unmarked."""
+    of the batch axis already (per-host input slicing: the loader assembled
+    only it).  A batch axis that the data axis does not divide (a ragged
+    epoch tail) is replicated whole instead, rows and all, with a warning:
+    every process computes the whole tail, which is exact, and it is not
+    marked.  In a process without a group the batch passes through
+    unmarked."""
     if not data_parallel():
         return batch
-    count = dist.get_world_size()
-    if already_local:
-        return {**batch, SHARDED_KEY: True}
-    sizes = {v.shape[batch_dim] for v in batch.values()
-             if hasattr(v, "shape") and len(v.shape) > batch_dim}
-    if any(size % count for size in sizes):
-        warnings.warn(f"batch size(s) {sorted(sizes)} not divisible by the "
-                      f"{count} processes: replicating this (tail) batch "
-                      f"instead of sharding it", stacklevel=2)
-        return batch
-    me = dist.get_rank()
+    layout = grid()
+    data = layout.data
+    if not already_local:
+        sizes = {v.shape[batch_dim] for v in batch.values()
+                 if hasattr(v, "shape") and len(v.shape) > batch_dim}
+        if any(size % data.size for size in sizes):
+            warnings.warn(f"batch size(s) {sorted(sizes)} not divisible by "
+                          f"the {data.size} processes of the data axis: "
+                          f"replicating this (tail) batch instead of "
+                          f"sharding it", stacklevel=2)
+            return batch
 
-    def local(value):
-        if not hasattr(value, "shape") or len(value.shape) <= batch_dim:
-            return value
-        per = value.shape[batch_dim] // count
-        index = [slice(None)] * len(value.shape)
-        index[batch_dim] = slice(me * per, (me + 1) * per)
-        return value[tuple(index)]
+        def local(value):
+            if not hasattr(value, "shape") or len(value.shape) <= batch_dim:
+                return value
+            per = value.shape[batch_dim] // data.size
+            index = [slice(None)] * len(value.shape)
+            index[batch_dim] = slice(data.index * per, (data.index + 1) * per)
+            return value[tuple(index)]
 
-    return {**{k: local(v) for k, v in batch.items()}, SHARDED_KEY: True}
+        batch = {k: local(v) for k, v in batch.items()}
+    batch = {**batch, SHARDED_KEY: True}
+    if spatial_axis is not None:
+        batch = {**split_rows(batch, layout.axis(spatial_axis), batch_dim),
+                 ROWS_KEY: True}
+    return batch
 
 
 class _GatherShards(torch.autograd.Function):
-    """All-gather along dim 0 in rank order.  Its backward keeps this
-    process's rows of the incoming gradient: every process computes the
-    same loss of the global batch, so that gradient is already the global
-    one, and no collective is needed."""
+    """All-gather along dim 0 in rank order over the data axis.  Its
+    backward keeps this process's rows of the incoming gradient: every
+    process computes the same loss of the global batch, so that gradient is
+    already the global one, and no collective is needed."""
 
     @staticmethod
-    def forward(ctx, x):
-        ctx.rows = x.shape[0]
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, x.contiguous())
+    def forward(ctx, x, group):
+        ctx.rows, ctx.index = x.shape[0], dist.get_rank(group)
+        parts = [torch.empty_like(x)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, g):
-        start = dist.get_rank() * ctx.rows
-        return g[start:start + ctx.rows]
+        start = ctx.index * ctx.rows
+        return g[start:start + ctx.rows], None
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """The sum over every process; its gradient is the sum of the
-    processes' gradients (each process's output feeds its own loss)."""
+    """The sum over the members of a group; its gradient is the sum of the
+    members' gradients (each member's output feeds its own loss)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         x = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=group)
         return x
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """*x* summed over every process, differentiable (BatchNorm's global
-    statistics)."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor, axis: Optional[Axis] = None
+                   ) -> torch.Tensor:
+    """*x* summed over *axis* (every process by default), differentiable
+    (BatchNorm's global statistics)."""
+    axis = axis or grid().world
+    if axis.group is None:
+        return x
+    return _AllReduceSum.apply(x, axis.group)
 
 
-def gather_shards(x):
+def gather_shards(x, rows: bool = False):
     """The global batch from every process's slice *x* (a tensor, or a
-    tuple or list of them), differentiable in this process's slice."""
+    tuple or list of them), differentiable in this process's slice: the
+    rows over the spatial axis first when *rows* (image-like tensors,
+    ``ndim >= 3``), then the samples over the data axis."""
     if isinstance(x, (tuple, list)):
-        return type(x)(gather_shards(t) for t in x)
-    return _GatherShards.apply(x)
+        return type(x)(gather_shards(t, rows) for t in x)
+    layout = grid()
+    if rows and x.ndim >= 3:
+        x = gather_axis(x, 1, layout.inner)
+    if layout.data.group is None:
+        return x
+    return _GatherShards.apply(x, layout.data.group)
 
 
-def gather_batch(batch: Dict[str, Any]) -> Dict[str, Any]:
+def gather_batch(batch: Dict[str, Any], rows: bool = False
+                 ) -> Dict[str, Any]:
     """The global batch of every tensor of *batch* but the images ``x``,
     which no loss or metric reads (targets and masks, no autograd)."""
-    return {k: gather_shards(v.detach()) if isinstance(v, torch.Tensor)
-            else v for k, v in batch.items() if k != "x"}
+    return {k: gather_shards(v.detach(), rows)
+            if isinstance(v, torch.Tensor) else v
+            for k, v in batch.items() if k != "x"}
 
 
 def reduce_gradients(grads: Sequence[torch.Tensor],
                      replicated: bool = False) -> None:
-    """Sum the processes' gradients in place, in one collective.  Each
-    process holds its slice's share of the gradient of the global loss
-    (:class:`_GatherShards`), and the shares add up to it: a mean would
-    give it divided by the number of processes.  ``replicated=True`` is
-    for a batch that every process computed whole (a ragged tail): each
-    holds the whole gradient, and their mean keeps the processes'
-    parameters equal where the card's reductions round differently."""
+    """Sum the processes' gradients in place, in one collective over the
+    grid's gradient axis (every process, or the data axis under tensor
+    parallelism).  Each process holds its slice's share of the gradient of
+    the global loss (:class:`_GatherShards`), and the shares add up to it: a
+    mean would give it divided by the number of processes.
+    ``replicated=True`` is for a batch that every process computed whole (a
+    ragged tail): each holds the whole gradient, and their mean keeps the
+    processes' parameters equal where the card's reductions round
+    differently."""
     if not data_parallel() or not grads:
+        return
+    axis = grid().grad_axis
+    if axis.group is None:
         return
     from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
     flat = _flatten_dense_tensors(list(grads))
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=axis.group)
     if replicated:
-        flat /= dist.get_world_size()
+        flat /= axis.size
     for grad, reduced in zip(grads, _unflatten_dense_tensors(flat, grads)):
         grad.copy_(reduced)
 
 
-#: whether the forward that runs now is on a slice of the global batch
-_SYNC_BATCH_STATS = False
+#: the axis over which a BatchNorm in training takes its statistics while a
+#: forward runs on a slice of the global batch (None: its own batch)
+_STATS_AXIS: List[Optional[Axis]] = [None]
 
 
 @contextlib.contextmanager
 def sync_batch_stats(active: bool = True):
     """While active, BatchNorm in training takes the statistics of the
-    global batch over every process (``models.blocks.BatchNorm``)."""
-    global _SYNC_BATCH_STATS
-    previous, _SYNC_BATCH_STATS = _SYNC_BATCH_STATS, bool(active) \
-        and data_parallel()
+    global batch over the grid's statistics axis (``models.blocks.
+    BatchNorm``): the data axis, or data x spatial under spatial
+    sharding."""
+    axis = grid().stats_axis if active and data_parallel() else None
+    if axis is not None and axis.group is None:
+        axis = None
+    previous, _STATS_AXIS[0] = _STATS_AXIS[0], axis
     try:
         yield
     finally:
-        _SYNC_BATCH_STATS = previous
+        _STATS_AXIS[0] = previous
+
+
+def batch_stats_axis() -> Optional[Axis]:
+    return _STATS_AXIS[0]
 
 
 def batch_stats_synced() -> bool:
-    return _SYNC_BATCH_STATS
+    return _STATS_AXIS[0] is not None

@@ -20,9 +20,12 @@ the loop writes ``profile/epoch_times.csv`` (host wall time per phase) and
 Under data parallelism (``parallel``) each batch is cut to this process's
 slice before its copy to the card (``parallel.shard_batch``; a batch the
 loader already assembled as the slice, under per-host input slicing,
-passes as it is), and only the main process writes: CSV rows, checkpoints,
-plots, the confusion-matrix export, the host loggers' files and the
-profile.
+passes as it is; under spatial sharding also to its band of rows, unless
+the train step augments on the card, which takes the whole image first),
+and only the main process writes: CSV rows, checkpoints, plots, the
+confusion-matrix export, the host loggers' files and the profile.  Under
+tensor parallelism the checkpoint files are gathered whole first
+(``parallel.full_state_dict``), by every process.
 
 Batches are regrouped on the host into ``(n_fragments, fragment_bs, ...)``
 stacks (the step accumulates gradients over the fragments) and copied to
@@ -49,7 +52,8 @@ import torch
 from ..config import ConfigDict
 from ..data.loader import BalancedDataLoader
 from ..metrics.calculator import cm_log_epochs, to_host
-from ..parallel import is_main_process, shard_batch
+from ..parallel import (full_optimizer_state_dict, full_state_dict, grid,
+                        is_main_process, shard_batch)
 from ..utils import handle_exception, swallow
 from ..utils.device import resolve_device
 from . import checkpoint as ckpt
@@ -197,18 +201,21 @@ def _virtual_batches(loader, accumulation_scale: int):
 
 
 def _prefetched(iterator, device: torch.device, depth: int = 2,
-                threaded=None):
+                threaded=None, cut_rows: bool = True):
     """Copy *depth* batches ahead to *device*, through pinned memory, so
     the copy overlaps the step; a batch whose transfer fails is logged and
     skipped (the per-batch error envelope).  Under data parallelism only
-    this process's slice of a batch is copied."""
+    this process's slice of a batch is copied, and under spatial sharding
+    with *cut_rows* only its band of rows."""
     from ..data.loader import PinnedCopier, prefetch_to_device
     copy = PinnedCopier(device)
+    spatial = "spatial" if cut_rows and grid().size("spatial") > 1 else None
 
     def put(batch):
         local = batch.pop(BalancedDataLoader.LOCAL_SLICE_KEY,
                           None) is not None
-        return copy(shard_batch(batch, batch_dim=1, already_local=local))
+        return copy(shard_batch(batch, batch_dim=1, spatial_axis=spatial,
+                                already_local=local))
 
     def on_error(exc):
         if is_sticky_cuda_error(exc):
@@ -234,7 +241,7 @@ def run_epoch(step_fn, state, metrics_state, loader,
               device=None, log_path: Optional[str] = None,
               calculator=None, on_batch: Optional[Callable] = None,
               threaded_prefetch=None, log_flush: int = 512,
-              debug_nans: bool = False):
+              debug_nans: bool = False, cut_rows: bool = True):
     """One pass over *loader*.  Returns (state, metrics_state).
 
     The step's scalars are not read back per step: a read waits for the
@@ -243,7 +250,9 @@ def run_epoch(step_fn, state, metrics_state, loader,
     ``log_flush=1`` writes each row as its step ends.  With *debug_nans*
     each step also leaves a flag on the card that says whether one of its
     scalars is not finite; the flags come back with the window, and a set
-    one raises FloatingPointError naming the steps."""
+    one raises FloatingPointError naming the steps.  ``cut_rows=False``
+    leaves the rows of a spatially sharded batch to the step (which
+    augments the whole image first)."""
     device = resolve_device(device)
     keep_rows = log_path is not None and calculator is not None
     rows: list = []  # per-step scalar dicts on the card, awaiting read-back
@@ -272,7 +281,7 @@ def run_epoch(step_fn, state, metrics_state, loader,
 
     for i, batch_stack in enumerate(_prefetched(
             _virtual_batches(loader, accumulation_scale), device,
-            threaded=threaded_prefetch)):
+            threaded=threaded_prefetch, cut_rows=cut_rows)):
         try:
             if train:
                 state, metrics_state, per_batch = step_fn(
@@ -533,7 +542,8 @@ def train_model(model, train_data, val_data, test_data,
                         log_path=destination + "batch_logs.csv"
                         if log_batches else None, calculator=calculator,
                         on_batch=timer, threaded_prefetch=threaded_prefetch,
-                        log_flush=log_flush, debug_nans=debug_nans)
+                        log_flush=log_flush, debug_nans=debug_nans,
+                        cut_rows=device_augment is None)
                 finally:
                     if trace is not None:
                         with swallow("Could not stop the profiler trace."):
@@ -570,9 +580,12 @@ def train_model(model, train_data, val_data, test_data,
                     if (epoch + 1) in checkpoints:
                         model_files.append(
                             f"model_state_dict_epoch_{epoch + 1}.pt")
-                    save(model_files, module.state_dict())
+                    # whole files under tensor parallelism: a collective
+                    # of every process, before the main process writes
+                    save(model_files, full_state_dict(module))
                     save(["optimizer_state_dict.pt"], {
-                        "optimizer": state.optimizer.state_dict(),
+                        "optimizer": full_optimizer_state_dict(
+                            state.optimizer),
                         "step": int(state.step),
                         "micro_step": int(state.micro_step)})
                     # file-role parity with the reference's

@@ -7,7 +7,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..parallel import device_count, rank
+from ..parallel.mesh import data_rank, data_size
 
 __all__ = ["TrainState"]
 
@@ -40,13 +40,15 @@ class TrainState:
                            sharded: bool = False) -> torch.Generator:
         """The generator of fragment *fragment* of the current step, on
         *device*: seeded from (seed, micro_step, fragment) on the host, and
-        the process's rank when *sharded*, that is when this process holds
-        its slice of the fragment (so the slices' dropout masks differ).
-        A fragment replicated on every process (a ragged tail) draws the
-        same masks everywhere, so the processes' updates stay equal."""
+        the process's rank on the data axis when *sharded*, that is when
+        this process holds its slice of the fragment's samples (so the
+        slices' dropout masks differ).  The processes of one model or
+        spatial group hold the same samples and draw the same values, and a
+        fragment replicated on every process (a ragged tail) draws the same
+        masks everywhere, so the processes' updates stay equal."""
         entropy = [self.seed, self.micro_step, fragment]
-        if sharded and device_count() > 1:
-            entropy.append(rank())
+        if sharded and data_size() > 1:
+            entropy.append(data_rank())
         seed = np.random.SeedSequence(entropy).generate_state(
             1, np.uint64)[0]
         return torch.Generator(device=device).manual_seed(int(seed))

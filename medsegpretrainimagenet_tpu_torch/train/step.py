@@ -23,6 +23,12 @@ global fragment, as the JAX step computes them on its sharded batch.  The
 processes' gradients are summed once per step, before clipping.  A stack
 that is not marked (a ragged tail, replicated on every process) draws the
 same masks on every process, and the processes' gradients are averaged.
+Under spatial sharding (the grid's ``'spatial'`` axis) the forward runs on
+this process's band of rows (``parallel.spatial``): the device
+augmentation first takes the whole image, then the rows are cut (unless
+``shard_batch`` cut them already), and the rows are gathered with the
+samples before the loss.  Under tensor parallelism the gradient norm
+counts each sharded parameter's slices once.
 
 A step queues device work only: it returns device tensors and reads no
 value back (no ``.item()``, no ``.cpu()``, no branch on a tensor), so the
@@ -33,10 +39,14 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..models.blocks import draws, set_dropout_generator
-from ..parallel import (SHARDED_KEY, gather_batch, gather_shards,
-                        reduce_gradients, sync_batch_stats)
+from ..parallel import (ROWS_KEY, SHARDED_KEY, data_parallel, gather_batch,
+                        gather_shards, grid, reduce_gradients, split_rows,
+                        sync_batch_stats)
+from ..parallel.spatial import row_shards
+from ..parallel.tp import sharded as tp_sharded
 from .state import TrainState
 
 __all__ = ["make_train_step", "make_eval_step", "global_norm"]
@@ -52,10 +62,33 @@ def global_norm(tensors, norm_type: float = 2.0) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms), norm_type)
 
 
-def _clip_by_norm(grads, max_norm: float, norm_type: float) -> torch.Tensor:
+def _parameters_norm(params, grads, norm_type: float) -> torch.Tensor:
+    """The norm of the gradients of the whole parameters: under tensor
+    parallelism the sharded parameters' slices are summed over the model
+    axis (each counted once), the replicated ones taken as they are."""
+    shards = [g for p, g in zip(params, grads) if tp_sharded(p) is not None]
+    if not shards:
+        return global_norm(grads, norm_type)
+    group = tp_sharded(next(p for p in params
+                            if tp_sharded(p) is not None)).axis.group
+    whole = [g for p, g in zip(params, grads) if tp_sharded(p) is None]
+    sliced = global_norm(shards, norm_type)
+    if norm_type == float("inf"):
+        dist.all_reduce(sliced, op=dist.ReduceOp.MAX, group=group)
+        return torch.maximum(sliced, global_norm(whole, norm_type)) \
+            if whole else sliced
+    total = sliced ** norm_type
+    dist.all_reduce(total, group=group)
+    if whole:
+        total = total + global_norm(whole, norm_type) ** norm_type
+    return total ** (1.0 / norm_type)
+
+
+def _clip_by_norm(params, grads, max_norm: float,
+                  norm_type: float) -> torch.Tensor:
     """Scale *grads* in place by min(1, max_norm / (norm + 1e-6)) and
     return the norm before the scaling."""
-    norm = global_norm(grads, norm_type)
+    norm = _parameters_norm(params, grads, norm_type)
     scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
     torch._foreach_mul_(grads, scale)
     return norm
@@ -98,12 +131,20 @@ def _fragments(batch_stack: Dict[str, Any]):
 
 
 def _split_sharded(batch_stack: Dict[str, Any]):
-    """(batch stack without the shard mark, is it a slice of the global
-    batch?)"""
+    """(batch stack without the shard marks, is it a slice of the global
+    batch?, the spatial axis of its forward or None, are its rows cut
+    already?)"""
     if SHARDED_KEY not in batch_stack:
-        return batch_stack, False
-    rest = {k: v for k, v in batch_stack.items() if k != SHARDED_KEY}
-    return rest, bool(batch_stack[SHARDED_KEY])
+        return batch_stack, False, None, False
+    rest = {k: v for k, v in batch_stack.items()
+            if k not in (SHARDED_KEY, ROWS_KEY)}
+    sharded = bool(batch_stack[SHARDED_KEY])
+    rows = None
+    if sharded and data_parallel():
+        inner = grid().inner
+        if inner.name == "spatial" and inner.group is not None:
+            rows = inner
+    return rest, sharded, rows, bool(batch_stack.get(ROWS_KEY, False))
 
 
 def make_train_step(model, loss_fn: Callable, calculator, optimizer,
@@ -128,7 +169,7 @@ def make_train_step(model, loss_fn: Callable, calculator, optimizer,
     uses_rng = device_augment is not None or draws(module)
 
     def train_step(state: TrainState, metrics_state, batch_stack):
-        batch_stack, sharded = _split_sharded(batch_stack)
+        batch_stack, sharded, rows, rows_cut = _split_sharded(batch_stack)
         fragments = _fragments(batch_stack)
         n_frag = len(fragments)
         module.train()
@@ -145,12 +186,16 @@ def make_train_step(model, loss_fn: Callable, calculator, optimizer,
                 set_dropout_generator(module, generator)
             if device_augment is not None:
                 fragment = device_augment(generator, fragment)
-            with sync_batch_stats(sharded):
+            if rows is not None and not rows_cut:
+                # the augmentation took the whole image (a rotation is
+                # global); now this process's band of rows
+                fragment = split_rows(fragment, rows)
+            with sync_batch_stats(sharded), row_shards(rows):
                 pred = module(fragment["x"])
             if sharded:
                 # the global fragment's loss, on every process
-                pred = gather_shards(pred)
-                fragment = gather_batch(fragment)
+                pred = gather_shards(pred, rows is not None)
+                fragment = gather_batch(fragment, rows is not None)
             loss = loss_fn(pred, fragment)
             loss.backward()
             loss = loss.detach()
@@ -168,16 +213,17 @@ def make_train_step(model, loss_fn: Callable, calculator, optimizer,
             for p in group["params"]:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in module.parameters() if p.grad is not None]
+        params = [p for p in module.parameters() if p.grad is not None]
+        grads = [p.grad for p in params]
         reduce_gradients(grads, replicated=not sharded)
         if n_frag > 1:
             torch._foreach_mul_(grads, 1.0 / n_frag)
         loss_value = loss_sum * (1.0 / n_frag)
         if grad_clip_value is not None and grad_clip_value != float("inf"):
-            grad_norm = _clip_by_norm(grads, grad_clip_value,
+            grad_norm = _clip_by_norm(params, grads, grad_clip_value,
                                       grad_clip_norm_type)
         else:
-            grad_norm = global_norm(grads, grad_clip_norm_type)
+            grad_norm = _parameters_norm(params, grads, grad_clip_norm_type)
 
         lr = optimizer.set_lr(state.optimizer, state.step)
         state.optimizer.step()
@@ -208,26 +254,27 @@ def make_eval_step(model, loss_fn: Optional[Callable], calculator,
     module = getattr(model, "module", model)
 
     def eval_step(state: TrainState, metrics_state, batch_stack):
-        batch_stack, sharded = _split_sharded(batch_stack)
+        batch_stack, sharded, rows, rows_cut = _split_sharded(batch_stack)
         module.eval()
         with torch.inference_mode():
-            preds = [module(_dequantize_inputs(f)["x"])
-                     for f in _fragments(batch_stack)]
-            if sharded:
-                preds = [gather_shards(p) for p in preds]
-                batch_stack = gather_batch(
-                    {k: v.transpose(0, 1) for k, v in batch_stack.items()
-                     if isinstance(v, torch.Tensor)})
-                batch_stack = {k: v.transpose(0, 1)
-                               for k, v in batch_stack.items()}
+            preds, seen = [], []
+            for fragment in _fragments(batch_stack):
+                fragment = _dequantize_inputs(fragment)
+                if rows is not None and not rows_cut:
+                    fragment = split_rows(fragment, rows)
+                with row_shards(rows):
+                    pred = module(fragment["x"])
+                if sharded:
+                    pred = gather_shards(pred, rows is not None)
+                    fragment = gather_batch(fragment, rows is not None)
+                preds.append(pred)
+                seen.append(fragment)
             # the loss sees the full (possibly multi-output) prediction and
             # applies its own train_prediction_index; metrics get the
             # training/prediction_index selection
             merged_pred = _merge(preds)
-            merged_batch = _dequantize_inputs(
-                {k: v.reshape((-1,) + tuple(v.shape[2:]))
-                 for k, v in batch_stack.items()
-                 if isinstance(v, torch.Tensor)})
+            merged_batch = {k: _merge([f[k] for f in seen]) for k in seen[0]
+                            if isinstance(seen[0][k], torch.Tensor)}
             loss_value = loss_fn(merged_pred, merged_batch) \
                 if loss_fn is not None else None
             per_batch = {}

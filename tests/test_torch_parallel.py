@@ -15,12 +15,13 @@ a ``file://`` rendezvous under the test's tmp_path.
   images (a ragged tail of 1 that replicates), under 2 ranks with and
   without ``per_host_input_slicing``: its ``epoch_logs.csv`` is the
   single-process run's within 1e-4, and the second rank writes no file.
-* The helpers are the identity in a process without a group."""
+* The helpers are the identity in a process without a group.
+* The fragment of a virtual batch is sized per device of the data axis, as
+  the JAX CLI sizes it: two ranks at ``batch_size: 4`` within
+  ``maximum_actual_batch_size: 2`` write the JAX CLI's logs.  The refusals
+  of layouts the processes cannot take."""
 import csv
 import os
-import pathlib
-import subprocess
-import sys
 
 import jax
 import numpy as np
@@ -52,13 +53,14 @@ from medsegpretrainimagenet_tpu_torch.train import (TrainState,
                                                     make_train_step)
 from medsegpretrainimagenet_tpu_torch.train import checkpoint as ckpt
 
-from torch_port_helpers import (build_model, torch_switches_kept,
-                                transplant, unet_config)
+from torch_port_helpers import (assert_same_logs, build_model, cli_run_dir,
+                                model_config, parallel_cli_config,
+                                run_jax_cli, spawn_cli, spawn_ranks,
+                                torch_switches_kept, transplant, unet_config,
+                                write_cli_tree)
 
 TOL = 1e-5
 CLI_TOL = 1e-4
-WORKER = pathlib.Path(__file__).with_name("torch_dp_worker.py")
-ROOT = WORKER.parent.parent
 SIZE, STEPS, CLIP = 16, 2, 0.05
 OPTIMIZER = {"sgd": {"momentum": 0.9, "weight decay": 1e-4,
                      "learning_rate": {
@@ -92,26 +94,7 @@ def _stack(batch, n_frag):
 def _spawn(mode, world, tmp_path, out_names, *args):
     """Run *world* worker processes to their end; each writes its result
     to ``tmp_path / out_names[rank]``."""
-    init = tmp_path / "rendezvous"
-    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep
-               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(
-        [sys.executable, str(WORKER), mode, str(r), str(world), str(init),
-         str(tmp_path / out_names[r]), *map(str, args)],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(world)]
-    outputs = []
-    try:
-        for proc in procs:
-            outputs.append(proc.communicate(timeout=120)[0])
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-    for r, (proc, text) in enumerate(zip(procs, outputs)):
-        assert proc.returncode == 0, f"rank {r} failed:\n{text[-4000:]}"
-    return outputs
+    return spawn_ranks(mode, world, tmp_path, out_names, *args)
 
 
 @pytest.fixture(scope="module")
@@ -406,10 +389,71 @@ def test_helpers_are_the_identity_without_a_group():
 
 def test_cli_refuses_a_process_count_that_does_not_divide_the_batch(
         monkeypatch):
+    """The layouts the CLI refuses: a data axis that does not divide the
+    fragment batch (the count to run named), both model knobs at once (the
+    reference CLI does not offer both), a factor beyond the processes or
+    one that does not divide them, and the Swin U-Net under spatial
+    sharding (ROADMAP item M14)."""
     from medsegpretrainimagenet_tpu_torch.cli import run_experiment
+    from medsegpretrainimagenet_tpu_torch.parallel.spatial import \
+        check_supported
     monkeypatch.setattr(run_experiment, "device_count", lambda: 4)
     with pytest.raises(ValueError, match="run 3 processes"):
         run_experiment._refuse_parallelism(ConfigDict({}), 6)
+    # tensor_parallel 2 of 4 processes leaves 2 data processes
+    with pytest.raises(ValueError, match="run 2 processes"):
+        run_experiment._refuse_parallelism(
+            ConfigDict({"tensor_parallel": 2}), 3)
+    run_experiment._refuse_parallelism(ConfigDict({"spatial_sharding": 2}),
+                                       2)
+    with pytest.raises(ValueError, match="does not offer both at once"):
+        run_experiment._refuse_parallelism(ConfigDict(
+            {"spatial_sharding": 2, "tensor_parallel": 2}), 4)
     for knob in ("spatial_sharding", "tensor_parallel"):
-        with pytest.raises(NotImplementedError, match="M12"):
-            run_experiment._refuse_parallelism(ConfigDict({knob: 2}), 4)
+        with pytest.raises(ValueError, match="exceeds the 4 available"):
+            run_experiment._refuse_parallelism(ConfigDict({knob: 8}), 4)
+        with pytest.raises(ValueError, match="must divide the 4 processes"):
+            run_experiment._refuse_parallelism(ConfigDict({knob: 3}), 4)
+    swin = build_model(ConfigDict, registry, Model, model_config()).module
+    with pytest.raises(NotImplementedError, match="Swin U-Net.*M14"):
+        check_supported(swin)
+
+
+@pytest.mark.parametrize("case", [
+    (64, 8, 8, 1), (64, 8, 8, 4), (64, 8, 1, 1), (4, 2, 2, 1), (4, 2, 1, 1),
+    (16, 4, 4, 2), (12, 4, 3, 1), (24, 5, 8, 2), (32, 2, 4, 4), (6, 6, 4, 1)])
+def test_effective_batch_size_equals_jax(case):
+    """The fragment of a virtual batch: its per-device share within
+    ``maximum_actual_batch_size`` on the data axis that the model factor
+    leaves (``tests/test_cli_review_fixes.py``'s cases first)."""
+    from medsegpretrainimagenet_tpu.cli.run_experiment import \
+        effective_batch_size as jax_effective
+    from medsegpretrainimagenet_tpu_torch.cli.run_experiment import \
+        effective_batch_size
+    assert effective_batch_size(*case) == jax_effective(*case)
+
+
+def test_cli_under_two_ranks_sizes_its_fragment_as_the_jax_cli(
+        tmp_path_factory, tmp_path):
+    """``batch_size: 4`` within ``maximum_actual_batch_size: 2`` on two
+    processes: one fragment of 4 a step, 2 a process, as the JAX CLI steps
+    one fragment of 4 on its mesh (four of the eight test devices), with
+    BatchNorm statistics over the 4; both write the same
+    ``epoch_logs.csv``.  (Sizing the fragment for one device would step two
+    fragments of 2.)"""
+    data, jax_weights, port_weights = write_cli_tree(
+        tmp_path_factory.mktemp("fragment_tree"), CLI_ARCH, n_train=12)
+    runs = {}
+    for kind, weights in (("jax", jax_weights), ("port", port_weights)):
+        logs = tmp_path / f"{kind}_logs"
+        path = tmp_path / f"{kind}.yaml"
+        path.write_text(yaml.dump(parallel_cli_config(
+            logs, weights, CLI_ARCH, epochs=1, batch_size=4, max_bs=2)))
+        if kind == "jax":
+            run_jax_cli(path, data)
+        else:
+            spawn_cli(2, tmp_path, path, logs, data)
+        runs[kind] = cli_run_dir(logs)
+    assert_same_logs(runs["port"], runs["jax"], CLI_TOL)
+    # 12 images in whole batches of 4: three steps, each one fragment
+    assert len(_rows(runs["port"] / "batch_logs.csv")) == 3

@@ -3,7 +3,12 @@ path (``models.blocks._GlobalBatchNorm``, PyTorch's SyncBatchNorm kernels
 over NCCL) against the float32 path that the CPU takes (over gloo), in a
 group of one process, and against ``F.batch_norm``: the output, the input,
 weight and bias gradients and the running statistics agree within 1e-5 of
-their largest value.
+their largest value.  Then two ranks sharing the card over gloo (NCCL
+refuses two ranks on one device): tensor parallelism's column-parallel
+conv and dense layer, spatial sharding's halo exchanges (a 3 x 3 conv, the
+ResNet stem's 7 x 7 / 2 conv and 3 x 3 / 2 max pool) and the pipeline's
+hand-off, forward and backward, each within 1e-5 of one process on the
+card (TF32 off).
 
 Marked ``gpu``; skips without a CUDA card.  Imports no JAX:
 
@@ -65,3 +70,45 @@ def test_fused_global_batch_norm_equals_the_cpu_path(one_process_group):
         scale = max(1.0, b.abs().max().item())
         assert (a - b).abs().max().item() < 1e-5 * scale, name
         assert (a - c).abs().max().item() < 1e-5 * scale, name
+
+
+#: max |two ranks - one process| over the largest value, float32, TF32 off
+SHARED_CARD_TOL = 1e-5
+SHARED_CARD_CASES = ("column-parallel conv", "column-parallel dense",
+                     "halo conv 3 x 3", "halo conv 7 x 7 / 2",
+                     "halo max pool 3 x 3 / 2", "pipeline hand-off")
+
+
+@pytest.fixture(scope="module")
+def shared_card(tmp_path_factory):
+    """Two ranks of ``tests/torch_dp_worker.py shared_card`` on the one
+    card over gloo: the column-parallel conv (32 -> 256, 3 x 3) and dense
+    layer (64 -> 512) on data x model 1 x 2, a 3 x 3 conv, the ResNet
+    stem's 7 x 7 / 2 conv and 3 x 3 / 2 max pool on two bands of 16 rows,
+    a two-stage pipeline at M = 4; rank 0's readings against one process
+    on the card."""
+    import os
+    import pathlib
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the ranks share it")
+    tmp = tmp_path_factory.mktemp("shared_card")
+    worker = pathlib.Path(__file__).with_name("torch_dp_worker.py")
+    env = dict(os.environ, PYTHONPATH=str(worker.parent.parent)
+               + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = [subprocess.Popen(
+        [sys.executable, str(worker), "shared_card", str(r), "2",
+         str(tmp / "rendezvous"), str(tmp / "errors.pt")], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outputs = [proc.communicate(timeout=300)[0] for proc in procs]
+    for r, (proc, text) in enumerate(zip(procs, outputs)):
+        assert proc.returncode == 0, f"rank {r}:\n{text[-4000:]}"
+    return torch.load(tmp / "errors.pt")
+
+
+@pytest.mark.parametrize("case", SHARED_CARD_CASES)
+def test_two_ranks_sharing_the_card_equal_one_process(shared_card, case):
+    assert shared_card[case] < SHARED_CARD_TOL, shared_card

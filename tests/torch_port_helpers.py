@@ -3,6 +3,10 @@ package: a small Swin U-Net and a small conv U-Net configuration, built by
 either package, weight transplanting from a flax module into its torch
 counterpart, and a small IDRiD tree."""
 import contextlib
+import os
+import pathlib
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -348,3 +352,157 @@ def image_attention_tf32(qkv, bias, mask, scale: float, window: int,
     out = window_attention_tf32(t[0], t[1], t[2], bias, mask, scale, passes)
     out = out.transpose(1, 2).reshape(b, n_wc, n_wc, window, window, c)
     return out.permute(0, 1, 3, 2, 4, 5).reshape(b, r, r, c)
+
+
+WORKER = pathlib.Path(__file__).with_name("torch_dp_worker.py")
+
+
+def spawn_ranks(mode, world, tmp_path, out_names, *args, timeout=120):
+    """Run *world* ranks of ``tests/torch_dp_worker.py`` in *mode* to
+    their end (each a process of its own, one thread, gloo through a
+    ``file://`` rendezvous under *tmp_path*); each writes its result to
+    ``tmp_path / out_names[rank]``.  Returns the ranks' outputs."""
+    init = tmp_path / "rendezvous"
+    env = dict(os.environ, PYTHONPATH=str(WORKER.parent.parent) + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(
+        [sys.executable, str(WORKER), mode, str(r), str(world), str(init),
+         str(tmp_path / out_names[r]), *map(str, args)],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    outputs = []
+    try:
+        for proc in procs:
+            outputs.append(proc.communicate(timeout=timeout)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, (proc, text) in enumerate(zip(procs, outputs)):
+        assert proc.returncode == 0, f"rank {r} failed:\n{text[-4000:]}"
+    return outputs
+
+
+def write_cli_tree(root, arch, n_train=13, n_test=4, size=20, seed=0):
+    """A COVID-QU tree under ``root / "data"`` (*n_train* training and
+    *n_test* test images of *size* x *size*, a bright square and its mask)
+    and one U-Net of *arch* as a JAX msgpack checkpoint and its ``.pt``
+    translation.  Returns (data dir, JAX weights, port weights)."""
+    from medsegpretrainimagenet_tpu.config import ConfigDict as JaxConfig
+    from medsegpretrainimagenet_tpu.config import registry as jax_registry
+    from medsegpretrainimagenet_tpu.models import Model as JaxModel
+    from medsegpretrainimagenet_tpu.train import checkpoint as jax_ckpt
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
+    from medsegpretrainimagenet_tpu_torch.models import Model
+    from medsegpretrainimagenet_tpu_torch.train import checkpoint as ckpt
+
+    rng = np.random.default_rng(seed)
+    base = root / "data" / "COVID_QU" / "Inf_segm" / "data arrays" \
+        / "COVID-19"
+    for part, n in (("train and val", n_train), ("test", n_test)):
+        d = base / part
+        d.mkdir(parents=True)
+        images = (rng.random((n, 1, size, size)) * 120).astype(np.uint8)
+        masks = np.zeros((n, 1, size, size), np.uint8)
+        for i in range(n):
+            r, c = rng.integers(2, size - 10, 2)
+            images[i, :, r:r + 8, c:c + 8] += 120
+            masks[i, :, r:r + 8, c:c + 8] = 2
+        np.save(d / "imgs.npy", images)
+        np.save(d / "inf_masks.npy", masks)
+    cfg = {"model": {"segmentation.models.UNet": {"architecture": arch}}}
+    jmodel = build_model(JaxConfig, jax_registry, JaxModel, cfg)
+    variables = jax.tree_util.tree_map(np.asarray, jmodel.init(
+        jax.random.key(0), {"x": np.zeros((1, 16, 16, arch[
+            "in_channel_size"]), np.float32)}))
+    jax_weights, port_weights = root / "weights.msgpack", root / "weights.pt"
+    jax_ckpt.save_params_file(str(jax_weights), variables)
+    module = build_model(ConfigDict, registry, Model, cfg).module
+    ckpt.save_params_file(str(port_weights),
+                          state_dict_from_jax(variables, module))
+    return root / "data", jax_weights, port_weights
+
+
+def parallel_cli_config(logs, weights, arch, epochs=2, batch_size=4,
+                        max_bs=4, **technical):
+    """A tiny COVID-QU CLI config (a U-Net of *arch* at 16 x 16, Dice loss,
+    SGD with momentum at a constant rate, DiceIndex and AUROC) for the
+    multi-process CLI tests; *technical* adds to ``meta/technical``."""
+    return {
+        "experiment": {"number_of_epochs": epochs, "number_of_trials": 1},
+        "meta": {"technical": {"seed": 777, "save_destination": str(logs),
+                               "export_plots_as": ["json"],
+                               "maximum_actual_batch_size": max_bs,
+                               "number_of_cpu_threads": 1, **technical}},
+        "data": {"data": {"segmentation.datasets.COVIDQUDataset": {
+            "lung_or_infection": "inf", "image_sizes": 16,
+            "validate_on_test": True, "seed": 20231027}},
+            "sampling": {"batch_size": batch_size},
+            "transforms": {"train": "transform.RepeatChannels",
+                           "val": "transform.RepeatChannels",
+                           "casting": {"mask": "torch.LongTensor"}}},
+        "model": {"segmentation.models.UNet": {
+            "architecture": dict(arch), "final_activation": "sigmoid",
+            "weight_init": {"weights": str(weights)}}},
+        "training": {
+            "loss": {"segmentation.losses.DiceLoss": {}},
+            "optimizer": {"sgd": {"momentum": 0.9, "learning_rate": {
+                "constant": {"base": 0.05}}}}},
+        "metrics": {"metrics": ("metrics.DiceIndex", "metrics.AUROC")},
+    }
+
+
+def cli_run_dir(logs):
+    """``logs/<date>/Experiment/run_1`` of a finished CLI run."""
+    (day,) = [d for d in logs.iterdir() if d.is_dir()]
+    return day / "Experiment" / "run_1"
+
+
+def csv_rows(path):
+    import csv
+    with open(path, newline="") as fh:
+        return list(csv.DictReader(fh))
+
+
+def run_jax_cli(path, data_dir, *modifiers):
+    """The JAX package's CLI on the config at *path*, in this process."""
+    from medsegpretrainimagenet_tpu.cli.experiment import main as jax_main
+    saved = os.environ.get("MST_DATA_DIR")
+    os.environ["MST_DATA_DIR"] = str(data_dir)
+    try:
+        with torch_switches_kept():
+            jax_main([str(path), *modifiers])
+    finally:
+        if saved is None:
+            os.environ.pop("MST_DATA_DIR")
+        else:
+            os.environ["MST_DATA_DIR"] = saved
+
+
+def spawn_cli(world, tmp_path, path, logs, data_dir, *modifiers):
+    """The port's CLI on the config at *path* under *world* gloo ranks
+    (``tests/torch_dp_worker.py cli``).  Returns the ranks' outputs."""
+    saved = os.environ.get("MST_DATA_DIR")
+    os.environ["MST_DATA_DIR"] = str(data_dir)
+    try:
+        return spawn_ranks("cli", world, tmp_path,
+                           [f"cli{r}.txt" for r in range(world)], path,
+                           logs, *modifiers)
+    finally:
+        if saved is None:
+            os.environ.pop("MST_DATA_DIR")
+        else:
+            os.environ["MST_DATA_DIR"] = saved
+
+
+def assert_same_logs(got_dir, want_dir, tol, name="epoch_logs.csv"):
+    """Every value of *name* in *got_dir* within *tol* of *want_dir*'s."""
+    got, want = csv_rows(got_dir / name), csv_rows(want_dir / name)
+    assert len(got) == len(want) > 0, (len(got), len(want))
+    assert set(got[0]) == set(want[0]), (set(got[0]) ^ set(want[0]))
+    for k, (g, w) in enumerate(zip(got, want)):
+        for key in w:
+            np.testing.assert_allclose(float(g[key]), float(w[key]),
+                                       rtol=tol, atol=tol,
+                                       err_msg=f"{name} row {k} {key}")
