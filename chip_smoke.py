@@ -100,8 +100,8 @@ step forward and backward against plain autograd and SDPA, and prints
 which of the two candidates for ``train=True`` is faster;
 ``[resnet train]`` times the ResNet-50 attention U-Net's step (16 x 256 x
 256, bf16); ``[cli swin]`` and ``[cli resnet]`` train both through the CLI
-on synthetic COVID-QU trees, two epochs and a third under
-``--continued``, the encoder grafted from reference-named weights, and
+on synthetic COVID-QU trees, three epochs in one process, the encoder
+grafted from reference-named weights, and
 count K1's launches in a no-grad validation pass of the trained Swin
 U-Net.  ``[blocks small]`` steps a small float32 U-Net of each block kind
 of the residual zoo (ResNeXt, inverted bottleneck, ConvNeXt) with its
@@ -111,7 +111,7 @@ on the card against the CPU; ``[cli mixed]`` runs one epoch of a
 switching, over- and under-balancing) through the CLI, its stateful loads
 kept serial; ``[cli idrid]`` trains the paper's IDRiD U-Net (the MA task,
 448 -> 224 crops) through the CLI on a synthetic tree of 2848 x 4288
-fundus images, two epochs and a third under ``--continued``, with the
+fundus images, three epochs in one process, with the
 reader's host seconds per image, the crops it keeps and drops, the host
 assembly per batch, the epochs' images/s and the process's peak memory.
 ``[export]`` exports ``swin_unet_224`` in bf16 with a symbolic batch
@@ -183,6 +183,9 @@ LEVELS = [(0, 3, 64, 2, 2), (1, 6, 16, 2, 2), (2, 12, 4, 2, 2),
           (3, 24, 1, 0, 2)]
 TOKENS, HEAD_DIM, WINDOW = 49, 32, 7
 BF16_TOL, F32_TOL = 0.05, 1e-4
+#: [k2]'s band instances: swin_224_train's level 0 at TP_SWIN_BATCH, the
+#: batch of [sp]'s Swin step
+K2_BAND_BATCH = 8
 #: bars on the mean |kernel - plain|.  A sound bf16 kernel reads about 1e-7
 #: (a bf16 step on a few outputs); one that drops the bias or reads another
 #: head's bias or another window's mask reads 1e-3 or more, under the max
@@ -536,14 +539,14 @@ def _k1_path(qkv, bias, mask, scale):
         window_partition, window_reverse)
     from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
 
-    b, res, _, c3 = qkv.shape
+    b, rows, cols, c3 = qkv.shape
     heads, c = bias.shape[0], c3 // 3
     windows = window_partition(qkv, WINDOW).reshape(-1, TOKENS, 3, heads,
                                                     c // heads)
     q, k, v = windows.permute(2, 0, 3, 1, 4).contiguous()
     out = wa.window_attention_cuda(q, k, v, bias, mask, scale)
     out = out.transpose(1, 2).reshape(-1, WINDOW, WINDOW, c)
-    return window_reverse(out, WINDOW, res, res)
+    return window_reverse(out, WINDOW, rows, cols)
 
 
 def _sdpa_image_path(qkv, full, scale):
@@ -551,15 +554,16 @@ def _sdpa_image_path(qkv, full, scale):
     qkv, SDPA with bias and mask folded into *full*, the permute back."""
     import torch.nn.functional as F
 
-    b, res, _, c3 = qkv.shape
+    b, rows, cols, c3 = qkv.shape
     heads = full.shape[1]
-    n_wc, d = res // WINDOW, c3 // 3 // heads
-    t = qkv.reshape(b, n_wc, WINDOW, n_wc, WINDOW, 3, heads, d)
+    n_wr, n_wc, d = rows // WINDOW, cols // WINDOW, c3 // 3 // heads
+    t = qkv.reshape(b, n_wr, WINDOW, n_wc, WINDOW, 3, heads, d)
     t = t.permute(5, 0, 1, 3, 6, 2, 4, 7).reshape(3, -1, heads, TOKENS, d)
     out = F.scaled_dot_product_attention(t[0], t[1], t[2], attn_mask=full,
                                          scale=scale)
-    out = out.reshape(b, n_wc, n_wc, heads, WINDOW, WINDOW, d)
-    return out.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, res, res, c3 // 3)
+    out = out.reshape(b, n_wr, n_wc, heads, WINDOW, WINDOW, d)
+    return out.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, rows, cols,
+                                                    c3 // 3)
 
 
 def phase_k2():
@@ -664,6 +668,7 @@ def phase_k2():
                 per_forward["bound_ms"] += calls * bound
                 per_forward["bytes_ms"] += calls * t_bytes
                 per_forward["ops_ms"] += calls * t_ops
+    bands = _k2_bands(gen, scale, errs)
     print_errors("k2", errs)
     print(f"[k2] per bf16 forward (14 calls), L2-cold: kernel "
           f"{per_forward['ms']:.4f} ms (warm {per_forward['warm_ms']:.4f}), "
@@ -693,7 +698,94 @@ def phase_k2():
           flush=True)
     bound_by = "bytes" if per_forward["bytes_ms"] >= per_forward["ops_ms"] \
         else "operations"
-    return per_forward, bound_by, max(e[0] for e in errs[torch.bfloat16])
+    return per_forward, bound_by, max(e[0] for e in errs[torch.bfloat16]), \
+        bands
+
+
+def _k2_bands(gen, scale, errs) -> list:
+    """K2 on bands of rows (spatial sharding of swin_224_train's level 0,
+    K2_BAND_BATCH x 56 x 56 tokens, 3 heads): the 28 x 56 bands of data x
+    spatial 1 x 2 and the 14 x 56 bands of 1 x 4, SW-MSA with the last
+    band's rows of the shift mask (the band whose windows the wrap
+    reaches), bf16 and float32, each held against the plain version on the
+    same band and timed L2-cold beside the square 56 x 56 instance at the
+    same batch.  Returns one reading per shape and dtype, square included
+    (the kernels line lists them)."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+    from medsegpretrainimagenet_tpu_torch.ops.kernel_ab import (
+        device_ms, input_copies)
+
+    heads, full_rows = 3, 56
+    _, whole_mask = _tables(0, heads, True, gen)
+    readings = []
+    for bands in (1, 2, 4):
+        rows = full_rows // bands
+        n_wb = (rows // WINDOW) * (full_rows // WINDOW)
+        mask = whole_mask[(bands - 1) * n_wb:].contiguous()
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv = torch.randn(K2_BAND_BATCH, rows, full_rows,
+                              3 * heads * HEAD_DIM,
+                              generator=gen).to("cuda", dtype)
+            bias, _ = _tables(0, heads, False, gen)
+            out = wa.image_attention_cuda(qkv, bias, mask, scale, WINDOW)
+            what = (f"K2 band {rows} x {full_rows} of {bands} "
+                    f"({K2_BAND_BATCH} images) {dtype}")
+            check(out.shape == (K2_BAND_BATCH, rows, full_rows,
+                                heads * HEAD_DIM),
+                  f"{what}: output {tuple(out.shape)}")
+
+            def plain(bias, mask):
+                return wa.image_attention_torch(qkv, bias, mask, scale,
+                                                WINDOW)
+
+            err, mean_err, fault = hold(what, out, plain(bias, mask), plain,
+                                        bias, mask)
+            errs[dtype].append((err, mean_err, fault))
+            via_k1 = _k1_path(qkv, bias, mask, scale)
+            err_k1 = (out.float() - via_k1.float()).abs().max().item()
+            tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+            check(err_k1 < tol, f"{what}: max |kernel - K1 path| {err_k1} "
+                                f"(bar {tol})")
+            full = _sdpa_mask(bias, mask, K2_BAND_BATCH * n_wb, dtype)
+            copies = input_copies(qkv)
+            t_kernel = device_ms(lambda qkv: wa.image_attention_cuda(
+                qkv, bias, mask, scale, WINDOW), copies)
+            t_plain = device_ms(lambda qkv: wa.image_attention_torch(
+                qkv, bias, mask, scale, WINDOW), copies)
+            t_lib = device_ms(lambda qkv: _sdpa_image_path(qkv, full, scale),
+                              copies)
+            del copies
+            moved = qkv.numel() * qkv.element_size() * 4 // 3 \
+                + bias.numel() * 4 + mask.numel() * 4
+            ops = 4 * K2_BAND_BATCH * n_wb * heads * TOKENS * TOKENS \
+                * HEAD_DIM
+            t_bytes = 1e3 * moved / HBM_BYTES_PER_S
+            t_ops = 1e3 * ops / PEAK_OPS_PER_S[str(dtype)]
+            reading = {
+                "shape": [K2_BAND_BATCH, rows, full_rows, 3 * heads
+                          * HEAD_DIM], "bands": bands,
+                "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+                "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            readings.append(reading)
+            square = next((r["ms"] for r in readings if r["bands"] == 1
+                           and r["dtype"] == reading["dtype"]), t_kernel)
+            print(f"[k2 band] {K2_BAND_BATCH} x {rows} x {full_rows} x "
+                  f"{3 * heads * HEAD_DIM} ({bands} band{'s' * (bands > 1)}"
+                  f" of 56 rows, mask rows {(bands - 1) * n_wb} to "
+                  f"{bands * n_wb - 1}) {reading['dtype']}, L2-cold: "
+                  f"kernel_ms={t_kernel:.4f} (the square 56 x 56 at this "
+                  f"batch: {square:.4f}; per row of windows "
+                  f"{t_kernel * bands / square:.3f} of its) plain_ms="
+                  f"{t_plain:.4f} library_ms(permute+SDPA+permute)="
+                  f"{t_lib:.4f} bound_ms={reading['bound_ms']:.4f} "
+                  f"({reading['bound_by']}); |kernel - plain| max={err:.3g} "
+                  f"mean={mean_err:.3g} (a misaddressed table: mean >= "
+                  f"{fault:.3g}), vs_k1_path={err_k1:.3g}", flush=True)
+    return readings
 
 
 def phase_small_vs_cpu():
@@ -2432,6 +2524,8 @@ def _torchrun_cli(workdir: Path, config: dict, nproc: int = 1,
 #: microbatches, batch and DoubleSwin stage (swin_224's level 0)
 PARALLEL_STEPS, PARALLEL_TOL = 3, 1e-4
 TP_MIN_CHANNELS, TP_SWIN_BATCH = 256, 8
+#: [sp]'s unet_encoder_224_pretrain batch
+SP_PRETRAIN_BATCH = 16
 PP_MICROBATCHES, PP_BATCH = 4, 8
 PP_STAGE = dict(in_channels=96, embed_dim=96, img_size=224, patch_size=4,
                 depth=2, num_heads_layers=(3, 6, 12, 24), window_size=7)
@@ -2458,17 +2552,20 @@ def _relative(got: dict, want: dict, count: int = 1):
 
 
 def _grid_steps(cfg: dict, batch: dict, device, layout=None, inner=None,
-                tp_min_channels=None, profile_tag=None) -> dict:
+                tp_min_channels=None, profile_tag=None,
+                fused_image: str = "off") -> dict:
     """PARALLEL_STEPS steps of *cfg* (built as build_trainer builds it,
     the biases and norm scales drawn by _trained_look) on *batch*: in one
     process when *layout* is None, else on the grid ``("data", inner)`` of
     *layout*, each process on its shard (its output channels under
-    ``tensor_parallel``, its rows under ``spatial``).  Returns the losses,
-    gradient norms, the whole parameters on the host, ms per step (each
-    step synchronised), K1's launches per step and the sharded share."""
+    ``tensor_parallel``, its rows under ``spatial``), the Swin blocks in
+    *fused_image* mode.  Returns the losses, gradient norms, the whole
+    parameters on the host, ms per step (each step synchronised), K1's and
+    K2's launches per step and the sharded share."""
     import torch
 
     from medsegpretrainimagenet_tpu_torch import parallel
+    from medsegpretrainimagenet_tpu_torch.ops import set_fused_image_mode
     from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
     from medsegpretrainimagenet_tpu_torch.parallel import tp
 
@@ -2491,36 +2588,44 @@ def _grid_steps(cfg: dict, batch: dict, device, layout=None, inner=None,
     metrics_state = calculator.init_state(device)
     losses, norms, ms = [], [], []
     wa.window_attention_cuda.launches = 0
+    wa.image_attention_cuda.launches = 0
 
     def run(n):
         nonlocal state, metrics_state
         for _ in range(n):
             state, metrics_state, per_batch = step(state, metrics_state,
                                                    batch)
-            losses.append(per_batch["dice_loss"])
+            losses.append(per_batch[calculator.loss.name])
             norms.append(per_batch["gradient_magnitude"])
 
-    for _ in range(PARALLEL_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(1)
-        torch.cuda.synchronize()
-        ms.append(1e3 * (time.perf_counter() - t0))
-    launches = wa.window_attention_cuda.launches / PARALLEL_STEPS
-    # copied to the host before any further step: a state dict's tensors
-    # are the live parameters
-    names = {name for name, _ in model.module.named_parameters()}
-    params = {k: v.double().cpu() for k, v in
-              parallel.full_state_dict(model.module).items() if k in names}
-    if profile_tag is not None and parallel.rank() == 0:
-        profile_train(run, 1, statistics.median(ms), tag=profile_tag,
-                      groups_of=_PARALLEL_GROUPS)
-    elif profile_tag is not None:
-        run(1)  # the other ranks take the profiled step's collectives
+    set_fused_image_mode(fused_image)
+    try:
+        for _ in range(PARALLEL_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(1)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        launches = wa.window_attention_cuda.launches / PARALLEL_STEPS
+        k2_launches = wa.image_attention_cuda.launches / PARALLEL_STEPS
+        # copied to the host before any further step: a state dict's
+        # tensors are the live parameters
+        names = {name for name, _ in model.module.named_parameters()}
+        params = {k: v.double().cpu() for k, v in
+                  parallel.full_state_dict(model.module).items()
+                  if k in names}
+        if profile_tag is not None and parallel.rank() == 0:
+            profile_train(run, 1, statistics.median(ms), tag=profile_tag,
+                          groups_of=_PARALLEL_GROUPS)
+        elif profile_tag is not None:
+            run(1)  # the other ranks take the profiled step's collectives
+    finally:
+        set_fused_image_mode("off")
     out = {"loss": torch.stack(losses[:PARALLEL_STEPS]).double().cpu(),
            "norm": torch.stack(norms[:PARALLEL_STEPS]).double().cpu(),
            "params": params,
-           "ms": ms, "launches": launches, "share": share}
+           "ms": ms, "launches": launches, "k2_launches": k2_launches,
+           "share": share}
     del model, state, step
     torch.cuda.empty_cache()
     return out
@@ -2662,22 +2767,56 @@ def _parallel_cases(device) -> tuple:
                 1, TP_SWIN_BATCH, 224, seed=1).items()})
 
 
+def _pretrain_case(device) -> tuple:
+    """[sp]'s pretraining case: unet_encoder_224_pretrain's model, loss and
+    metrics on SP_PRETRAIN_BATCH random 224 x 224 images, stepped as the
+    other [sp] cases are, by SGD with momentum at lr 1e-3, in place of its
+    AdamW.  AdamW's first steps move each weight by about the learning
+    rate in the sign of its gradient, so a float32 gradient element that
+    another summation order (the bands') puts on the other side of zero
+    moves a whole step the other way: a call read a worst leaf of 0.103
+    after 3 AdamW steps with a first gradient norm within 2.8e-5, and a
+    float32 CPU run on two bands reads 55 times SGD's parameter difference
+    under AdamW.  (SGD at AdamW's lr 4e-3 read 2.9e-4 in the first-level
+    convs, whose float32 gradient [sp]'s U-Net shows 1e-3 from float64.)
+    The gradients themselves are held in float64 on the CPU
+    (tests/test_torch_spatial_families.py)."""
+    cfg = pretrain_config()
+    cfg["training"]["optimizer"] = _segmentation_training(
+        1e-3)["training"]["optimizer"]
+    return cfg, {k: v.to(device) for k, v in classification_batch(
+        SP_PRETRAIN_BATCH, 224, PRETRAIN_CLASSES, seed=2).items()}
+
+
+def _whole_swin_levels(bands: int) -> list:
+    """swin_224's token rows per level that run whole on *bands* bands:
+    those that do not split into bands of whole 7-row windows."""
+    return [rows for rows in (56, 28, 14, 7)
+            if rows % bands or (rows // bands) % 7]
+
+
 def parallel_references(path: Path, stages) -> None:
     """The one-process runs that [tp], [sp] and [pp] are held against, on
     this process's card (no process group, so no collective), written to
-    *path*: unet_256_train's and swin_224_train's steps, and the
-    sequential DoubleSwin stacks of each count in *stages*, in float32 and
-    bf16."""
+    *path*: unet_256_train's, swin_224_train's and [sp]'s pretraining
+    steps, and the sequential DoubleSwin stacks of each count in *stages*,
+    in float32 and bf16."""
     import torch
 
+    # the ranks do not autotune cuDNN, and the references need not: the
+    # pretraining model's autotuning took 23 s of a first step
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
     with tf32_off():
         unet, swin_cfg, unet_batch, swin_batch = _parallel_cases("cuda")
         ref = {"unet": _grid_steps(unet, unet_batch, "cuda"),
-               "swin": _grid_steps(swin_cfg, swin_batch, "cuda")}
+               "swin": _grid_steps(swin_cfg, swin_batch, "cuda"),
+               "pretrain": _grid_steps(*_pretrain_case("cuda"), "cuda")}
         for count in sorted(set(stages)):
             for dtype in (torch.float32, torch.bfloat16):
                 ref[f"pp {count} {dtype}"] = _pipeline_run(
                     "cuda", dtype, stages=count)
+    torch.backends.cudnn.benchmark = benchmark
     torch.save(ref, path)
     torch.cuda.empty_cache()
 
@@ -2752,6 +2891,40 @@ def parallel_worker(spec_path: str) -> int:
                         f"[sp] unet_256_train data x spatial {grid} "
                         f"({TRAIN_SIZE // layout[1]} of {TRAIN_SIZE} rows a "
                         f"rank):", got, ref["unet"]))
+                for mode, path in (("off", "K1"), ("on", "K2")):
+                    got = _grid_steps(swin_cfg, swin_batch, device, layout,
+                                      "spatial", fused_image=mode)
+                    ours, other = (got["launches"], got["k2_launches"]) \
+                        if path == "K1" else (got["k2_launches"],
+                                              got["launches"])
+                    if main_rank:
+                        held(f"sp swin {path} {grid}", _held(
+                            f"[sp] swin_224_train (batch {TP_SWIN_BATCH}, "
+                            f"float32, stochastic depth off) data x spatial "
+                            f"{grid} on the {path} path ({56 // layout[1]} "
+                            f"of 56 token rows a rank at level 0; token "
+                            f"rows {_whole_swin_levels(layout[1])} run "
+                            f"whole) against one process on K1:", got,
+                            ref["swin"], f"; {path} launches per rank per "
+                            f"step {ours:g}, the other kernel's {other:g}"))
+                        result[f"sp_swin_{path.lower()}_launches"] = ours
+                        if ours != 14 or other != 0:
+                            failures.append(
+                                f"[sp] swin step on {path}: {ours} launches "
+                                f"per rank per step (not 14), {other} of "
+                                f"the other kernel")
+                if 224 // 16 % layout[1] == 0:
+                    # the encoder's 14-row bottom splits over 2 bands, not
+                    # over 4
+                    got = _grid_steps(*_pretrain_case(device), device,
+                                      layout, "spatial")
+                    if main_rank:
+                        held(f"sp pretrain {grid}", _held(
+                            f"[sp] unet_encoder_224_pretrain (batch "
+                            f"{SP_PRETRAIN_BATCH}, float32) data x spatial "
+                            f"{grid} ({224 // layout[1]} of 224 rows a rank, "
+                            f"the pooled features and the head whole):",
+                            got, ref["pretrain"]))
                 for dtype, bar in ((torch.float32, PARALLEL_TOL),
                                    (torch.bfloat16, BF16_TOL)):
                     got = _pipeline_run(device, dtype, layout)
@@ -2868,10 +3041,10 @@ def main_parallel(cards: int = 4) -> int:
 
 #: [cli acdc]: a synthetic ACDC tree, ACDC_TRAIN + ACDC_TEST patients of
 #: two frames of ACDC_SHAPE each (400 training and 200 validation slices
-#: of 256 x 256 after the resize), ACDC_EPOCHS epochs and one more under
-#: --continued (cut from 3 and one more, to keep the script near 700 s
-#: beside the Swin and ResNet training phases)
-ACDC_TRAIN, ACDC_TEST, ACDC_SHAPE, ACDC_EPOCHS = 20, 10, (232, 256, 10), 2
+#: of 256 x 256 after the resize), ACDC_EPOCHS epochs in one process (the
+#: resume under --continued is [cli]'s: a process of its own took 33 s of
+#: the script's time)
+ACDC_TRAIN, ACDC_TEST, ACDC_SHAPE, ACDC_EPOCHS = 20, 10, (232, 256, 10), 3
 ACDC_CLASSES = ("RV cavity", "myocardium", "LV cavity")
 ACDC_METRICS = (MC + "DiceIndex", MC + "JaccardIndex",
                 MC + "ModifiedHausdorffDistance", MC + "AUROC")
@@ -2909,14 +3082,13 @@ def write_acdc_tree(root: Path, seed: int = 0) -> None:
                          compresslevel=1)
 
 
-def acdc_config(workdir: Path, epochs: int, absolute_path=None,
-                measured: bool = True) -> dict:
+def acdc_config(workdir: Path, epochs: int) -> dict:
     """The ACDC U-Net: the [train] U-Net at full width with a 4-channel
     softmax head (``config/downstream/acdc/unet.yaml``'s shape), batchwise
     multiclass Dice loss with the background, the multiclass Dice (with
     classwise columns), Jaccard, HD95 and AUROC, the confusion-matrix
     export, profiling and a watched val mean Dice; the rest as [cli]."""
-    cfg = cli_config(workdir, epochs, absolute_path, measured)
+    cfg = cli_config(workdir, epochs)
     cfg["meta"]["technical"]["model_evaluation"] = {
         "metric": "val_metrics/mean_dice_index", "mode": "max"}
     cfg["data"]["data"] = {"segmentation.datasets.ACDC": {
@@ -2975,8 +3147,8 @@ def _check_acdc_run(run: Path, epochs: int, module) -> list:
 
 def phase_cli_acdc(step_rate: float) -> None:
     """[cli acdc]: the ACDC multiclass U-Net through the experiment CLI in
-    a process of its own, ACDC_EPOCHS epochs and one more under
-    --continued, on a synthetic tree written with the port's save_nii."""
+    a process of its own, ACDC_EPOCHS epochs, on a synthetic tree written
+    with the port's save_nii."""
     import torch
 
     from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
@@ -3030,17 +3202,6 @@ def phase_cli_acdc(step_rate: float) -> None:
         print(f"[cli acdc] files: Confusion_matrices {matrices}, "
               f"plots/dice_indices_plot.json, profile/trace/trace.json "
               f"({trace.stat().st_size / 2 ** 20:.1f} MiB)", flush=True)
-
-        seconds = _run_cli(workdir, acdc_config(
-            workdir, ACDC_EPOCHS + 1, absolute_path=str(exp) + "/",
-            measured=False), "--continued")
-        rows = _check_acdc_run(run, ACDC_EPOCHS + 1, module)
-        check([int(r["epoch"]) for r in rows]
-              == list(range(1, ACDC_EPOCHS + 2)), "[cli acdc] resumed epochs")
-        print(f"[cli acdc] --continued: epoch {ACDC_EPOCHS + 1} in "
-              f"{seconds:.1f} s of wall time: dice_loss "
-              f"{rows[-1]['dice_loss']}, val mean Dice "
-              f"{rows[-1]['val_metrics/mean_dice_index']}", flush=True)
         del module
         torch.cuda.empty_cache()
     print(f"[cli acdc] {time.perf_counter() - t0:.1f} s", flush=True)
@@ -4610,7 +4771,7 @@ def phase_resnet_train() -> None:
 
 
 def family_cli_config(workdir: Path, family: str, epochs: int,
-                      weights: Path, absolute_path=None) -> dict:
+                      weights: Path) -> dict:
     """The experiment CLI's config of *family* ("swin": swin_224_train's
     model at stochastic depth 0.2; "resnet": the ResNet-50 attention U-Net)
     on a COVID-QU tree of FAMILY_CLI's size, bf16, its encoder from the
@@ -4630,8 +4791,6 @@ def family_cli_config(workdir: Path, family: str, epochs: int,
                  "model_evaluation": {
                      "metric": "val_metrics/dice_index_threshold_0.5",
                      "mode": "max"}}
-    if absolute_path is not None:
-        technical["absolute_path"] = absolute_path
     return {
         "experiment": {"number_of_epochs": epochs, "number_of_trials": 1},
         "meta": {"technical": technical},
@@ -4652,8 +4811,10 @@ def family_cli_config(workdir: Path, family: str, epochs: int,
 
 def phase_cli_family(workdir: Path, family: str) -> int:
     """[cli swin] / [cli resnet]: the experiment CLI in a process of its
-    own on a synthetic COVID-QU tree, two epochs and a third under
-    --continued, the encoder grafted from a reference-named state dict
+    own on a synthetic COVID-QU tree, three epochs in one process (the
+    resume under --continued is [cli]'s, [cli acdc]'s and the CPU tests'
+    of both families: a process of its own took 25 s each of the script's
+    time), the encoder grafted from a reference-named state dict
     written here (an encoder of the config's own random init); the run
     files, the logs, the val Dice rising, the train Dice loss falling
     CLI_LOSS_FACTOR times over the three epochs.  For the
@@ -4685,24 +4846,16 @@ def phase_cli_family(workdir: Path, family: str) -> int:
                model.module.state_dict().items() if k.startswith("enc.")}
     ckpt.save_params_file(str(workdir / "encoder.pt"), reference_names(
         encoder, family))
-    seconds = []
-    for epochs, flags in ((2, ()), (3, ("--continued",))):
-        runs = list((workdir / "logs").glob("*/Experiment/run_1"))
-        cfg = family_cli_config(
-            workdir, family, epochs, workdir / "encoder.pt",
-            absolute_path=str(runs[0].parent) + "/" if runs else None)
-        wall, out = _cli_process(workdir, cfg, *flags)
-        marks = [m for m in ENVELOPE_MARKS + ("Unmapped", "Missing keys",
-                                              "Unexpected keys")
-                 if m in out.stderr]
-        # the --continued run resumes from the run's own weights
-        grafted = bool(flags) or \
-            "Successfully initialised encoder from" in out.stdout
-        check(out.returncode == 0 and not marks and grafted,
-              f"[{tag}] {' '.join(out.args[3:])}: exit {out.returncode}, "
-              f"marks {marks}; stdout tail:\n{out.stdout[-2000:]}\nstderr "
-              f"tail:\n{out.stderr[-4000:]}")
-        seconds.append(wall)
+    wall, out = _cli_process(workdir, family_cli_config(
+        workdir, family, 3, workdir / "encoder.pt"))
+    marks = [m for m in ENVELOPE_MARKS + ("Unmapped", "Missing keys",
+                                          "Unexpected keys")
+             if m in out.stderr]
+    check(out.returncode == 0 and not marks
+          and "Successfully initialised encoder from" in out.stdout,
+          f"[{tag}] {' '.join(out.args[3:])}: exit {out.returncode}, "
+          f"marks {marks}; stdout tail:\n{out.stdout[-2000:]}\nstderr "
+          f"tail:\n{out.stderr[-4000:]}")
     (run,) = (workdir / "logs").glob("*/Experiment/run_1")
     rows = _csv_rows(run / "epoch_logs.csv")
     steps = images // batch
@@ -4755,8 +4908,8 @@ def phase_cli_family(workdir: Path, family: str) -> int:
               f"[{tag}] validation pass: {launches} K1 launches (want "
               f"{SWIN_BLOCKS}), {values}")
     print(f"[{tag}] {images} + {test} images of {size}x{size}, batch "
-          f"{batch}: 2 epochs {seconds[0]:.1f} s, the 3rd under --continued"
-          f" {seconds[1]:.1f} s; encoder grafted from a reference-named "
+          f"{batch}: 3 epochs {wall:.1f} s; encoder grafted from a "
+          f"reference-named "
           f"state dict with no unmapped, unused or missing key; val Dice "
           f"{[round(d, 4) for d in dice]}, train Dice loss "
           f"{[round(v, 4) for v in loss]}"
@@ -4791,12 +4944,12 @@ MIXED_IMAGES = 64
 #: stride IDRID_STRIDE (val: at the crop size), darkness threshold 0.99;
 #: RandomPick crops of IDRID_PICK (the shipped config's 448 -> 224), val
 #: Partition (2, 2).  The [cli] U-Net in bf16, batch CLI_BATCH, SGD at
-#: IDRID_LR (12 steps an epoch), the COVID-QU metric set; 2 epochs, then a
-#: 3rd under --continued
+#: IDRID_LR (12 steps an epoch), the COVID-QU metric set; IDRID_EPOCHS
+#: epochs in one process
 IDRID_TRAIN, IDRID_TEST, IDRID_SOURCE = 12, 6, (2848, 4288)
 IDRID_DISC, IDRID_SPOTS = 1100, 60
 IDRID_BASE, IDRID_CROP, IDRID_STRIDE, IDRID_PICK = (1024, 2048), 448, 256, 224
-IDRID_LR, IDRID_EPOCHS = 0.05, 2
+IDRID_LR, IDRID_EPOCHS = 0.05, 3
 #: epoch_logs.csv's columns of a one-task run with the Dice loss and the
 #: COVID-QU metric set, the JAX CLI's (tests/test_torch_idrid.py)
 IDRID_EPOCH_COLUMNS = {
@@ -5025,12 +5178,11 @@ def write_idrid_tree(root: Path, seed: int = 0) -> None:
             idx += 1
 
 
-def idrid_config(workdir: Path, epochs: int, absolute_path=None,
-                 measured: bool = True) -> dict:
+def idrid_config(workdir: Path, epochs: int) -> dict:
     """[cli idrid]'s config: the IDRiD reader (the MA task) and its
     transforms in place of [cli]'s COVID-QU reader, the COVID-QU metric
     set, SGD at IDRID_LR, no cuDNN autotuning."""
-    cfg = cli_config(workdir, epochs, absolute_path, measured)
+    cfg = cli_config(workdir, epochs)
     cfg["data"] = {
         "data": {"segmentation.datasets.IDRiD": {
             "task": "MA", "base_image_sizes": IDRID_BASE,
@@ -5138,7 +5290,9 @@ def _idrid_host_assembly(workdir: Path, dataset) -> float:
 def phase_cli_idrid(workdir: Path, step_rate: float) -> None:
     """[cli idrid]: the paper's IDRiD U-Net through the experiment CLI in a
     process of its own on a synthetic tree at the real image size,
-    IDRID_EPOCHS epochs and one more under --continued: exit 0 with
+    IDRID_EPOCHS epochs in one process (the resume under --continued
+    is [cli]'s and [cli acdc]'s: a process of its own re-read the images
+    in 43 s of the script's time): exit 0 with
     nothing through the error envelope, the batches the reader's crop
     count gives, the JAX CLI's columns, ``.pt`` files that load, the train
     Dice loss falling and the val Dice finite and rising; the reader's
@@ -5193,50 +5347,40 @@ def phase_cli_idrid(workdir: Path, step_rate: float) -> None:
     cd.expand()
     registry.fill_spec(cd, "model")
     module = registry.build(cd, key="model", wrapper=Model).module
-    seconds, peaks = [], None
-    for epochs, flags in ((IDRID_EPOCHS, ()),
-                          (IDRID_EPOCHS + 1, ("--continued",))):
-        runs = list((workdir / "logs").glob("*/Experiment"))
-        cfg = idrid_config(workdir, epochs, absolute_path=str(runs[0]) + "/"
-                           if runs else None, measured=not flags)
-        wall, out = _cli_process(workdir, cfg, *flags,
-                                 launcher=_PEAKS_LAUNCHER if not flags
-                                 else None)
-        marks = [m for m in ENVELOPE_MARKS if m in out.stderr]
-        check(out.returncode == 0 and not marks,
-              f"[cli idrid] {' '.join(flags) or 'first run'}: exit "
-              f"{out.returncode}, envelope marks {marks}; stderr tail:\n"
-              f"{out.stderr[-4000:]}")
-        if not flags:
-            found = re.findall(r"\[peaks\] (\d+) (\d+)", out.stderr)
-            check(bool(found), "[cli idrid] the run reported no peaks")
-            peaks = [int(v) for v in found[-1]]
-        seconds.append(wall)
-        (run,) = (workdir / "logs").glob("*/Experiment/run_1")
-        rows = _csv_rows(run / "epoch_logs.csv")
-        check(len(rows) == epochs and set(rows[0]) == IDRID_EPOCH_COLUMNS
-              and len(_csv_rows(run / "batch_logs.csv")) == steps * epochs
-              and all(math.isfinite(float(v)) for r in rows
-                      for v in r.values()),
-              f"[cli idrid] {len(rows)} epoch rows (want {epochs}), "
-              f"{len(_csv_rows(run / 'batch_logs.csv'))} batch rows (want "
-              f"{steps} per epoch), columns "
-              f"{sorted(rows[0]) if rows else None}: {rows}")
+    epochs = IDRID_EPOCHS
+    wall, out = _cli_process(workdir, idrid_config(workdir, epochs),
+                             launcher=_PEAKS_LAUNCHER)
+    marks = [m for m in ENVELOPE_MARKS if m in out.stderr]
+    check(out.returncode == 0 and not marks,
+          f"[cli idrid] exit {out.returncode}, envelope marks {marks}; "
+          f"stderr tail:\n{out.stderr[-4000:]}")
+    found = re.findall(r"\[peaks\] (\d+) (\d+)", out.stderr)
+    check(bool(found), "[cli idrid] the run reported no peaks")
+    peaks = [int(v) for v in found[-1]]
+    (run,) = (workdir / "logs").glob("*/Experiment/run_1")
+    rows = _csv_rows(run / "epoch_logs.csv")
+    check(len(rows) == epochs and set(rows[0]) == IDRID_EPOCH_COLUMNS
+          and len(_csv_rows(run / "batch_logs.csv")) == steps * epochs
+          and all(math.isfinite(float(v)) for r in rows
+                  for v in r.values()),
+          f"[cli idrid] {len(rows)} epoch rows (want {epochs}), "
+          f"{len(_csv_rows(run / 'batch_logs.csv'))} batch rows (want "
+          f"{steps} per epoch), columns "
+          f"{sorted(rows[0]) if rows else None}: {rows}")
     for name in ("last_model_state_dict.pt", "best_model_state_dict.pt"):
         module.load_state_dict(ckpt.load_params_file(run / name))
     saved = ckpt.load_state_file(run / "optimizer_state_dict.pt")
-    check(saved["step"] == steps * (IDRID_EPOCHS + 1)
+    check(saved["step"] == steps * IDRID_EPOCHS
           and ckpt.load_params_file(run / "checkpoint_epoch.pt")
-          == {"epoch": IDRID_EPOCHS + 1},
+          == {"epoch": IDRID_EPOCHS},
           f"[cli idrid] optimizer step {saved['step']}")
     loss = [float(r["dice_loss"]) for r in rows]
     dice = [float(r["val_metrics/dice_index_threshold_0.5"]) for r in rows]
     check(loss[-1] < loss[0] and dice[-1] > dice[0],
           f"[cli idrid] train Dice loss {loss} falling, val Dice {dice} "
           f"rising")
-    print(f"[cli idrid] {IDRID_EPOCHS} epochs in {seconds[0]:.1f} s of wall "
-          f"time (process and reading included), the "
-          f"{IDRID_EPOCHS + 1}rd under --continued {seconds[1]:.1f} s; "
+    print(f"[cli idrid] {epochs} epochs in {wall:.1f} s of wall time "
+          f"(process and reading included); "
           f"{steps} steps of {CLI_BATCH} an epoch; train Dice loss "
           f"{[round(v, 4) for v in loss]}, val Dice "
           f"{[round(v, 4) for v in dice]}, val HD95 "
@@ -5252,7 +5396,7 @@ def phase_cli_idrid(workdir: Path, step_rate: float) -> None:
               f"{step_rate:.1f} step-only images/s at 256x256), val "
               f"{float(row['val_s']):.3f} s, checkpoints "
               f"{float(row['ckpt_s']):.3f} s; {card}", flush=True)
-    print(f"[cli idrid] the first run's process: peak device memory "
+    print(f"[cli idrid] the run's process: peak device memory "
           f"{peaks[0] / 2 ** 30:.2f} GiB, peak host memory "
           f"{peaks[1] / 2 ** 20:.2f} GiB; {card}", flush=True)
     del module
@@ -5277,7 +5421,7 @@ def main() -> int:
 
     timed("build", phase_build)
     k1, k1_bound_by, k1_err = timed("k1", phase_k1)
-    k2, k2_bound_by, k2_err = timed("k2", phase_k2)
+    k2, k2_bound_by, k2_err, k2_bands = timed("k2", phase_k2)
     with tempfile.TemporaryDirectory() as tmp:
         timed("small", phase_small_vs_cpu)
         k1_launches, k2_launches = timed("serve", phase_serve, Path(tmp))
@@ -5361,8 +5505,16 @@ def main() -> int:
         # column-parallel over two ranks; [pp]: per pipeline tick of two
         # DoubleSwin stages (one per Swin block)
         "tp_swin_train_launches": par["tp_swin_train_launches"],
-        "pp_launches_per_tick": par["pp_launches_per_tick"]})
-    kernels[1]["swin_train_launches"] = swin_train["k2_launches"]
+        "pp_launches_per_tick": par["pp_launches_per_tick"],
+        # [sp]: per rank per swin_224_train step on two bands of rows
+        "sp_swin_train_launches": par["sp_swin_k1_launches"]})
+    kernels[1].update({
+        "swin_train_launches": swin_train["k2_launches"],
+        "sp_swin_train_launches": par["sp_swin_k2_launches"],
+        # [k2 band]: the instances on bands of rows (swin_224_train's
+        # level 0 at batch 8 on 2 and 4 bands, SW-MSA with the last band's
+        # mask rows) beside the square one at that batch, each dtype
+        "bands": k2_bands})
     # [export]: launches in one forward (batch 24) of the loaded artifact,
     # K1's on the windows layout, K2's under set_fused_image_mode("on"),
     # with the operator nodes of its graph

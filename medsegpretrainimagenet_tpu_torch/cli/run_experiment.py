@@ -606,18 +606,13 @@ def run_exp(train_data, val_data, test_data, destination: str,
     model = registry.build(config_dict, key="model", wrapper=Model)
     model_dict = config_dict["model"].value()
     inner, factor = _model_factor(tech)
-    if inner == "spatial":
-        check_supported(model.module)
     # the JAX package draws one batch here to initialise its parameters
     # from the batch's shapes; the draw advances the loader's and the
     # transforms' generators, so the port draws it as well and both
     # packages' epochs see the same batches
     first = next(iter(train_data))
-    if inner == "spatial" and np.shape(first["x"])[1] % factor:
-        raise ValueError(
-            f"meta/technical/spatial_sharding: {factor} does not divide the "
-            f"image height {np.shape(first['x'])[1]} (H must divide by the "
-            f"factor)")
+    if inner == "spatial":
+        check_supported(model.module, np.shape(first["x"])[1], factor)
     model.init(curr_seed)
 
     if continued:

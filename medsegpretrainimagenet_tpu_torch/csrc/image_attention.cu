@@ -8,10 +8,14 @@
 //
 // where q, k and v are channels h*D, C + h*D and 2C + h*D of qkv at the
 // window's pixels: token t = a * w + c of window (i, j) is pixel
-// (i * w + a, j * w + c).  qkv: (B, R, R, 3C) contiguous, bf16 or float32;
-// out: (B, R, R, C) of the same type; bias: (H, N, N) float32; mask:
-// (nWc * nWc, N, N) float32 or absent, with nWc = R / w and N = w * w.
-// N <= 64 and D = C / H <= 64.
+// (i * w + a, j * w + c).  qkv: (B, Rh, Rw, 3C) contiguous, bf16 or
+// float32; out: (B, Rh, Rw, C) of the same type; bias: (H, N, N) float32;
+// mask: (nWr * nWc, N, N) float32 or absent, with nWr = Rh / w, nWc = Rw / w
+// and N = w * w.  N <= 64 and D = C / H <= 64.  The image is a rectangle:
+// under spatial sharding each process holds a band of Rh = Rw / S rows of
+// a square image, with the rows of the global shift mask that its windows
+// take (mask row i * nWc + j is the row-major window index, so a band's
+// rows are one contiguous slice of them).
 //
 // Replaces medsegpretrainimagenet_tpu/ops/window_attention.py:
 // _pallas_image_attention (the Pallas TPU kernel, body _pallas_image_kernel),
@@ -22,7 +26,7 @@
 // counterpart: a block computes its own offsets.
 //
 // What bounds it on the H100: device-memory bytes.  The call must read qkv
-// and write out, (3C + C) * B*R*R * itemsize bytes, for 2 * 2*B*nW*H*N*N*D
+// and write out, (3C + C) * B*Rh*Rw * itemsize bytes, for 2 * 2*B*nW*H*N*N*D
 // operations: at N = 49, D = 32 that is about 24 FLOP per byte in bf16 and
 // 12 in float32, far under the card's ridges (window_attention.cu).  It
 // moves no more than those bytes, where the windows-layout path
@@ -38,7 +42,7 @@
 //   2C + h*D of its pixel, 16-byte cp.async per operand per token (D/8 in
 //   bf16, D/4 in float32), and its output a run at h*D of the same pixel of
 //   out, stored with 16-byte writes;
-// - a block keeps a table of its window's token offsets (a*R + c pixels
+// - a block keeps a table of its window's token offsets (a*Rw + c pixels
 //   from the window's corner) in shared memory, so the loads do no
 //   division but by the compile-time D padded to 16;
 // - a block takes one head: the whole window of all heads would not fit in
@@ -77,7 +81,7 @@ constexpr int kMaxD = 64;
 using tile::bf16;
 
 // Pair t of a block is head h of window (wi, wj) of image img0 + t.  Its
-// token i lies tok[i] = a * R + c pixels (i = a * w + c) from the window's
+// token i lies tok[i] = a * Rw + c pixels (i = a * w + c) from the window's
 // top-left pixel; q, k and v are D channels at h*D, C + h*D and 2C + h*D
 // of each pixel of qkv, out D channels at h*D of each pixel of out.
 template <class T>
@@ -86,11 +90,13 @@ struct ImageLayout {
   const T *q, *k, *v;  // qkv + h*D, + C, + 2C
   T* out;              // out + h*D
   const int* tok;      // n token offsets, in shared memory
-  int img0, res, w, wi, wj;
+  int img0, rows, cols, w, wi, wj;
   size_t c3, channels;  // elements from a pixel to the next: qkv, out
 
+  // the window's top-left pixel: row wi * w of image img0 + t, rows of
+  // cols pixels
   __device__ size_t corner(int t) const {
-    return (static_cast<size_t>(img0 + t) * res + wi * w) * res + wj * w;
+    return (static_cast<size_t>(img0 + t) * rows + wi * w) * cols + wj * w;
   }
   __device__ size_t src(int t) const { return corner(t) * c3; }
   __device__ size_t src_token(int i) const { return tok[i] * c3; }
@@ -101,24 +107,25 @@ struct ImageLayout {
 template <class T, int DP>
 __global__ void __launch_bounds__(tile::kThreads)
 image_attention(const T* __restrict__ qkv, const float* __restrict__ bias,
-                const float* __restrict__ mask, T* __restrict__ out, int res,
-                int channels, int heads, int w, int images, float scale,
-                int vec, int per) {
+                const float* __restrict__ mask, T* __restrict__ out,
+                int rows, int cols, int channels, int heads, int w,
+                int images, float scale, int vec, int per) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
   const int n = w * w;
   const int d = channels / heads;
-  const int n_wc = res / w;
-  // group w of block_pairs is the window i * nWc + j of the grid
-  const tile::Pairs p = tile::block_pairs(heads, n_wc * n_wc, per, images);
+  const int n_wc = cols / w;
+  // group w of block_pairs is the window i * nWc + j of the nWr x nWc grid
+  const tile::Pairs p =
+      tile::block_pairs(heads, (rows / w) * n_wc, per, images);
   int* tok = reinterpret_cast<int*>(
       tile_smem + tile::smem_bytes<T, DP>(n, mask != nullptr));
   for (int t = threadIdx.x; t < n; t += tile::kThreads) {
     const int a = t / w;
-    tok[t] = a * res + (t - a * w);  // attend_pairs syncs before reading it
+    tok[t] = a * cols + (t - a * w);  // attend_pairs syncs before reading it
   }
   const T* q = qkv + p.h * d;
   const ImageLayout<T> at{q, q + channels, q + 2 * channels, out + p.h * d,
-                          tok, p.img0, res, w, p.w / n_wc, p.w % n_wc,
+                          tok, p.img0, rows, cols, w, p.w / n_wc, p.w % n_wc,
                           3 * static_cast<size_t>(channels),
                           static_cast<size_t>(channels)};
   tile::attend_pairs<DP>(
@@ -128,20 +135,22 @@ image_attention(const T* __restrict__ qkv, const float* __restrict__ bias,
 }
 
 // the shapes the kernel takes
-bool takes(int batch, int res, int channels, int heads, int window) {
-  return batch >= 1 && window >= 1 && res >= window && res % window == 0 &&
-         heads >= 1 && channels % heads == 0 && window * window <= kMaxN &&
+bool takes(int batch, int rows, int cols, int channels, int heads,
+           int window) {
+  return batch >= 1 && window >= 1 && rows >= window && rows % window == 0 &&
+         cols >= window && cols % window == 0 && heads >= 1 && channels % heads == 0 && window * window <= kMaxN &&
          channels / heads >= 1 && channels / heads <= kMaxD;
 }
 
 template <class T>
 int forward(const void* qkv, const void* bias, const void* mask, void* out,
-            int batch, int res, int channels, int heads, int window,
-            float scale, void* stream) {
-  if (!takes(batch, res, channels, heads, window))
+            int batch, int rows, int cols, int channels, int heads,
+            int window, float scale, void* stream) {
+  if (!takes(batch, rows, cols, channels, heads, window))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n = window * window;
-  const long long n_w = static_cast<long long>(res / window) * (res / window);
+  const long long n_w =
+      static_cast<long long>(rows / window) * (cols / window);
   const uintptr_t addresses =
       reinterpret_cast<uintptr_t>(qkv) | reinterpret_cast<uintptr_t>(out);
   const int vec =
@@ -153,8 +162,8 @@ int forward(const void* qkv, const void* bias, const void* mask, void* out,
         tile::smem_bytes<T, DP>(n, mask != nullptr) + sizeof(int) * n,
         n_w * heads, batch, stream, static_cast<const T*>(qkv),
         static_cast<const float*>(bias), static_cast<const float*>(mask),
-        static_cast<T*>(out), res, channels, heads, window, batch, scale,
-        vec);
+        static_cast<T*>(out), rows, cols, channels, heads, window, batch,
+        scale, vec);
   });
 }
 
@@ -165,18 +174,18 @@ int forward(const void* qkv, const void* bias, const void* mask, void* out,
 // cudaGetLastError() after the launch: 0 on success.
 extern "C" int image_attention_fwd_bf16(const void* qkv, const void* bias,
                                         const void* mask, void* out,
-                                        int batch, int res, int channels,
-                                        int heads, int window, float scale,
-                                        void* stream) {
-  return forward<bf16>(qkv, bias, mask, out, batch, res, channels, heads,
-                       window, scale, stream);
+                                        int batch, int rows, int cols,
+                                        int channels, int heads, int window,
+                                        float scale, void* stream) {
+  return forward<bf16>(qkv, bias, mask, out, batch, rows, cols, channels,
+                       heads, window, scale, stream);
 }
 
 extern "C" int image_attention_fwd_f32(const void* qkv, const void* bias,
                                        const void* mask, void* out, int batch,
-                                       int res, int channels, int heads,
-                                       int window, float scale,
+                                       int rows, int cols, int channels,
+                                       int heads, int window, float scale,
                                        void* stream) {
-  return forward<float>(qkv, bias, mask, out, batch, res, channels, heads,
-                        window, scale, stream);
+  return forward<float>(qkv, bias, mask, out, batch, rows, cols, channels,
+                        heads, window, scale, stream);
 }

@@ -238,12 +238,13 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     """flax ``nn.Dropout``: keep each element with probability 1 - rate and
     scale the kept ones by 1 / (1 - rate); the identity at eval or rate 0.
     The mask has *shape* (default x's), broadcast over x, and is drawn from
-    *generator*."""
+    *generator*; on a band of rows (spatial sharding) at the whole image's
+    shape, of which the band keeps its part (``spatial.draw_uniform``:
+    dim 1 holds the rows, or tokens or windows in row-major order)."""
     if rate == 0.0 or not training:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(tuple(shape or x.shape), device=x.device,
-                      generator=generator) < keep
+    mask = spatial.draw_uniform(shape or x.shape, generator, x.device) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -429,8 +430,14 @@ class AdaptiveAvgPool2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.ndim == 4 and self.output_size in (1, (1, 1), [1, 1]):
-            return x.mean(dim=(1, 2), keepdim=True)
+            return spatial.mean_rows(x, (1, 2))
         out_h, out_w = _pair(self.output_size)
+        if spatial.bands() is not None:
+            # on a band of rows (spatial sharding): the mean over the rows
+            # is the bands' sums, summed; bins that cross the bands take
+            # the whole image first.  Either way what follows runs whole
+            x = spatial.mean_rows(x, (1,)) if out_h == 1 \
+                else spatial.to_whole(x)
         return _adaptive_pool_axis(_adaptive_pool_axis(x, 1, out_h), 2, out_w)
 
 

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import register
+from ..parallel import spatial
 from .blocks import BatchNorm, Conv, Dense, Stochastic, max_pool
 
 __all__ = ["DeepResNet", "BasicResBlock", "BottleneckResBlock", "drop_path"]
@@ -199,7 +200,8 @@ class DeepResNet(nn.Module):
         if self.head:
             if self.version == "v2":
                 y = F.relu(self.head_bn(y))
-            y = self.head_dense(y.mean(dim=(1, 2)))
+            # the image's mean, over the bands under spatial sharding
+            y = self.head_dense(spatial.mean_rows(y, (1, 2), keepdim=False))
         if return_skip_vals:
             return y, skip_values[:-1]
         return y

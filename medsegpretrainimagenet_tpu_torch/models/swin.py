@@ -25,6 +25,14 @@ the plain version
 (the kernel has no dropout).  Every draw (dropout, attention dropout,
 stochastic depth) comes from the module's ``generator``, which the train
 step sets (``blocks.Stochastic``).
+
+Under spatial sharding (``parallel.spatial``) a token sequence is a band of
+``rows = cols / S`` rows of the square grid (``spatial.token_grid``): the
+patch merge and expands and the blocks read that grid, a block's cyclic
+shift crosses the bands along the height (``spatial.roll_rows``), and its
+shift mask is cut to the band's windows.  A block whose windows do not lie
+inside the bands (``fits_bands``) runs on the whole image, which the U-Net
+gathers before its level (``models.unet``).
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import torch
 from torch import nn
 
 from ..config import register
+from ..parallel import spatial
 from ..ops import (fused_image_window_attention, use_fused_image,
                    window_attention_core)
 from ..ops.window_attention import _logits
@@ -68,13 +77,6 @@ def window_reverse(windows: torch.Tensor, window_size: int,
     return x.permute(0, 1, 3, 2, 4, 5).reshape(b, h, w, -1)
 
 
-def _tokens_hw(length: int) -> int:
-    side = int(round(math.sqrt(length)))
-    if side * side != length:
-        raise ValueError(f"non-square token count {length}")
-    return side
-
-
 @register("segmentation.models.blocks.PatchEmbed", "patch_embed")
 class PatchEmbed(B.Stochastic, nn.Module):
     """Conv stride=patch -> (B, L, C) tokens -> LN -> dropout."""
@@ -87,7 +89,7 @@ class PatchEmbed(B.Stochastic, nn.Module):
                  patch_size: int = 4, bias: bool = True, dilation: int = 1,
                  groups: int = 1, drop_rate: float = 0.0):
         super().__init__()
-        self.drop_rate = drop_rate
+        self.drop_rate, self.patch_size = drop_rate, patch_size
         self.Conv_0 = B.Conv(in_channels, out_channels, patch_size,
                              stride=patch_size, use_bias=bias,
                              dilation=dilation, groups=groups)
@@ -118,8 +120,7 @@ class PatchMerging(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, length, c = x.shape
-        side = _tokens_hw(length)
-        x = x.reshape(b, side, side, c)
+        x = x.reshape(b, *spatial.token_grid(length), c)
         x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2],
                        x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1)
         x = x.reshape(b, -1, 4 * c)
@@ -149,12 +150,12 @@ class PatchExpand(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, length, _ = x.shape
-        side = _tokens_hw(length)
+        rows, cols = spatial.token_grid(length)
         if self.dim_scale == 2:
             x = self.Dense_0(x)
         c_out = x.shape[-1] // 4
         # b (h w) (p1 p2 c) -> b (h p1 w p2) c
-        x = x.reshape(b, side, side, 2, 2, c_out)
+        x = x.reshape(b, rows, cols, 2, 2, c_out)
         x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, 4 * length, c_out)
         return self.LayerNorm_0(x)
 
@@ -179,11 +180,11 @@ class FinalPatchExpand_X4(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.dim_scale
         b, length, c = x.shape
-        side = _tokens_hw(length)
+        rows, cols = spatial.token_grid(length)
         x = self.Dense_0(self.LayerNorm_0(x))
-        x = x.reshape(b, side, side, s, s, c)
-        x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, s * side * s * side, c)
-        x = self.LayerNorm_1(x).reshape(b, s * side, s * side, c)
+        x = x.reshape(b, rows, cols, s, s, c)
+        x = x.permute(0, 1, 3, 2, 4, 5).reshape(b, s * rows * s * cols, c)
+        x = self.LayerNorm_1(x).reshape(b, s * rows, s * cols, c)
         return self.Conv_0(x)
 
 
@@ -266,8 +267,22 @@ class WindowAttention(B.Stochastic, nn.Module):
     def _scale(self, head_dim: int) -> float:
         return self.qk_scale or head_dim ** -0.5
 
+    def _dropout(self, x: torch.Tensor, rate: float,
+                 windows: Optional[int]) -> torch.Tensor:
+        """Dropout on a windows-layout tensor: its dim 0 read as (batch,
+        *windows* an image), so that on a band of rows the mask is drawn at
+        the whole image's windows and cut to the band's
+        (``spatial.draw_uniform``)."""
+        if not windows:
+            return B.dropout(x, rate, self.training, self.generator)
+        return B.dropout(x.reshape(-1, windows, *x.shape[1:]), rate,
+                         self.training, self.generator).reshape(x.shape)
+
     def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None,
+                windows: Optional[int] = None) -> torch.Tensor:
+        """*x*: (B_, N, C) windows, B_ = batch * *windows* (the windows of
+        an image, or of a band of rows; needed for the draws on a band)."""
         b_, n, c = x.shape
         heads = self.num_heads
         head_dim = c // heads
@@ -281,22 +296,22 @@ class WindowAttention(B.Stochastic, nn.Module):
             # dropout on the softmaxed probabilities, which the kernel
             # cannot do: attention-dropout training takes the plain path
             probs = torch.softmax(_logits(q, k, bias, mask, scale), dim=-1)
-            probs = B.dropout(probs, self.attn_drop, True, self.generator)
+            probs = self._dropout(probs, self.attn_drop, windows)
             x = torch.matmul(probs.to(v.dtype).float(), v.float()) \
                 .to(v.dtype)
         else:
             x = window_attention_core(q, k, v, bias, mask, scale,
                                       train=self.training)
         x = x.transpose(1, 2).reshape(b_, n, c)
-        return B.dropout(self.proj(x), self.proj_drop, self.training,
-                         self.generator)
+        return self._dropout(self.proj(x), self.proj_drop, windows)
 
     def attend_image(self, x: torch.Tensor,
                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Image-layout forward: (B, R, R, C) -> (B, R, R, C).  The qkv and
-        proj projections are pointwise over tokens, so they apply in image
-        layout; what lies between them is one kernel.  The same parameters
-        and the same values as :meth:`forward` on partitioned windows."""
+        """Image-layout forward: (B, Rh, Rw, C) -> (B, Rh, Rw, C), a square
+        image or a band of its rows.  The qkv and proj projections are
+        pointwise over tokens, so they apply in image layout; what lies
+        between them is one kernel.  The same parameters and the same
+        values as :meth:`forward` on partitioned windows."""
         c = x.shape[-1]
         out = fused_image_window_attention(
             self.qkv(x), self._bias(), mask, self._scale(c // self.num_heads),
@@ -404,30 +419,44 @@ class SwinTransformerBlock(B.Stochastic, nn.Module):
             window, shift = resolution, 0
         return level, resolution, window, shift
 
+    def fits_bands(self, size: int) -> bool:
+        """Do this block's windows lie inside *size* bands of rows (spatial
+        sharding)?  Each band must hold a whole number of window rows; a
+        level of one window never splits."""
+        return self.resolution % size == 0 \
+            and (self.resolution // size) % self.window == 0
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         resolution, window, shift = self.resolution, self.window, self.shift
         b, length, c = x.shape
-        if length != resolution * resolution:
+        rows, cols = spatial.token_grid(length)
+        if cols != resolution:
             raise ValueError(f"wrong token count L={length} for resolution "
                              f"{resolution}")
+        # on a band of rows: the band's windows of the shift mask (window
+        # i * nWc + j of the grid is mask row i * nWc + j)
+        mask = self.attn_mask if self.attn_mask is None \
+            else spatial.band_part(self.attn_mask)
 
         shortcut = x
-        x = self.norm1(x).reshape(b, resolution, resolution, c)
+        x = self.norm1(x).reshape(b, rows, cols, c)
         if shift > 0:
-            x = torch.roll(x, (-shift, -shift), dims=(1, 2))
+            x = torch.roll(spatial.roll_rows(x, -shift), -shift, dims=2)
         if use_fused_image(self.training, B.compute_dtype() or torch.float32,
                            x.device) \
                 and not (self.attn.attn_drop and self.training):
             # image-layout path: the cyclic shift stays outside the kernel
-            x = self.attn.attend_image(x, mask=self.attn_mask)
+            x = self.attn.attend_image(x, mask=mask)
         else:
             windows = window_partition(x, window).reshape(
                 -1, window * window, c)
-            attn_windows = self.attn(windows, mask=self.attn_mask)
+            attn_windows = self.attn(
+                windows, mask=mask,
+                windows=(rows // window) * (cols // window))
             attn_windows = attn_windows.reshape(-1, window, window, c)
-            x = window_reverse(attn_windows, window, resolution, resolution)
+            x = window_reverse(attn_windows, window, rows, cols)
         if shift > 0:
-            x = torch.roll(x, (shift, shift), dims=(1, 2))
+            x = torch.roll(spatial.roll_rows(x, shift), shift, dims=2)
         x = x.reshape(b, length, c)
 
         rate, training = self.stochastic_depth_rate, self.training

@@ -10,6 +10,15 @@ attention U-Net is this U-Net with an external encoder
 sequences.  A basic block may carry a residual shortcut
 (:class:`blocks.ResConnection`), a layer scale and, on the residual
 branch, stochastic depth drawn from the train step's generator.
+
+Under spatial sharding (``parallel.spatial``) the levels run on bands of
+rows, but a level whose blocks do not fit the bands (a Swin level whose
+rows do not split into bands of whole windows, such as the bottleneck)
+runs on the whole image on every member: the encoder gathers the rows
+before it (before its downsampling, which already takes the whole image),
+and the decoder takes the band's rows back after the upsampling into the
+first level that fits again (or after the final block).  Whole levels only
+lie below banded ones: a level that fits has a parent that fits.
 """
 from __future__ import annotations
 
@@ -21,6 +30,7 @@ from torch import nn
 
 from ..config import ConfigDict, register
 from ..config.registry import fill_spec, get_kwargs, resolve
+from ..parallel import spatial
 from . import blocks as B
 from .activations import make_activation
 
@@ -100,6 +110,14 @@ class _ResidualLevels(B.Stochastic):
         if layer_scaling is not False:
             scales.append(B.LayerScale(n_channels=cout,
                                        init_value=float(layer_scaling)))
+
+    @staticmethod
+    def _whole_unless_fits(x, level):
+        """*x* whole on every member (``spatial.to_whole``) when it lies on
+        bands of rows that *level*'s blocks do not fit."""
+        if spatial.bands() is not None and not spatial.fits(level):
+            return spatial.to_whole(x)
+        return x
 
     def _run_block(self, x, conv, scales, shortcuts, j, prob):
         y = conv(x)
@@ -226,13 +244,18 @@ class UNetEncoder(_ResidualLevels, nn.Module):
         skip_values = []
         x = self.stem_block(x)
         for i in range(self.depth):
+            x = self._whole_unless_fits(x, self.level_convs[i])
             for j, conv in enumerate(self.level_convs[i]):
                 x = self._run_block(x, conv, self.level_scales[i],
                                     self.level_shortcuts[i], j,
                                     self._down_probs[i][j])
             skip_values.append(x)
             if not self._integrated_downsample:
+                x = self._whole_unless_fits(
+                    x, self.level_convs[i + 1] if i + 1 < self.depth
+                    else self.bottom_convs)
                 x = self.downsamples[i](x)
+        x = self._whole_unless_fits(x, self.bottom_convs)
         for j, conv in enumerate(self.bottom_convs):
             x = self._run_block(x, conv, self.bottom_scales,
                                 self.bottom_shortcuts, j,
@@ -314,6 +337,8 @@ class UNetDecoder(_ResidualLevels, nn.Module):
         skip_values = list(skip_values)
         for i in range(self.depth):
             x_up = self.upsamples[i](x)
+            if spatial.whole() and spatial.fits(self.level_convs[i]):
+                x_up = spatial.to_bands(x_up)
             if i < self._skip_con_nr:
                 x = self.mixings[i](x, x_up, skip_values.pop())
             else:
@@ -322,7 +347,7 @@ class UNetDecoder(_ResidualLevels, nn.Module):
                 x = self._run_block(x, conv, self.level_scales[i],
                                     self.level_shortcuts[i], j,
                                     self._up_probs[i][j])
-        return self.final(x)
+        return spatial.to_bands(self.final(x))
 
 
 def _is_identity(cfg) -> bool:

@@ -27,8 +27,10 @@ head merge and window reverse in one kernel, ``csrc/image_attention.cu``
 blocks onto it, as in the JAX package; it is off by default.
 
 ``fused_image_window_attention(qkv, bias, mask, scale, window)``:
-  qkv: (B, R, R, 3C)   bias: (H, N, N)   mask: ((R/w)^2, N, N) or None,
-  with N = window^2.  Returns (B, R, R, C).
+  qkv: (B, Rh, Rw, 3C)   bias: (H, N, N)   mask: ((Rh/w)(Rw/w), N, N) or
+  None, with N = window^2.  Returns (B, Rh, Rw, C).  The image is a square
+  (Rh = Rw) but for a band of rows under spatial sharding, which passes the
+  rows of the global mask that its windows take.
 """
 from __future__ import annotations
 
@@ -72,7 +74,12 @@ def _logits(q, k, bias, mask, scale):
     # multiply exactly in float32, like preferred_element_type=float32
     qs = q * _rounded(scale, q.dtype)
     logits = torch.matmul(qs.float(), k.float().transpose(-1, -2))
-    logits = logits + bias[None].float()
+    # the bias added in its own dtype where it is wider than float32 (a
+    # float64 model), so that its gradient sums the windows' terms in it:
+    # they then add up alike in any order, in one process or over bands of
+    # rows; a float32 bias adds as it always did
+    wide = torch.promote_types(logits.dtype, bias.dtype)
+    logits = (logits.to(wide) + bias[None]).float()
     if mask is not None:
         n_w = mask.shape[0]
         b_, h, n, _ = logits.shape
@@ -287,11 +294,10 @@ def window_attention_core(q, k, v, bias, mask: Optional[torch.Tensor],
 # ---------------------------------------------------------------------------
 
 def _image_windows(qkv, heads: int, window: int):
-    """(B, R, R, 3C) -> (3, B_, H, N, D): window partition and head split,
-    the layout of :func:`window_attention_torch`'s q, k and v."""
-    b, r, _, c3 = qkv.shape
-    n_wc = r // window
-    t = qkv.reshape(b, n_wc, window, n_wc, window, c3)
+    """(B, Rh, Rw, 3C) -> (3, B_, H, N, D): window partition and head
+    split, the layout of :func:`window_attention_torch`'s q, k and v."""
+    b, rows, cols, c3 = qkv.shape
+    t = qkv.reshape(b, rows // window, window, cols // window, window, c3)
     t = t.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, 3, heads,
                                             c3 // 3 // heads)
     return t.permute(2, 0, 3, 1, 4)
@@ -301,14 +307,14 @@ def image_attention_torch(qkv, bias, mask: Optional[torch.Tensor],
                           scale: float, window: int) -> torch.Tensor:
     """Plain PyTorch image-layout window attention: the counterpart of the
     JAX package's ``_xla_image_attention``, the op sequence the kernel
-    replaces.  qkv: (B, R, R, 3C) -> out: (B, R, R, C)."""
-    b, r, _, c3 = qkv.shape
+    replaces.  qkv: (B, Rh, Rw, 3C) -> out: (B, Rh, Rw, C)."""
+    b, rows, cols, c3 = qkv.shape
     c = c3 // 3
-    n_wc = r // window
     t = _image_windows(qkv, bias.shape[0], window)
     out = window_attention_torch(t[0], t[1], t[2], bias, mask, scale)
-    out = out.transpose(1, 2).reshape(b, n_wc, n_wc, window, window, c)
-    return out.permute(0, 1, 3, 2, 4, 5).reshape(b, r, r, c)
+    out = out.transpose(1, 2).reshape(b, rows // window, cols // window,
+                                      window, window, c)
+    return out.permute(0, 1, 3, 2, 4, 5).reshape(b, rows, cols, c)
 
 
 def image_attention_backward(qkv, bias, mask, scale, window, g):
@@ -318,22 +324,23 @@ def image_attention_backward(qkv, bias, mask, scale, window, g):
     the JAX custom VJP's ``_fused_image_bwd`` (the vjp of the XLA op
     sequence).  Returns ``(dqkv, dbias, dmask)``; ``dmask`` is None without
     a mask."""
-    b, r, _, c3 = qkv.shape
-    heads, n_wc = bias.shape[0], r // window
+    b, rows, cols, c3 = qkv.shape
+    heads, n_wr, n_wc = bias.shape[0], rows // window, cols // window
     t = _image_windows(qkv, heads, window)
-    # g (B, R, R, C) -> (B_, H, N, D), as the forward's out before its merge
-    g = g.reshape(b, n_wc, window, n_wc, window, heads, c3 // 3 // heads)
+    # g (B, Rh, Rw, C) -> (B_, H, N, D), as the forward's out before its
+    # merge
+    g = g.reshape(b, n_wr, window, n_wc, window, heads, c3 // 3 // heads)
     g = g.permute(0, 1, 3, 2, 4, 5, 6).reshape(-1, window * window, heads,
                                                c3 // 3 // heads)
     dq, dk, dv, dbias, dmask = window_attention_backward(
         t[0], t[1], t[2], bias, mask, scale, g.transpose(1, 2))
     d = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4)  # (B_, N, 3, H, D)
-    d = d.reshape(b, n_wc, n_wc, window, window, c3)
-    dqkv = d.permute(0, 1, 3, 2, 4, 5).reshape(b, r, r, c3)
+    d = d.reshape(b, n_wr, n_wc, window, window, c3)
+    dqkv = d.permute(0, 1, 3, 2, 4, 5).reshape(b, rows, cols, c3)
     return dqkv, dbias, dmask
 
 
-_IMAGE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+_IMAGE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
     + [ctypes.c_float, ctypes.c_void_p]
 
 
@@ -348,12 +355,14 @@ def _image_entry(dtype: torch.dtype):
 
 def _check_image(qkv, bias, mask, window):
     _check_input("image-attention", "qkv", qkv)
-    if qkv.dim() != 4 or qkv.shape[1] != qkv.shape[2] or qkv.shape[3] % 3:
-        raise ValueError(f"qkv must be (B, R, R, 3C), got {tuple(qkv.shape)}")
-    b, r, _, c3 = qkv.shape
-    if window < 1 or r % window:
-        raise ValueError(f"the image-attention kernel needs R % window == 0,"
-                         f" got R={r}, window={window}")
+    if qkv.dim() != 4 or qkv.shape[3] % 3:
+        raise ValueError(f"qkv must be (B, Rh, Rw, 3C), got "
+                         f"{tuple(qkv.shape)}")
+    b, rows, cols, c3 = qkv.shape
+    if window < 1 or rows % window or cols % window:
+        raise ValueError(f"the image-attention kernel needs Rh and Rw to "
+                         f"divide by the window, got Rh={rows}, Rw={cols}, "
+                         f"window={window}")
     if bias.dim() != 3 or bias.shape[0] < 1 or (c3 // 3) % bias.shape[0]:
         raise ValueError(f"bias must be (H, N, N) with H dividing C="
                          f"{c3 // 3}, got {tuple(bias.shape)}")
@@ -362,11 +371,11 @@ def _check_image(qkv, bias, mask, window):
         raise ValueError(f"the image-attention kernel takes N <= "
                          f"{MAX_TOKENS} and D <= {MAX_HEAD_DIM}, got N={n}, "
                          f"D={d}")
-    # window (i, j) of the R/w x R/w grid takes mask row i * R/w + j
+    # window (i, j) of the Rh/w x Rw/w grid takes mask row i * Rw/w + j
     _check_tables_and_layout(
         "image-attention", qkv.device,
         {"bias": (bias, (bias.shape[0], n, n)),
-         "mask": (mask, ((r // window) ** 2, n, n))},
+         "mask": (mask, ((rows // window) * (cols // window), n, n))},
         {"qkv": qkv, "bias": bias, "mask": mask})
 
 
@@ -375,13 +384,14 @@ def image_attention_cuda(qkv, bias, mask: Optional[torch.Tensor],
     """Launch the image-layout CUDA kernel on the current stream.  Raises on
     inputs it does not take or if the launch is refused."""
     _check_image(qkv, bias, mask, window)
-    b, r, _, c3 = qkv.shape
-    out = torch.empty((b, r, r, c3 // 3), dtype=qkv.dtype, device=qkv.device)
+    b, rows, cols, c3 = qkv.shape
+    out = torch.empty((b, rows, cols, c3 // 3), dtype=qkv.dtype,
+                      device=qkv.device)
     with torch.cuda.device(qkv.device):
         err = _image_entry(qkv.dtype)(
             qkv.data_ptr(), bias.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            b, r, c3 // 3, bias.shape[0], window, scale,
+            b, rows, cols, c3 // 3, bias.shape[0], window, scale,
             torch.cuda.current_stream(qkv.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"image-attention kernel launch failed with CUDA "
@@ -399,8 +409,8 @@ def _image_attention_fake(qkv, bias, mask, scale, window):
     """The output's shape and dtype, after :func:`_check_image`'s checks
     (on symbolic sizes, as :func:`_window_attention_fake`)."""
     _check_image(qkv, bias, mask, window)
-    b, r, _, c3 = qkv.shape
-    return qkv.new_empty((b, r, r, c3 // 3))
+    b, rows, cols, c3 = qkv.shape
+    return qkv.new_empty((b, rows, cols, c3 // 3))
 
 
 @torch.library.custom_op("medseg_torch::image_attention", mutates_args=())
@@ -432,7 +442,8 @@ def fused_image_window_attention(qkv, bias, mask: Optional[torch.Tensor],
                                  scale: float, window: int,
                                  force: Optional[str] = None,
                                  train: bool = False) -> torch.Tensor:
-    """Image-layout window attention, qkv (B, R, R, 3C) -> (B, R, R, C).
+    """Image-layout window attention, qkv (B, Rh, Rw, 3C) -> (B, Rh, Rw,
+    C).
     Dispatch as :func:`window_attention_core`: the CUDA kernel for a CUDA
     tensor, the plain version for a CPU tensor or under ``force="torch"``;
     ``train`` changes nothing, as there."""

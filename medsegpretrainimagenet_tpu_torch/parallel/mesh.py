@@ -148,7 +148,9 @@ class Axis:
     axis order, the process *group* (None where the axis needs no
     collective: a group of one in a grid with another axis), and *pairs*,
     the groups of this process with its neighbours (``pairs[p]`` joins the
-    members p and p + 1)."""
+    members p and p + 1; on the spatial axis the members form a ring, and
+    ``pairs[size - 1]`` joins the last member and the first: the pair group
+    itself for two members, a group of its own for more)."""
 
     def __init__(self, name: str, ranks: Sequence[int], group,
                  pairs: Optional[Dict[int, Any]] = None):
@@ -190,12 +192,17 @@ class Grid:
             group = dist.new_group(ranks)
             pairs = {p: dist.new_group(ranks[p:p + 2])
                      for p in range(inner - 1)}
+            if names[1] == "spatial" and inner > 1:
+                # the ring's wrap (the cyclic shift of the Swin blocks),
+                # made here on every process, never on first use
+                pairs[inner - 1] = pairs[0] if inner == 2 else \
+                    dist.new_group([ranks[-1], ranks[0]])
             if me in ranks:
                 index = ranks.index(me)
                 inner_axis = Axis(names[1], ranks,
                                   group if inner > 1 else None,
                                   {p: g for p, g in pairs.items()
-                                   if p in (index - 1, index)})
+                                   if p in ((index - 1) % inner, index)})
         self.data, self.inner = data, inner_axis
 
     def current(self) -> bool:
@@ -501,16 +508,36 @@ def all_reduce_sum(x: torch.Tensor, axis: Optional[Axis] = None
     return _AllReduceSum.apply(x, axis.group)
 
 
+class _OncePerGroup(torch.autograd.Function):
+    """The identity; its backward divides by the axis's size.  The input is
+    the same on every member of the axis and so is the loss computed from
+    it: each member's gradient is then its share (``parallel.spatial``)."""
+
+    @staticmethod
+    def forward(ctx, x, size):
+        ctx.size = size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.size, None
+
+
 def gather_shards(x, rows: bool = False):
     """The global batch from every process's slice *x* (a tensor, or a
     tuple or list of them), differentiable in this process's slice: the
     rows over the spatial axis first when *rows* (image-like tensors,
-    ``ndim >= 3``), then the samples over the data axis."""
+    ``ndim >= 3``), then the samples over the data axis.  With *rows* a
+    tensor of fewer dims (a classifier's logits) is whole on every member
+    of the spatial axis already, and its gradient is counted once per
+    spatial group."""
     if isinstance(x, (tuple, list)):
         return type(x)(gather_shards(t, rows) for t in x)
     layout = grid()
     if rows and x.ndim >= 3:
         x = gather_axis(x, 1, layout.inner)
+    elif rows and layout.inner.group is not None:
+        x = _OncePerGroup.apply(x, layout.inner.size)
     if layout.data.group is None:
         return x
     return _GatherShards.apply(x, layout.data.group)

@@ -3,43 +3,73 @@ band of rows of every image and activation (the port of ``shard_batch``'s
 ``spatial_axis``).
 
 The JAX package shards the height dim over a ``'spatial'`` mesh axis and
-lets XLA's partitioner insert the convolutions' halo exchanges.  The port
-does them by hand: while a forward runs on row bands (:func:`row_shards`),
-every convolution and pooling with a spatial extent above one row asks
-:func:`halo` for the rows its outputs read, which come from the neighbours
-above and below (a broadcast on the pair's group each way, with the reverse
-exchange as its backward), or are the layer's padding at the image's top
-and bottom.  One rule covers kernel, stride, dilation and padding: the
-outputs split evenly over the axis, and each process computes its band of
-them from the input rows they read.  Pointwise layers, nearest upsampling
-and concatenations run on the band as they are; BatchNorm takes its
-statistics over data x spatial (``parallel.sync_batch_stats``); the train
-step gathers the rows before the loss and the metrics.
+lets XLA's partitioner insert whatever exchanges the model needs.  The port
+does them by hand, for every model family it has:
 
-Scope: the conv U-Net with every block kind and the ResNet attention U-Net
-(:func:`check_supported`).  The Swin U-Net (windows and the cyclic shift
-cross the bands) and the pretraining models (global pooling) are ROADMAP
-queue M item M14.
+* **Convolutions and poolings.**  While a forward runs on row bands
+  (:func:`row_shards`), every convolution and pooling with a spatial extent
+  above one row asks :func:`halo` for the rows its outputs read, which come
+  from the neighbours above and below (a broadcast on the pair's group each
+  way, with the reverse exchange as its backward), or are the layer's
+  padding at the image's top and bottom.  One rule covers kernel, stride,
+  dilation and padding: the outputs split evenly over the axis, and each
+  process computes its band of them from the input rows they read.
+  Pointwise layers, nearest upsampling and concatenations run on the band
+  as they are; BatchNorm takes its statistics over data x spatial
+  (``parallel.sync_batch_stats``).
+* **Swin tokens.**  A ``(B, L, C)`` band holds ``L = rows * cols`` tokens,
+  row-major, with ``rows = cols / S`` (:func:`token_grid`: the image is
+  square).  A level's windows lie inside the bands, the shift mask is cut to
+  the band's windows (:func:`band_part`), and the cyclic shift along the
+  height crosses them (:func:`roll_rows`, a ring over the axis; along the
+  width it stays local).
+* **Whole levels.**  A level whose blocks do not fit the bands (its rows do
+  not split into S bands that are each a multiple of its window: the Swin
+  bottleneck, any level with rows <= window) runs on the whole image on
+  every member: the U-Net gathers the rows before it (:func:`to_whole`) and
+  takes the band's rows back after the first level that fits again
+  (:func:`to_bands`).  Meanwhile :func:`bands` is None and every layer runs
+  as in one process.
+* **Global pooling.**  A pretraining head's mean over the image is the
+  band's sum, summed over the axis (:func:`mean_rows`); what follows runs
+  whole on every member.
+* **Draws.**  A dropout mask that varies along the rows is drawn at the
+  whole image's shape from the step's generator, which the members of a
+  spatial group share, and cut to the band (:func:`draw_uniform`): the same
+  seed gives one process's draws.
+
+The gradients: inside the model every exchange has its exact adjoint, so
+that each member's parameter gradients are its *share*, and the shares of
+the data x spatial members add up to the gradient (``reduce_gradients``
+sums them).  A tensor that every member holds whole (a whole level's, the
+pooled features, the head's logits) carries on each member a share of its
+gradient: a whole level's output is cut to the band (the backward pads the
+other rows with zeros), the gather before it sums the members' shares, the
+pooling's all-reduce sums them too.  The train step computes the loss of
+the gathered batch on every member, so where the model's output is whole
+(a classifier's logits), ``parallel.gather_shards`` counts its gradient
+once per spatial group: 1 / S on each member.  The train step gathers the
+rows of a banded output before the loss and the metrics.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
-from .mesh import Axis
+from .mesh import Axis, _gather_pieces, all_reduce_sum
 
-__all__ = ["row_shards", "global_size", "halo",
-           "check_supported", "NOT_PORTED"]
+__all__ = ["row_shards", "bands", "whole", "global_size", "halo",
+           "token_grid", "band_part", "roll_rows", "to_whole", "to_bands",
+           "mean_rows", "draw_uniform", "fits", "check_supported"]
 
-#: the refusal of what spatial sharding does not cover yet
-NOT_PORTED = ("spatial sharding of {what} is not ported (ROADMAP.md queue M, "
-              "item M14: {why}); it covers the conv U-Net with every block "
-              "kind and the ResNet attention U-Net")
-
+#: the axis of the forward's bands (None: no spatial sharding), and whether
+#: the forward runs on the whole image for now (a whole level, a pooled head)
 _ROWS: List[Optional[Axis]] = [None]
+_WHOLE: List[bool] = [False]
 
 
 @contextlib.contextmanager
@@ -47,17 +77,30 @@ def row_shards(axis: Optional[Axis]):
     """While active (an axis with a group), the forward runs on this
     process's band of rows of *axis*: convolutions and poolings exchange
     halo rows."""
-    previous = _ROWS[0]
+    previous = _ROWS[0], _WHOLE[0]
     _ROWS[0] = axis if axis is not None and axis.group is not None else None
+    _WHOLE[0] = False
     try:
         yield
     finally:
-        _ROWS[0] = previous
+        _ROWS[0], _WHOLE[0] = previous
+
+
+def bands() -> Optional[Axis]:
+    """The axis whose band of rows the tensors of the forward hold now, or
+    None (no spatial sharding, or a stretch that runs on the whole
+    image)."""
+    return None if _WHOLE[0] else _ROWS[0]
+
+
+def whole() -> bool:
+    """Does a spatially sharded forward run on the whole image for now?"""
+    return _WHOLE[0] and _ROWS[0] is not None
 
 
 def global_size(size: Sequence[int]) -> Tuple[int, ...]:
     """(H, W) of the whole image from a band's (H, W)."""
-    axis = _ROWS[0]
+    axis = bands()
     if axis is None:
         return tuple(size)
     return (size[0] * axis.size,) + tuple(size[1:])
@@ -192,7 +235,7 @@ def halo(x: torch.Tensor, pads, kernel: int, stride: int, dilation: int,
     unchanged; inside, *x* extended by the halo rows its band of outputs
     reads and the height padding spent on them (``value`` fills rows beyond
     the image: 0, or -inf for max pooling)."""
-    axis = _ROWS[0]
+    axis = bands()
     if axis is None or (kernel == 1 and stride == 1 and pads[0] == (0, 0)):
         return x, pads
     needs = _needs(x.shape[2], axis.size, tuple(pads[0]), kernel, stride,
@@ -200,22 +243,212 @@ def halo(x: torch.Tensor, pads, kernel: int, stride: int, dilation: int,
     return _Halo.apply(x, axis, needs, value), ((0, 0), tuple(pads[1]))
 
 
-def check_supported(module: torch.nn.Module) -> None:
-    """Refuse, naming ROADMAP's item, a model that spatial sharding does
-    not cover: it covers the U-Net family of conv blocks (every block kind
-    of the residual zoo, the ResNet encoder of the attention U-Net)."""
-    from ..models import swin
-    from ..models.unet import UNet
+def token_grid(length: int) -> Tuple[int, int]:
+    """(rows, cols) of *length* row-major tokens: a square outside the
+    bands, a band of ``rows = cols / S`` rows of a square on them."""
+    axis = bands()
+    size = 1 if axis is None else axis.size
+    cols = math.isqrt(length * size)
+    if cols * cols != length * size or cols % size:
+        raise ValueError(
+            f"{length} tokens are not "
+            + ("a square" if size == 1 else
+               f"a band of a square image over {size} bands (rows = cols / "
+               f"{size})"))
+    return cols // size, cols
 
-    if any(isinstance(sub, (swin.SwinTransformerBlock, swin.PatchEmbed,
-                            swin.PatchMerging, swin.PatchExpand))
-           for sub in module.modules()):
-        raise NotImplementedError(NOT_PORTED.format(
-            what="the Swin U-Net",
-            why="windows must align with the bands, the cyclic shift "
-                "crosses them and the shift mask must be cut to each "
-                "band's windows"))
-    if not isinstance(module, UNet):
-        raise NotImplementedError(NOT_PORTED.format(
-            what=f"{type(module).__name__} (a pretraining model)",
-            why="its global pooling and head need the whole image"))
+
+def band_part(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """This member's part of a tensor of the whole image along *dim*,
+    which splits evenly over the bands (the rows of a mask table whose
+    windows lie in row-major order); *x* itself outside the bands."""
+    axis = bands()
+    if axis is None:
+        return x
+    per = x.shape[dim] // axis.size
+    return x.narrow(dim, axis.index * per, per)
+
+
+def draw_uniform(shape: Sequence[int], generator: Optional[torch.Generator],
+                 device) -> torch.Tensor:
+    """``torch.rand(shape)`` as one process draws it: on the bands, a
+    *shape* of three or more dims that varies along dim 1 (rows, tokens, or
+    windows in row-major order) is drawn at the whole image's shape and cut
+    to this member's part, so the same generator gives the same mask."""
+    shape = tuple(shape)
+    axis = bands()
+    if axis is None or len(shape) < 3 or shape[1] == 1:
+        return torch.rand(shape, device=device, generator=generator)
+    whole_shape = (shape[0], shape[1] * axis.size) + shape[2:]
+    return band_part(torch.rand(whole_shape, device=device,
+                                generator=generator), 1)
+
+
+def _ring(axis: Axis, send: torch.Tensor, up: bool,
+          like: torch.Tensor) -> torch.Tensor:
+    """Send *send* to the previous member of the ring (*up*) or the next,
+    and take the block of *like*'s shape that the other neighbour sends.
+    ``pairs[p]`` joins the members p and p + 1 mod S.  Each member takes
+    its upper pair first but the first member, which takes its lower pair
+    first: every chain of waits then ends at the first member."""
+    i, size = axis.index, axis.size
+    upper, lower = (i - 1) % size, i
+    got = like.new_empty(like.shape)
+    out = _outgoing(send)
+    # the member that sends in each pair: the lower one when sending up
+    steps = [(upper, axis.ranks[i] if up else axis.ranks[upper], up),
+             (lower, axis.ranks[(i + 1) % size] if up else axis.ranks[i],
+              not up)]
+    if i == 0:
+        steps.reverse()
+    for pair, src, sending in steps:
+        dist.broadcast(out if sending else got, src=src,
+                       group=axis.pairs[pair])
+    return got
+
+
+class _RollRows(torch.autograd.Function):
+    """``torch.roll(x, shift, dim)`` of the whole image on its bands; the
+    backward is the reverse roll."""
+
+    @staticmethod
+    def forward(ctx, x, shift, dim, axis):
+        ctx.shift, ctx.dim, ctx.axis = shift, dim, axis
+        return _roll_bands(x, shift, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _roll_bands(g, -ctx.shift, ctx.dim, ctx.axis), None, None, None
+
+
+def _roll_bands(x, shift: int, dim: int, axis: Axis) -> torch.Tensor:
+    rows = x.shape[dim]
+    s = abs(shift)
+    if s > rows:
+        raise ValueError(f"spatial sharding: a roll by {shift} crosses more "
+                         f"than a band of {rows} rows")
+    if shift < 0:
+        # band j keeps rows [s, rows) and takes the first s of band j + 1
+        got = _ring(axis, x.narrow(dim, 0, s), True, x.narrow(dim, 0, s))
+        return torch.cat([x.narrow(dim, s, rows - s), got], dim)
+    # band j takes the last s rows of band j - 1, then its rows [0, rows - s)
+    tail = x.narrow(dim, rows - s, s)
+    got = _ring(axis, tail, False, tail)
+    return torch.cat([got, x.narrow(dim, 0, rows - s)], dim)
+
+
+def roll_rows(x: torch.Tensor, shift: int, dim: int = 1) -> torch.Tensor:
+    """The cyclic roll of the whole image by *shift* along its rows (dim
+    *dim*, torch's sign): ``torch.roll`` outside the bands, a ring exchange
+    of ``|shift|`` rows with the neighbours on them."""
+    axis = bands()
+    if shift == 0:
+        return x
+    if axis is None:
+        return torch.roll(x, shift, dims=dim)
+    return _RollRows.apply(x, shift, dim, axis)
+
+
+class _GatherRows(torch.autograd.Function):
+    """The bands gathered into the whole image on every member.  Each
+    member's gradient of the whole image is its share, so the backward sums
+    them over the axis, then keeps this member's rows."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis, ctx.rows = dim, axis, x.shape[dim]
+        return _gather_pieces(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.axis.group)
+        return g.narrow(ctx.dim, ctx.axis.index * ctx.rows, ctx.rows), \
+            None, None
+
+
+def to_whole(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """On the bands: the whole image of the band *x* (rows, or row-major
+    tokens, along *dim*) on every member, and the forward runs whole from
+    here (:func:`bands` is None) until :func:`to_bands`.  *x* otherwise."""
+    axis = bands()
+    if axis is None:
+        return x
+    _WHOLE[0] = True
+    return _GatherRows.apply(x, dim, axis)
+
+
+class _SplitRows(torch.autograd.Function):
+    """This member's band of a whole image that every member holds.  The
+    backward gathers the bands' gradients into the whole image's and gives
+    each member an equal share of it, 1 / S: the whole stretch before it
+    then computes one process's backward on every member, scaled by 1 / S,
+    which for S a power of two rounds as one process does (the float32
+    attention of a float64 model included)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, axis):
+        ctx.dim, ctx.axis = dim, axis
+        per = x.shape[dim] // axis.size
+        return x.narrow(dim, axis.index * per, per)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_pieces(g, ctx.dim, ctx.axis) / ctx.axis.size, \
+            None, None
+
+
+def to_bands(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """After a whole stretch (:func:`whole`): this member's band of the
+    whole image *x*, and the forward runs on the bands again.  *x*
+    otherwise."""
+    if not whole():
+        return x
+    _WHOLE[0] = False
+    return _SplitRows.apply(x, dim, _ROWS[0])
+
+
+def mean_rows(x: torch.Tensor, dims: Sequence[int],
+              keepdim: bool = True) -> torch.Tensor:
+    """The mean of the whole image over *dims* (which hold dim 1, the
+    rows): on the bands the band's sum, summed over the axis, over the
+    whole count, and the forward runs whole from here (the result is the
+    same on every member).  ``x.mean`` otherwise."""
+    axis = bands()
+    if axis is None:
+        return x.mean(dim=tuple(dims), keepdim=keepdim)
+    wide = torch.promote_types(x.dtype, torch.float32)
+    total = all_reduce_sum(x.sum(dim=tuple(dims), keepdim=keepdim,
+                                 dtype=wide), axis)
+    count = math.prod(x.shape[d] for d in dims) * axis.size
+    _WHOLE[0] = True
+    return (total / count).to(x.dtype)
+
+
+def fits(module: torch.nn.Module) -> bool:
+    """Do *module*'s blocks run on the bands of the active axis?  A block
+    that has a geometry of its own says so (``fits_bands(size)``: a Swin
+    block whose windows lie inside the bands); the others (convolutions,
+    poolings) exchange halos and do."""
+    axis = _ROWS[0]
+    if axis is None:
+        return True
+    return all(sub.fits_bands(axis.size) for sub in module.modules()
+               if hasattr(sub, "fits_bands"))
+
+
+def check_supported(module: torch.nn.Module, height: int,
+                    size: int) -> None:
+    """Refuse an image *height* that *size* bands cannot split: it must
+    divide by *size* and, for a model that cuts the image into patches
+    (the Swin families' ``PatchEmbed``), by *size* x the patch size, so
+    that every band starts a row of patches."""
+    from ..models import swin
+
+    patch = max((sub.patch_size for sub in module.modules()
+                 if isinstance(sub, swin.PatchEmbed)), default=1)
+    if height % (size * patch):
+        what = f"{size} x the patch size {patch}" if patch > 1 else str(size)
+        raise ValueError(
+            f"meta/technical/spatial_sharding: {size} bands do not split the "
+            f"image height {height} (H must divide by {what})")

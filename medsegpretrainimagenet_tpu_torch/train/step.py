@@ -27,8 +27,12 @@ Under spatial sharding (the grid's ``'spatial'`` axis) the forward runs on
 this process's band of rows (``parallel.spatial``): the device
 augmentation first takes the whole image, then the rows are cut (unless
 ``shard_batch`` cut them already), and the rows are gathered with the
-samples before the loss.  Under tensor parallelism the gradient norm
-counts each sharded parameter's slices once.
+samples before the loss.  A classifier's logits come out whole on every
+member of the spatial axis, and their gradient is counted once per
+spatial group (``gather_shards``), so that every process's gradient is
+its share and the sum over data x spatial is the gradient, for every
+model family.  Under tensor parallelism the gradient norm counts each
+sharded parameter's slices once.
 
 A step queues device work only: it returns device tensors and reads no
 value back (no ``.item()``, no ``.cpu()``, no branch on a tensor), so the

@@ -183,6 +183,93 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     assert wa.image_attention_cuda.launches == 0
 
 
+#: (B, Rh, Rw) bands of a square image's rows, as spatial sharding cuts
+#: them (Rh = Rw / S, window 4): two and four bands of 16 rows, and a band
+#: of one window row
+RECTANGLES = [pytest.param(2, 8, 16, id="8x16"),
+              pytest.param(2, 4, 16, id="4x16"),
+              pytest.param(1, 4, 8, id="4x8")]
+
+
+def _band_inputs(seed, b, rows, cols, window=4, heads=2, d=8):
+    """qkv (B, Rh, Rw, 3C), bias and a 0/-100 mask of the band's
+    (Rh/w)(Rw/w) windows, as float32 torch tensors."""
+    rng = np.random.default_rng(seed)
+    n, n_w = window * window, (rows // window) * (cols // window)
+    qkv = rng.standard_normal((b, rows, cols, 3 * heads * d))
+    bias = rng.standard_normal((heads, n, n))
+    mask = np.where(rng.random((n_w, n, n)) > 0.5, -100.0, 0.0)
+    return [torch.from_numpy(a.astype(np.float32))
+            for a in (qkv, bias, mask)]
+
+
+def _band_windows(t, window):
+    """(B, Rh, Rw, C) -> (B * nW, N, C), windows in row-major order."""
+    b, rows, cols, c = t.shape
+    return swin.window_partition(t, window).reshape(b * (rows // window)
+                                                    * (cols // window),
+                                                    window * window, c)
+
+
+@pytest.mark.parametrize("b,rows,cols", RECTANGLES)
+def test_rectangles_equal_the_windows_path(b, rows, cols):
+    """The plain image-layout version on a band of rows (B, Rh, Rw, 3C)
+    equals K1's plain version on the same windows with the band's mask rows
+    (window i * Rw/w + j takes row i * Rw/w + j), forward and backward;
+    both are one op sequence in float32, so they agree to rounding
+    (1e-6)."""
+    window, heads = 4, 2
+    qkv, bias, mask = _band_inputs(3, b, rows, cols)
+    c = qkv.shape[-1] // 3
+    got = wa.image_attention_torch(qkv, bias, mask, SCALE, window)
+    assert got.shape == (b, rows, cols, c)
+    t = _band_windows(qkv, window).reshape(-1, window * window, 3, heads,
+                                           c // heads).permute(2, 0, 3, 1, 4)
+    want = wa.window_attention_torch(t[0], t[1], t[2], bias, mask, SCALE)
+    want = swin.window_reverse(want.transpose(1, 2).reshape(
+        -1, window, window, c), window, rows, cols)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
+    g = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        got.shape).astype(np.float32))
+    dqkv, dbias, dmask = wa.image_attention_backward(qkv, bias, mask, SCALE,
+                                                     window, g)
+    ref = qkv.clone().requires_grad_()
+    ref_bias = bias.clone().requires_grad_()
+    ref_mask = mask.clone().requires_grad_()
+    t = _band_windows(ref, window).reshape(-1, window * window, 3, heads,
+                                           c // heads).permute(2, 0, 3, 1, 4)
+    out = wa.window_attention_torch(t[0], t[1], t[2], ref_bias, ref_mask,
+                                    SCALE)
+    out = swin.window_reverse(out.transpose(1, 2).reshape(
+        -1, window, window, c), window, rows, cols)
+    (out * g).sum().backward()
+    for name, value, want in (("dqkv", dqkv, ref.grad),
+                              ("dbias", dbias, ref_bias.grad),
+                              ("dmask", dmask, ref_mask.grad)):
+        np.testing.assert_allclose(value.numpy(), want.numpy(), rtol=0,
+                                   atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("b,rows,cols", RECTANGLES)
+def test_fake_operator_gives_the_rectangle(b, rows, cols):
+    """The registered operator's fake implementation (what ``torch.export``
+    traces) takes a band of rows and gives its (B, Rh, Rw, C); a mask
+    with another window count than the band's is refused."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        qkv = torch.empty(b, rows, cols, 48, device="cuda")
+        bias = torch.empty(2, 16, 16, device="cuda")
+        n_w = (rows // 4) * (cols // 4)
+        out = torch.ops.medseg_torch.image_attention(
+            qkv, bias, torch.empty(n_w, 16, 16, device="cuda"), SCALE, 4)
+        assert tuple(out.shape) == (b, rows, cols, 16)
+        with pytest.raises(ValueError, match="mask must be"):
+            torch.ops.medseg_torch.image_attention(
+                qkv, bias, torch.empty(n_w * 2, 16, 16, device="cuda"),
+                SCALE, 4)
+
+
 def _block_kwargs(position):
     return dict(in_channels=16, img_size=64, patch_size=4, embed_dim=8,
                 num_heads_layers=(1, 2, 4), window_size=4, position=position)

@@ -200,8 +200,11 @@ def test_image_attention_kernel_backward_matches_autograd(cuda_device):
 
 def test_image_attention_kernel_refuses_what_it_does_not_take(cuda_device):
     qkv, bias, mask = _image_inputs(torch.float32, True, cuda_device)
-    with pytest.raises(ValueError, match="R % window"):
+    with pytest.raises(ValueError, match="divide by the window"):
         wa.image_attention_cuda(qkv[:, :27, :27].contiguous(), bias, None,
+                                SCALE, 7)
+    with pytest.raises(ValueError, match="divide by the window"):
+        wa.image_attention_cuda(qkv[:, :28, :27].contiguous(), bias, None,
                                 SCALE, 7)
     with pytest.raises(ValueError, match="mask must be"):
         wa.image_attention_cuda(qkv, bias, mask[:4], SCALE, 7)

@@ -392,8 +392,8 @@ def test_cli_refuses_a_process_count_that_does_not_divide_the_batch(
     """The layouts the CLI refuses: a data axis that does not divide the
     fragment batch (the count to run named), both model knobs at once (the
     reference CLI does not offer both), a factor beyond the processes or
-    one that does not divide them, and the Swin U-Net under spatial
-    sharding (ROADMAP item M14)."""
+    one that does not divide them, and a Swin U-Net height that spatial
+    sharding's bands cannot split into rows of patches."""
     from medsegpretrainimagenet_tpu_torch.cli import run_experiment
     from medsegpretrainimagenet_tpu_torch.parallel.spatial import \
         check_supported
@@ -415,8 +415,9 @@ def test_cli_refuses_a_process_count_that_does_not_divide_the_batch(
         with pytest.raises(ValueError, match="must divide the 4 processes"):
             run_experiment._refuse_parallelism(ConfigDict({knob: 3}), 4)
     swin = build_model(ConfigDict, registry, Model, model_config()).module
-    with pytest.raises(NotImplementedError, match="Swin U-Net.*M14"):
-        check_supported(swin)
+    check_supported(swin, 64, 2)
+    with pytest.raises(ValueError, match="H must divide by 2 x the patch"):
+        check_supported(swin, 36, 2)
 
 
 @pytest.mark.parametrize("case", [

@@ -23,7 +23,9 @@ CPU mesh: gloo ranks, each a process of its own
   the same draws: the masks of these models (per sample, per sample and
   channel) do not depend on the rows.
 * A height the axis does not divide is refused; the Swin U-Net and a
-  pretraining model are refused, naming ROADMAP's item.
+  pretraining model are taken (``tests/test_torch_spatial_families.py``
+  holds them), and a Swin height that the bands cannot split into rows of
+  patches is refused.
 * The experiment CLI with ``spatial_sharding: 2`` under four ranks (2 x 2)
   writes the JAX CLI's ``epoch_logs.csv`` of the same run without spatial
   sharding within 1e-4."""
@@ -287,14 +289,30 @@ def test_a_height_the_axis_does_not_divide_is_refused():
                             batch_dim=1)
 
 
-def test_swin_and_pretraining_models_are_refused():
-    swin = build_model(ConfigDict, registry, Model, model_config()).module
-    with pytest.raises(NotImplementedError, match="Swin U-Net.*M14"):
-        spatial.check_supported(swin)
-    with pytest.raises(NotImplementedError, match="M14"):
-        spatial.check_supported(UNetEncoder(in_channel_size=3,
-                                            channels=(4, 8), depth=1))
-    spatial.check_supported(_port_module(SMALL["resnet_attention"][0]))
+@pytest.mark.parametrize("family", ["swin_unet", "pretraining", "resnet"])
+def test_every_family_is_taken_and_a_height_the_bands_cannot_split_refused(
+        family):
+    """Every model family is taken at a height that S bands split; a
+    height that S does not divide is refused, and for the Swin U-Net one
+    that S x its patch size (4) does not divide: its bands would start
+    inside a row of patches."""
+    module = {
+        "swin_unet": lambda: build_model(ConfigDict, registry, Model,
+                                         model_config()).module,
+        "pretraining": lambda: UNetEncoder(in_channel_size=3,
+                                           channels=(4, 8), depth=1),
+        "resnet": lambda: _port_module(SMALL["resnet_attention"][0])}[
+            family]()
+    spatial.check_supported(module, 64, 2)
+    spatial.check_supported(module, 64, 4)
+    with pytest.raises(ValueError, match="H must divide by 2"):
+        spatial.check_supported(module, 63, 2)
+    if family == "swin_unet":
+        with pytest.raises(ValueError,
+                           match="H must divide by 2 x the patch size 4"):
+            spatial.check_supported(module, 36, 2)
+    else:
+        spatial.check_supported(module, 36, 2)
 
 
 def test_cli_under_spatial_sharding_writes_the_jax_logs(tmp_path_factory,

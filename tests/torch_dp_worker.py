@@ -12,8 +12,13 @@ loads a model config, its state dict and batch stacks from ``ARGS[0]`` (a
 with ``tp_min_channels``, data x spatial), takes the train steps on this
 rank's slice and writes the step's scalars, the whole state dict and the
 gathered eval values to ``OUT`` (for each of the payload's ``runs``, if it
-has them).  ``forward`` runs the eval forward of a
-model on this rank's slice and rows and writes the gathered output.
+has them); a run may name its ``loss`` (Dice on masks by default), its
+device augmentation's kind (``augment_kind``: the segmentation chain, or
+``classification``) and the Swin blocks' ``fused_image`` mode.
+``forward`` runs the eval forward of a model on this rank's slice and
+rows (in the payload's ``fused_image`` mode) and writes the gathered
+output.  ``roll`` holds ``spatial.roll_rows`` against ``torch.roll`` of
+the whole image, forward and backward.
 ``pipeline`` runs ``parallel.pipeline_apply`` on the payload's cases.
 ``shared_card`` (``tests/test_torch_parallel_gpu.py``) runs the column-
 parallel layers, the halo exchanges and the pipeline hand-off with the
@@ -45,12 +50,11 @@ def _step(payload_path: str, out: str) -> None:
 
 
 def _train(payload) -> dict:
-    from medsegpretrainimagenet_tpu_torch import parallel
+    from medsegpretrainimagenet_tpu_torch import losses, parallel
     from medsegpretrainimagenet_tpu_torch.config import ConfigDict
-    from medsegpretrainimagenet_tpu_torch.losses import DiceLoss, Loss
     from medsegpretrainimagenet_tpu_torch.metrics import MetricsCalculator
-    from medsegpretrainimagenet_tpu_torch.ops.augment import \
-        make_device_augment
+    from medsegpretrainimagenet_tpu_torch.ops import augment as augments
+    from medsegpretrainimagenet_tpu_torch.ops import set_fused_image_mode
     from medsegpretrainimagenet_tpu_torch.optim import Optimizer
     from medsegpretrainimagenet_tpu_torch.train import (TrainState,
                                                         make_eval_step,
@@ -68,12 +72,18 @@ def _train(payload) -> dict:
         plan = parallel.shard_train_state(
             model.module, state.optimizer,
             min_channels=payload["tp_min_channels"])
-    loss = Loss(DiceLoss, ConfigDict({"label type": "mask"}))
+    set_fused_image_mode(payload.get("fused_image", "off"))
+    loss_name, loss_params = payload.get("loss",
+                                         ("DiceLoss", {"label type": "mask"}))
+    loss = losses.Loss(getattr(losses, loss_name), ConfigDict(loss_params))
     calculator = MetricsCalculator(ConfigDict(payload["metrics"]), loss=loss)
     augment = payload.get("augment")
+    make_augment = augments.make_classification_device_augment \
+        if payload.get("augment_kind") == "classification" \
+        else augments.make_device_augment
     step = make_train_step(model, loss, calculator, optimizer,
                            grad_clip_value=payload["clip"],
-                           device_augment=make_device_augment(**augment)
+                           device_augment=make_augment(**augment)
                            if augment else None)
     # the loop cuts the rows unless the step augments the whole image
     spatial = "spatial" if layout.size("spatial") > 1 and not augment \
@@ -100,7 +110,7 @@ def _train(payload) -> dict:
                 "plan": plan,
                 "local_shapes": {name: tuple(p.shape) for name, p in
                                  model.module.named_parameters()},
-                "eval_loss": eval_batch["dice_loss"].item(),
+                "eval_loss": eval_batch[loss.name].item(),
                 "eval_epoch": calculator.finalize_epoch(eval_state)}
 
 
@@ -126,25 +136,57 @@ def _model(payload):
 
 def _forward(payload_path: str, out: str) -> None:
     """The eval forward of the payload's model on this rank's samples and
-    rows (the payload's ``x``, NHWC), gathered back."""
+    rows (the payload's ``x``, NHWC), gathered back (for each of the
+    payload's ``runs``, if it has them)."""
+    payload = torch.load(payload_path, weights_only=False)
+    results = [_forward_one(run) for run in payload.get("runs", [payload])]
+    torch.save(results if "runs" in payload else results[0], out)
+
+
+def _forward_one(payload) -> dict:
     from medsegpretrainimagenet_tpu_torch import parallel
+    from medsegpretrainimagenet_tpu_torch.ops import set_fused_image_mode
     from medsegpretrainimagenet_tpu_torch.parallel.spatial import row_shards
 
-    payload = torch.load(payload_path, weights_only=False)
     layout = _grid(payload)
+    set_fused_image_mode(payload.get("fused_image", "off"))
     module = _model(payload).module.eval()
     batch = parallel.shard_batch({"x": torch.from_numpy(payload["x"])},
                                  batch_dim=0, spatial_axis="spatial")
     with torch.no_grad(), row_shards(layout.inner):
         local = module(batch["x"])
-    torch.save({"out": parallel.gather_shards(local, rows=True),
-                "local_shape": tuple(local.shape),
-                "batch_shapes": {k: tuple(v.shape) for k, v in
-                                 parallel.shard_batch(
-                                     {k: torch.from_numpy(v) for k, v in
-                                      payload["labels"].items()},
-                                     spatial_axis="spatial").items()
-                                 if isinstance(v, torch.Tensor)}}, out)
+    labels = payload.get("labels", {})
+    return {"out": parallel.gather_shards(local, rows=True),
+            "local_shape": tuple(local.shape),
+            "batch_shapes": {k: tuple(v.shape) for k, v in
+                             parallel.shard_batch(
+                                 {k: torch.from_numpy(v) for k, v in
+                                  labels.items()},
+                                 spatial_axis="spatial").items()
+                             if isinstance(v, torch.Tensor)}}
+
+
+def _roll(payload_path: str, out: str) -> None:
+    """``spatial.roll_rows`` by each of the payload's shifts on this rank's
+    band of the payload's ``x`` (data x spatial 1 x world), and the
+    gradient of the gathered sum with the payload's ``cotangent``: writes
+    the gathered rolls and this band's gradients."""
+    from medsegpretrainimagenet_tpu_torch import parallel
+    from medsegpretrainimagenet_tpu_torch.parallel import spatial
+
+    payload = torch.load(payload_path, weights_only=False)
+    axis = parallel.create_grid(("data", "spatial"),
+                                (1, parallel.device_count())).inner
+    result = {}
+    for shift in payload["shifts"]:
+        band = parallel.split_rows({"x": payload["x"]}, axis)["x"] \
+            .clone().requires_grad_()
+        with spatial.row_shards(axis):
+            rolled = spatial.roll_rows(band, shift)
+        whole = parallel.gather_axis(rolled, 1, axis)
+        (whole * payload["cotangent"]).sum().backward()
+        result[shift] = (whole.detach(), band.grad)
+    torch.save(result, out)
 
 
 def _shared_card(payload_path: str, out: str) -> None:
@@ -377,6 +419,8 @@ def main(argv) -> None:
             _forward(args[0], out)
         elif mode == "pipeline":
             _pipeline(args[0], out)
+        elif mode == "roll":
+            _roll(args[0], out)
         elif mode == "shared_card":
             _shared_card(None, out)
         elif mode == "cli":

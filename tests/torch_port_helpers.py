@@ -384,19 +384,13 @@ def spawn_ranks(mode, world, tmp_path, out_names, *args, timeout=120):
     return outputs
 
 
-def write_cli_tree(root, arch, n_train=13, n_test=4, size=20, seed=0):
+def write_cli_tree(root, arch, n_train=13, n_test=4, size=20, seed=0,
+                   init_size=16):
     """A COVID-QU tree under ``root / "data"`` (*n_train* training and
     *n_test* test images of *size* x *size*, a bright square and its mask)
-    and one U-Net of *arch* as a JAX msgpack checkpoint and its ``.pt``
-    translation.  Returns (data dir, JAX weights, port weights)."""
-    from medsegpretrainimagenet_tpu.config import ConfigDict as JaxConfig
-    from medsegpretrainimagenet_tpu.config import registry as jax_registry
-    from medsegpretrainimagenet_tpu.models import Model as JaxModel
-    from medsegpretrainimagenet_tpu.train import checkpoint as jax_ckpt
-    from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
-    from medsegpretrainimagenet_tpu_torch.models import Model
-    from medsegpretrainimagenet_tpu_torch.train import checkpoint as ckpt
-
+    and one U-Net of *arch* (initialised at *init_size*) as a JAX msgpack
+    checkpoint and its ``.pt`` translation.  Returns (data dir, JAX
+    weights, port weights)."""
     rng = np.random.default_rng(seed)
     base = root / "data" / "COVID_QU" / "Inf_segm" / "data arrays" \
         / "COVID-19"
@@ -412,16 +406,32 @@ def write_cli_tree(root, arch, n_train=13, n_test=4, size=20, seed=0):
         np.save(d / "imgs.npy", images)
         np.save(d / "inf_masks.npy", masks)
     cfg = {"model": {"segmentation.models.UNet": {"architecture": arch}}}
+    return (root / "data",) + write_weights(root, cfg, init_size,
+                                            arch["in_channel_size"])
+
+
+def write_weights(root, cfg, size, channels):
+    """The JAX package's initial weights of the ``model`` config *cfg* (at
+    *size* x *size* x *channels*) as a msgpack checkpoint under *root* and
+    their ``.pt`` translation.  Returns (JAX weights, port weights)."""
+    from medsegpretrainimagenet_tpu.config import ConfigDict as JaxConfig
+    from medsegpretrainimagenet_tpu.config import registry as jax_registry
+    from medsegpretrainimagenet_tpu.models import Model as JaxModel
+    from medsegpretrainimagenet_tpu.train import checkpoint as jax_ckpt
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
+    from medsegpretrainimagenet_tpu_torch.models import Model
+    from medsegpretrainimagenet_tpu_torch.train import checkpoint as ckpt
+
     jmodel = build_model(JaxConfig, jax_registry, JaxModel, cfg)
     variables = jax.tree_util.tree_map(np.asarray, jmodel.init(
-        jax.random.key(0), {"x": np.zeros((1, 16, 16, arch[
-            "in_channel_size"]), np.float32)}))
+        jax.random.key(0), {"x": np.zeros((1, size, size, channels),
+                                          np.float32)}))
     jax_weights, port_weights = root / "weights.msgpack", root / "weights.pt"
     jax_ckpt.save_params_file(str(jax_weights), variables)
     module = build_model(ConfigDict, registry, Model, cfg).module
     ckpt.save_params_file(str(port_weights),
                           state_dict_from_jax(variables, module))
-    return root / "data", jax_weights, port_weights
+    return jax_weights, port_weights
 
 
 def parallel_cli_config(logs, weights, arch, epochs=2, batch_size=4,
