@@ -17,8 +17,11 @@ on the max and the mean |kernel - plain|; the mean bar is checked to sit
 far under what a dropped or misaddressed bias or mask would read.  Each is
 timed L2-cold (the calls rotate over copies of the inputs that together
 exceed twice the L2) and warm, beside its plain version, one PyTorch
-library call and the bound.  (To time K1 and K2 against another checkout,
-see ``medsegpretrainimagenet_tpu_torch/ops/kernel_ab.py``.)  It drives the
+library call and the bound.  ``[k1 bwd]`` and ``[k2 bwd]`` do the same
+for the backward kernels at the shapes of one ``swin_224_train`` step (K2
+also on the bands of rows of spatial sharding), the gradients bit-equal
+on a second launch.  (To time K1 and K2 against another checkout, see
+``medsegpretrainimagenet_tpu_torch/ops/kernel_ab.py``.)  It drives the
 full-width Swin U-Net 224 (``swin_unet_224``, random weights from a seed)
 through the port's ``predict_from_config`` in bf16 on both paths, the
 windows layout through K1 and the image layout through K2
@@ -91,13 +94,16 @@ the sweep CLI in a process of its own with
 files: 330 finite rows, margin-monotone, levels 4/4/3, the JAX CLI's
 columns, every weight file loaded.  ``[swin train small]`` steps the small
 float32 Swin U-Net on the card (its attention K1, then K2, under autograd:
-the kernel's forward, the recompute backward) against the CPU;
+the forward kernel and its backward kernel) against the CPU;
 ``[swin train]`` times ``swin_224_train`` (the JAX package's Swin
 headline: swin_unet_224 at batch 24, bf16, stochastic depth 0.2, SGD with
 momentum, Dice loss) in turns with its attention on K1, on the plain
-version under autograd and on K2, profiles it, times the attention of one
-step forward and backward against plain autograd and SDPA, and prints
-which of the two candidates for ``train=True`` is faster;
+version under autograd and on K2, checks 14 launches of the route's
+forward and backward kernels a step, profiles it, times the attention of
+one step forward and backward on each layout (the kernel pair against
+the forward kernel with the plain recompute backward, plain autograd and
+SDPA), and prints which of the two candidates for ``train=True`` is
+faster;
 ``[resnet train]`` times the ResNet-50 attention U-Net's step (16 x 256 x
 256, bf16); ``[cli swin]`` and ``[cli resnet]`` train both through the CLI
 on synthetic COVID-QU trees, three epochs in one process, the encoder
@@ -147,12 +153,13 @@ result.  It imports nothing of JAX.
 
 The last lines are the card's name and power limit, a JSON line with each
 kernel's launches, error and times (K1 and K2 in bf16 per serving forward,
-and in float32 per Swin encoder forward of ``robustness_224``; K1's entry
-also carries its launches and its forward and backward per step of
-``swin_224_train``, K2's its launches there under the image layout; both
-carry their launches in one forward of their exported artifact; K1's also
-per step of ``swin_224_train`` under tensor parallelism and per tick of
-the pipeline), and
+and in float32 per Swin encoder forward of ``robustness_224``; both
+entries also carry their launches and their forward and backward pair
+per step of ``swin_224_train`` and their launches in one forward of
+their exported artifact; K1's also per step of ``swin_224_train`` under
+tensor parallelism and per tick of the pipeline; the backward kernels,
+bf16 and float32, per step of ``swin_224_train``: ``[k1 bwd]``,
+``[k2 bwd]``), and
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -290,10 +297,17 @@ def _ptxas_report(log: str) -> dict:
             for k, v in report.items()}
 
 
+#: the kernel libraries, csrc/<name>.cu: the forwards and their backwards
+KERNEL_LIBRARIES = {"window_attention", "image_attention",
+                    "window_attention_bwd", "image_attention_bwd"}
+
+
 def phase_build():
     """Build every kernel; per kernel instance its HMMA count in the SASS
-    (every instance, bf16 and float32, runs on the tensor cores: one
-    without HMMA fails) and ptxas's registers and spills."""
+    (every attention instance, bf16 and float32, forward and backward, runs
+    on the tensor cores: one without HMMA fails; the backward's partial
+    sum, tile::sum_partials, has none) and ptxas's registers and
+    spills."""
     from medsegpretrainimagenet_tpu_torch.ops import _build
     from medsegpretrainimagenet_tpu_torch.ops.kernel_ab import (
         instance_label, opcodes, parse_sass)
@@ -301,8 +315,7 @@ def phase_build():
     t0 = time.perf_counter()
     built = _build.build()
     seconds = time.perf_counter() - t0
-    check(set(built) >= {"window_attention", "image_attention"},
-          f"kernels built: {sorted(built)}")
+    check(set(built) >= KERNEL_LIBRARIES, f"kernels built: {sorted(built)}")
     cuobjdump = str(Path(_build.nvcc()).parent / "cuobjdump")
     for name, info in built.items():
         print(f"[build] {name}: {info['seconds']:.2f} s"
@@ -319,8 +332,9 @@ def phase_build():
             instances.append(label)
             print(f"[build]   {label}: {hmma} HMMA, "
                   f"{ptxas.get(symbol, 'no ptxas report')}")
-            check(hmma > 0, f"{label} ({symbol}): a kernel instance without "
-                            f"tensor-core instructions")
+            check(hmma > 0 or "sum_partials" in symbol,
+                  f"{label} ({symbol}): a kernel instance without "
+                  f"tensor-core instructions")
         for dtype in ("bf16", "f32"):
             check(sum(f"<{dtype}," in i for i in instances) == 4,
                   f"{name}: want the four {dtype} instances (D padded to 16,"
@@ -486,9 +500,9 @@ def phase_k1():
           f"{per_forward['library_warm_ms']:.4f}), bound "
           f"{per_forward['bound_ms']:.4f} ms", flush=True)
 
-    # one backward through the registered operator (kernel forward,
-    # recompute backward) against autograd through the plain version;
-    # the same float32 math in another order, TF32 off
+    # one backward through the registered operator (the forward kernel and
+    # the backward kernel) against autograd through the plain version; the
+    # same float32 math in another order, TF32 off
     q, k, v, bias, mask = _k1_inputs(0, 3, 64, True, torch.float32, gen)
     g = torch.randn(q.shape, generator=gen).cuda()
     grads = []
@@ -678,8 +692,8 @@ def phase_k2():
           f"{per_forward['library_warm_ms']:.4f}), bound "
           f"{per_forward['bound_ms']:.4f} ms", flush=True)
 
-    # one backward through the registered operator (kernel forward, the
-    # recompute backward in the windows layout) against autograd through
+    # one backward through the registered operator (the forward kernel and
+    # the backward kernel, in the image layout) against autograd through
     # the plain version; TF32 off
     qkv = torch.randn(BATCH, 56, 56, 3 * 3 * HEAD_DIM,
                       generator=gen).cuda()
@@ -786,6 +800,222 @@ def _k2_bands(gen, scale, errs) -> list:
                   f"mean={mean_err:.3g} (a misaddressed table: mean >= "
                   f"{fault:.3g}), vs_k1_path={err_k1:.3g}", flush=True)
     return readings
+
+
+#: bars on dbias and dmask, each relative to its largest magnitude: the
+#: float32 bars in both dtypes (dS, which they sum over windows, is
+#: float32 in both)
+TABLE_TOL, TABLE_MEAN_TOL = F32_TOL, MEAN_TOL["torch.float32"]
+
+
+def hold_grads(what: str, got, want, names, plain):
+    """Hold a backward kernel's gradients *got* against its plain
+    version's *want* (tuples named by *names*): the inputs' gradients on
+    the max and the mean |kernel - plain| under the dtype's bars (the mean
+    over all their elements), dbias and dmask relative to their largest
+    magnitude under TABLE_TOL and TABLE_MEAN_TOL.  Then, as :func:`hold`,
+    check that the mean bar would catch a kernel that addressed its tables
+    wrongly: the plain gradients recomputed by ``plain(bias, mask)`` with
+    the bias dropped, the next head's bias and the next window's mask must
+    each read at least FAULT_MARGIN times the bar.  Returns (max, mean,
+    the worst table reading, the least fault reading)."""
+    import torch
+
+    dtype = got[0].dtype
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    mean_tol = MEAN_TOL[str(dtype)]
+    inputs = [i for i, name in enumerate(names)
+              if name not in ("dbias", "dmask")]
+
+    def reading(a, b):
+        diffs = [(a[i].float() - b[i].float()).abs() for i in inputs]
+        return (max(d.max().item() for d in diffs),
+                sum(d.sum().item() for d in diffs)
+                / sum(d.numel() for d in diffs))
+
+    err, mean_err = reading(got, want)
+    table = 0.0
+    for name, a, b in zip(names, got, want):
+        check((a is None) == (b is None), f"{what}: {name} is missing")
+        if a is not None and name in ("dbias", "dmask"):
+            rel = (a - b).abs() / b.abs().max()
+            check(rel.max().item() < TABLE_TOL
+                  and rel.mean().item() < TABLE_MEAN_TOL,
+                  f"{what}: {name} |kernel - plain| relative max "
+                  f"{rel.max().item()}, mean {rel.mean().item()} (bars "
+                  f"{TABLE_TOL}, {TABLE_MEAN_TOL})")
+            table = max(table, rel.max().item())
+    check(err < tol and mean_err < mean_tol
+          and all(torch.isfinite(got[i]).all().item() for i in inputs),
+          f"{what}: |kernel - plain| max {err} (bar {tol}), mean "
+          f"{mean_err} (bar {mean_tol})")
+    bias, mask = plain.tables
+    faults = [(torch.zeros_like(bias), mask), (bias.roll(1, 0), mask)]
+    if mask is not None:
+        faults.append((bias, mask.roll(1, 0)))
+    fault = min(reading(plain(b, m), want)[1] for b, m in faults)
+    check(fault > FAULT_MARGIN * mean_tol,
+          f"{what}: a kernel with a misaddressed table would read a mean "
+          f"|kernel - plain| of {fault}, too close to the bar {mean_tol}")
+    return err, mean_err, table, fault
+
+
+def phase_bwd():
+    """[k1 bwd] and [k2 bwd]: each backward kernel against its plain
+    version at every level shape of one swin_224_train step (batch 24,
+    W-MSA and SW-MSA, dmask asked for under SW-MSA), bf16 and float32,
+    and K2's on the [k2 band] bands (28 x 56 and 14 x 56 of 56 at batch 8,
+    the last band's mask rows); bit-equal gradients on a second launch;
+    times per shape (the backward alone, L2-cold, dbias asked for as in
+    training) beside the plain backward, the library (SDPA's backward,
+    for K2 with its layout permutes) and the bound, summed per step.
+    Returns per kernel and dtype the step's sums and the worst reading."""
+    import torch
+    import torch.nn.functional as F
+
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+    from medsegpretrainimagenet_tpu_torch.ops.kernel_ab import (
+        device_ms, input_copies)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(11)
+    scale = HEAD_DIM ** -0.5
+    out = {}
+    for kernel in ("k1", "k2"):
+        for dtype in (torch.bfloat16, torch.float32):
+            out[kernel, str(dtype)] = {
+                "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                "max_abs_err": 0.0, "table_err": 0.0}
+    cases = [(level, heads, n_w, masked, n_masked if masked else n_plain, 1)
+             for level, heads, n_w, n_masked, n_plain in LEVELS
+             for masked in (False, True) if not masked or n_masked]
+    # K2 alone: level 0 on two and on four bands of rows, as [k2 band]
+    bands = [(0, 3, 64, True, 0, b) for b in (2, 4)]
+    for kernel in ("k1", "k2"):
+        for level, heads, n_w, masked, calls, band in \
+                cases + (bands if kernel == "k2" else []):
+            res = 56 // 2 ** level
+            rows, batch = res // band, BATCH if band == 1 else K2_BAND_BATCH
+            n_wb = (rows // WINDOW) * (res // WINDOW)
+            for dtype in (torch.bfloat16, torch.float32):
+                if kernel == "k1":
+                    q, k, v, bias, mask = _k1_inputs(level, heads, n_w,
+                                                     masked, dtype, gen)
+                    g = torch.randn(q.shape, generator=gen).to("cuda", dtype)
+                    operands, names = (q, k, v, g), ("dq", "dk", "dv",
+                                                     "dbias", "dmask")
+                    elements = 4 * q.numel()  # of q, k, v and g
+
+                    def cuda(*ops, bias=bias, mask=mask, **flags):
+                        q, k, v, g = ops
+                        return wa.window_attention_backward_cuda(
+                            q, k, v, bias, mask, scale, g, **flags)
+
+                    def plain(bias, mask, ops=operands):
+                        q, k, v, g = ops
+                        return wa.window_attention_backward(
+                            q, k, v, bias, mask, scale, g)
+                else:
+                    bias, whole = _tables(level, heads, masked, gen)
+                    mask = None if whole is None \
+                        else whole[len(whole) - n_wb:].contiguous()
+                    c = heads * HEAD_DIM
+                    qkv = torch.randn(batch, rows, res, 3 * c,
+                                      generator=gen).to("cuda", dtype)
+                    g = torch.randn(batch, rows, res, c,
+                                    generator=gen).to("cuda", dtype)
+                    operands, names = (qkv, g), ("dqkv", "dbias", "dmask")
+                    elements = 4 * qkv.numel() // 3
+
+                    def cuda(*ops, bias=bias, mask=mask, **flags):
+                        qkv, g = ops
+                        return wa.image_attention_backward_cuda(
+                            qkv, bias, mask, scale, WINDOW, g, **flags)
+
+                    def plain(bias, mask, ops=operands):
+                        qkv, g = ops
+                        return wa.image_attention_backward(
+                            qkv, bias, mask, scale, WINDOW, g)
+                plain.tables = (bias, mask)
+                got = cuda(*operands)
+                again = cuda(*operands)
+                torch.cuda.synchronize()
+                check(all((a is None and b is None) or torch.equal(a, b)
+                          for a, b in zip(got, again)),
+                      f"[{kernel} bwd] gradients differ between two "
+                      f"launches on the same inputs")
+                shape = (f"level {level} {'SW-MSA' if masked else 'W-MSA '}"
+                         if band == 1 else
+                         f"band {rows} x {res} of {band}")
+                what = f"[{kernel} bwd] {shape} {dtype}"
+                err, mean_err, table, fault = hold_grads(
+                    what, got, plain(bias, mask), names, plain)
+                acc = out[kernel, str(dtype)]
+                acc["max_abs_err"] = max(acc["max_abs_err"], err)
+                acc["table_err"] = max(acc["table_err"], table)
+                # timed as training asks: dbias, no dmask (the shift mask
+                # is a buffer)
+                copies = input_copies(*operands)
+                t_kernel = device_ms(lambda *ops: cuda(
+                    *ops, bias_grad=True, mask_grad=False), copies)
+                t_plain = device_ms(lambda *ops: plain(bias, mask, ops),
+                                    copies)
+                b_req = bias.clone().requires_grad_()
+                recorded = []
+                for ops in copies:
+                    leaves = [t.clone().requires_grad_() for t in ops[:-1]]
+                    full = _sdpa_mask(b_req, mask, batch * n_wb, dtype)
+                    if kernel == "k1":
+                        y = F.scaled_dot_product_attention(
+                            *leaves, attn_mask=full, scale=scale)
+                    else:
+                        y = _sdpa_image_path(leaves[0], full, scale)
+                    recorded.append((y, (*leaves, b_req), ops[-1]))
+                # the library yardstick: autograd's backward of a recorded
+                # SDPA forward, kept for the next call
+                t_lib = device_ms(lambda y, inputs, g: torch.autograd.grad(
+                    y, inputs, g, retain_graph=True), recorded,
+                    host_bound=True)
+                del copies, recorded
+                # q, k, v, g, bias and mask read once, dq, dk, dv and
+                # dbias written once; five products of 2 N^2 D a pair (S,
+                # dP, dV, dQ, dK)
+                moved = (7 * elements // 4) * operands[0].element_size() \
+                    + 2 * bias.numel() * 4 \
+                    + (0 if mask is None else mask.numel() * 4)
+                pairs = elements // 4 // HEAD_DIM // TOKENS
+                t_bytes = 1e3 * moved / HBM_BYTES_PER_S
+                t_ops = 1e3 * 10 * pairs * TOKENS * TOKENS * HEAD_DIM \
+                    / PEAK_OPS_PER_S[str(dtype)]
+                bound = max(t_bytes, t_ops)
+                by = "bytes" if t_bytes >= t_ops else "operations"
+                print(f"{what}, L2-cold: kernel_ms={t_kernel:.4f} "
+                      f"plain_ms={t_plain:.4f} library_ms(SDPA backward"
+                      f"{'' if kernel == 'k1' else ' + permutes'})="
+                      f"{t_lib:.4f} bound_ms={bound:.4f} ({by}); "
+                      f"|kernel - plain| max={err:.3g} mean={mean_err:.3g} "
+                      f"(a misaddressed table: mean >= {fault:.3g}), dbias"
+                      f"{', dmask' if mask is not None else ''} relative max "
+                      f"{table:.3g}; bit-equal twice; calls/step={calls}",
+                      flush=True)
+                for key, t in (("ms", t_kernel), ("plain_ms", t_plain),
+                               ("library_ms", t_lib), ("bound_ms", bound),
+                               ("bytes_ms", t_bytes), ("ops_ms", t_ops)):
+                    acc[key] += calls * t
+    for (kernel, dtype), acc in out.items():
+        acc["bound_by"] = "bytes" if acc["bytes_ms"] >= acc["ops_ms"] \
+            else "operations"
+        print(f"[{kernel} bwd] per {dtype.split('.')[-1]} step of "
+              f"swin_224_train (14 calls), L2-cold: kernel "
+              f"{acc['ms']:.4f} ms, plain {acc['plain_ms']:.4f} ms, SDPA "
+              f"backward {acc['library_ms']:.4f} ms, bound "
+              f"{acc['bound_ms']:.4f} ms ({acc['bound_by']}), "
+              f"{100 * acc['bound_ms'] / acc['ms']:.1f} % of it; worst max "
+              f"|kernel - plain| {acc['max_abs_err']:.3g}, dbias and dmask "
+              f"relative {acc['table_err']:.3g}", flush=True)
+    return out
 
 
 def phase_small_vs_cpu():
@@ -2561,7 +2791,8 @@ def _grid_steps(cfg: dict, batch: dict, device, layout=None, inner=None,
     ``tensor_parallel``, its rows under ``spatial``), the Swin blocks in
     *fused_image* mode.  Returns the losses, gradient norms, the whole
     parameters on the host, ms per step (each step synchronised), K1's and
-    K2's launches per step and the sharded share."""
+    K2's launches per step, forward and backward, and the sharded
+    share."""
     import torch
 
     from medsegpretrainimagenet_tpu_torch import parallel
@@ -2587,8 +2818,11 @@ def _grid_steps(cfg: dict, batch: dict, device, layout=None, inner=None,
               f"[parallel] {layout}: the batch was not marked as a shard")
     metrics_state = calculator.init_state(device)
     losses, norms, ms = [], [], []
-    wa.window_attention_cuda.launches = 0
-    wa.image_attention_cuda.launches = 0
+    kernels = (wa.window_attention_cuda, wa.image_attention_cuda,
+               wa.window_attention_backward_cuda,
+               wa.image_attention_backward_cuda)
+    for kernel in kernels:
+        kernel.launches = 0
 
     def run(n):
         nonlocal state, metrics_state
@@ -2606,8 +2840,8 @@ def _grid_steps(cfg: dict, batch: dict, device, layout=None, inner=None,
             run(1)
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
-        launches = wa.window_attention_cuda.launches / PARALLEL_STEPS
-        k2_launches = wa.image_attention_cuda.launches / PARALLEL_STEPS
+        launches, k2_launches, bwd_launches, k2_bwd_launches = (
+            kernel.launches / PARALLEL_STEPS for kernel in kernels)
         # copied to the host before any further step: a state dict's
         # tensors are the live parameters
         names = {name for name, _ in model.module.named_parameters()}
@@ -2625,6 +2859,7 @@ def _grid_steps(cfg: dict, batch: dict, device, layout=None, inner=None,
            "norm": torch.stack(norms[:PARALLEL_STEPS]).double().cpu(),
            "params": params,
            "ms": ms, "launches": launches, "k2_launches": k2_launches,
+           "bwd_launches": bwd_launches, "k2_bwd_launches": k2_bwd_launches,
            "share": share}
     del model, state, step
     torch.cuda.empty_cache()
@@ -2666,7 +2901,8 @@ def _pipeline_run(device, dtype, layout=None, stages: int = 2) -> dict:
     (*layout*), or in one process as the sequential stack.  Returns the
     outputs of this process's samples, the loss, the stacked parameters'
     gradients (summed over the pipe axis), ms of the forward and backward,
-    and K1's launches per tick of the forward."""
+    and K1's launches per tick of the forward and its backward's per tick
+    of the backward."""
     import torch
     import torch.distributed as dist
     from torch.func import functional_call
@@ -2704,6 +2940,7 @@ def _pipeline_run(device, dtype, layout=None, stages: int = 2) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         wa.window_attention_cuda.launches = 0
+        wa.window_attention_backward_cuda.launches = 0
         if layout is None:
             y = x
             for i in range(stages):
@@ -2718,6 +2955,7 @@ def _pipeline_run(device, dtype, layout=None, stages: int = 2) -> dict:
         loss.backward()
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
+        bwd_launches = wa.window_attention_backward_cuda.launches / ticks
     finally:
         blocks.set_compute_dtype(None)
     grads = {k: v.grad for k, v in stacked.items()}
@@ -2730,7 +2968,7 @@ def _pipeline_run(device, dtype, layout=None, stages: int = 2) -> dict:
                 grad /= layout[0]
     return {"y": y.detach().float().cpu(), "loss": loss.item(),
             "grads": {k: v.double().cpu() for k, v in grads.items()},
-            "ms": ms, "launches": launches}
+            "ms": ms, "launches": launches, "bwd_launches": bwd_launches}
 
 
 def _pipeline_held(tag: str, got: dict, want: dict, bar: float) -> dict:
@@ -2745,15 +2983,18 @@ def _pipeline_held(tag: str, got: dict, want: dict, bar: float) -> dict:
     print(f"{tag} outputs |diff| {out:.3g}, worst gradient {grad:.3g} "
           f"({worst}; bar {bar}); forward and backward "
           f"{got['ms']:.1f} ms against the sequential stack's "
-          f"{want['ms']:.1f}; K1 launches per tick {got['launches']:g} "
-          f"(the sequential stack: {want['launches']:g} per stage)",
+          f"{want['ms']:.1f}; K1 launches per tick {got['launches']:g}, "
+          f"its backward's {got['bwd_launches']:g} (the sequential stack: "
+          f"{want['launches']:g} and {want['bwd_launches']:g} per stage)",
           flush=True)
-    ok = out < bar and grad < bar and got["launches"] == 2
+    ok = out < bar and grad < bar and got["launches"] == 2 \
+        and got["bwd_launches"] == 2
     return {"outputs": out, "gradient": grad, "ms": got["ms"],
             "sequential_ms": want["ms"], "launches": got["launches"],
             "ok": ok, "failure": None if ok else
             f"{tag} outputs {out}, {worst} {grad} (bar {bar}), "
-            f"{got['launches']} K1 launches per tick (2: one a Swin block)"}
+            f"{got['launches']} K1 launches per tick and "
+            f"{got['bwd_launches']} of its backward (2: one a Swin block)"}
 
 
 def _parallel_cases(device) -> tuple:
@@ -2878,11 +3119,16 @@ def parallel_worker(spec_path: str) -> int:
                         f"float32, stochastic depth off) data x model "
                         f"{grid}, {100 * got['share']:.1f} % sharded:",
                         got, ref["swin"],
-                        f"; K1 launches per step {got['launches']:g}"))
+                        f"; K1 launches per step {got['launches']:g}, its "
+                        f"backward's {got['bwd_launches']:g}"))
                     result["tp_swin_train_launches"] = got["launches"]
-                    if got["launches"] != 14:
-                        failures.append(f"[tp] swin step: {got['launches']} "
-                                        f"K1 launches per step, not 14")
+                    result["tp_swin_train_bwd_launches"] = \
+                        got["bwd_launches"]
+                    if got["launches"] != 14 or got["bwd_launches"] != 14:
+                        failures.append(
+                            f"[tp] swin step: {got['launches']} K1 launches "
+                            f"per step, {got['bwd_launches']} of its "
+                            f"backward, not 14")
                 tag = None if shared else f"sp {grid}"
                 got = _grid_steps(unet, unet_batch, device, layout,
                                   "spatial", profile_tag=tag)
@@ -2897,6 +3143,10 @@ def parallel_worker(spec_path: str) -> int:
                     ours, other = (got["launches"], got["k2_launches"]) \
                         if path == "K1" else (got["k2_launches"],
                                               got["launches"])
+                    ours_bwd, other_bwd = (
+                        got["bwd_launches"], got["k2_bwd_launches"]) \
+                        if path == "K1" else (got["k2_bwd_launches"],
+                                              got["bwd_launches"])
                     if main_rank:
                         held(f"sp swin {path} {grid}", _held(
                             f"[sp] swin_224_train (batch {TP_SWIN_BATCH}, "
@@ -2906,13 +3156,19 @@ def parallel_worker(spec_path: str) -> int:
                             f"rows {_whole_swin_levels(layout[1])} run "
                             f"whole) against one process on K1:", got,
                             ref["swin"], f"; {path} launches per rank per "
-                            f"step {ours:g}, the other kernel's {other:g}"))
+                            f"step {ours:g}, its backward's {ours_bwd:g}, "
+                            f"the other kernels' {other:g} and "
+                            f"{other_bwd:g}"))
                         result[f"sp_swin_{path.lower()}_launches"] = ours
-                        if ours != 14 or other != 0:
+                        result[f"sp_swin_{path.lower()}_bwd_launches"] = \
+                            ours_bwd
+                        if (ours, ours_bwd, other, other_bwd) \
+                                != (14, 14, 0, 0):
                             failures.append(
                                 f"[sp] swin step on {path}: {ours} launches "
-                                f"per rank per step (not 14), {other} of "
-                                f"the other kernel")
+                                f"per rank per step, {ours_bwd} of its "
+                                f"backward (not 14), {other} and "
+                                f"{other_bwd} of the other kernels")
                 if 224 // 16 % layout[1] == 0:
                     # the encoder's 14-row bottom splits over 2 bands, not
                     # over 4
@@ -2930,6 +3186,8 @@ def parallel_worker(spec_path: str) -> int:
                     got = _pipeline_run(device, dtype, layout)
                     if main_rank:
                         result["pp_launches_per_tick"] = got["launches"]
+                        result["pp_bwd_launches_per_tick"] = \
+                            got["bwd_launches"]
                         held(f"pp {grid} {dtype}", _pipeline_held(
                             f"[pp] {layout[1]} DoubleSwin stages (swin_224 "
                             f"level 0: embed 96, 56 x 56 tokens, window 7, "
@@ -4350,8 +4608,10 @@ CLI_LOSS_FACTOR = 4.0
 #: kernel-name fragments -> the group of the Swin U-Net's train step, for
 #: [profile swin train]; the first match wins
 _SWIN_TRAIN_GROUPS = (
-    ("softmax", "softmax (the recompute backward, plain attention)"),
-    ("bmm", "attention products (the recompute backward)"),
+    ("attention_bwd", "attention backward kernels (K1, K2)"),
+    ("sum_partials", "attention backward kernels (K1, K2)"),
+    ("softmax", "softmax (plain attention)"),
+    ("bmm", "attention products (plain attention)"),
     ("multi_tensor_apply", "optimizer, grad mean and norm (foreach)"),
     *_SWIN_GROUPS)
 
@@ -4445,10 +4705,11 @@ def tf32_off():
 def phase_swin_train_small():
     """The small f32 Swin U-Net at stochastic depth 0 (card and CPU draw
     differently), SWIN_SMALL_STEPS steps of two fragments of 2 on the card
-    (K1 under autograd: its forward, the recompute backward) and on the
+    (K1 under autograd: its forward and its backward kernel) and on the
     CPU (plain autograd) from the same weights, TF32 off: losses,
-    parameters within TRAIN_TOL, the K1 launches inside the steps; then the
-    same under set_fused_image_mode("on") with K2."""
+    parameters within TRAIN_TOL, the K1 launches, forward and backward,
+    inside the steps; then the same under set_fused_image_mode("on") with
+    K2."""
     import torch
 
     from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
@@ -4461,8 +4722,11 @@ def phase_swin_train_small():
             model, state, calculator, step = build_trainer(cfg, device)
             metrics_state = calculator.init_state(device)
             losses = []
-            wa.window_attention_cuda.launches = 0
-            wa.image_attention_cuda.launches = 0
+            counted = (wa.window_attention_cuda, wa.image_attention_cuda,
+                       wa.window_attention_backward_cuda,
+                       wa.image_attention_backward_cuda)
+            for counter in counted:
+                counter.launches = 0
             with tf32_off(), attention_route(route):
                 for k in range(SWIN_SMALL_STEPS):
                     batch = {key: v.to(device) for key, v in
@@ -4470,8 +4734,7 @@ def phase_swin_train_small():
                     state, metrics_state, per_batch = step(
                         state, metrics_state, batch)
                     losses.append(per_batch["dice_loss"].item())
-            launches = (wa.window_attention_cuda.launches,
-                        wa.image_attention_cuda.launches)
+            launches = tuple(counter.launches for counter in counted)
             runs.append((losses, {k: v.double().cpu() for k, v in
                                   model.module.state_dict().items()}))
         (cpu_losses, cpu_state), (losses, state) = runs
@@ -4479,38 +4742,47 @@ def phase_swin_train_small():
         state_err = {k: (v - cpu_state[k]).abs().max().item()
                      for k, v in state.items()}
         worst = max(state_err, key=state_err.get)
-        # 6 blocks, one launch per forward of each, 2 fragments per step
+        # 6 blocks, one launch per forward of each and one of its
+        # backward, 2 fragments per step
         want = 6 * 2 * SWIN_SMALL_STEPS
+        expected = (want, 0, want, 0) if route == "k1" else (0, want, 0, want)
         check(loss_err < TRAIN_TOL and state_err[worst] < TRAIN_TOL
-              and launches == ((want, 0) if route == "k1" else (0, want)),
+              and launches == expected,
               f"[swin train small] {route}: card vs CPU loss {loss_err}, "
               f"{worst} {state_err[worst]} (bar {TRAIN_TOL}); launches "
-              f"K1, K2 {launches} (want {want} of {kernel.__name__})")
+              f"K1, K2 and their backward kernels {launches} (want "
+              f"{expected})")
         print(f"[swin train small] f32 Swin U-Net 32x32, {SWIN_SMALL_STEPS} "
               f"steps of 2 fragments of 2, TF32 off, {route} "
-              f"({kernel.__name__} forward under autograd, recompute "
-              f"backward): card vs CPU max |diff| loss {loss_err:.3g}, "
+              f"({kernel.__name__} forward under autograd, its backward "
+              f"kernel): card vs CPU max |diff| loss {loss_err:.3g}, "
               f"parameters {state_err[worst]:.3g} ({worst}; bar "
-              f"{TRAIN_TOL}); launches K1, K2 {launches}", flush=True)
+              f"{TRAIN_TOL}); launches K1, K2, K1 backward, K2 backward "
+              f"{launches}", flush=True)
 
 
 def _train_turns(run_steps, routes) -> dict:
     """TURNS turns of TURN_STEPS steps per route, the routes in turns
     (k1, plain, k2, k2, plain, k1, ...), each turn under sync debug mode
     "error" and with the launch counts set to 0 just before it.  Returns
-    per route: seconds of each turn, K1 and K2 launches, peak memory."""
+    per route: seconds of each turn, K1 and K2 launches and their backward
+    kernels' (k1_bwd, k2_bwd), peak memory."""
     import torch
 
     from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
 
-    out = {r: {"turns": [], "k1": 0, "k2": 0, "peak": 0} for r in routes}
+    kernels = {"k1": wa.window_attention_cuda, "k2": wa.image_attention_cuda,
+               "k1_bwd": wa.window_attention_backward_cuda,
+               "k2_bwd": wa.image_attention_backward_cuda}
+    out = {r: {"turns": [], "peak": 0, **{k: 0 for k in kernels}}
+           for r in routes}
     for i in range(TURNS):
         for route in (routes if i % 2 == 0 else routes[::-1]):
             with attention_route(route):
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                wa.window_attention_cuda.launches = 0
-                wa.image_attention_cuda.launches = 0
+                for kernel in kernels.values():
+                    kernel.launches = 0
                 t0 = time.perf_counter()
                 torch.cuda.set_sync_debug_mode("error")
                 try:
@@ -4523,8 +4795,8 @@ def _train_turns(run_steps, routes) -> dict:
                 seconds = time.perf_counter() - t0
             res = out[route]
             res["turns"].append(seconds)
-            res["k1"] += wa.window_attention_cuda.launches
-            res["k2"] += wa.image_attention_cuda.launches
+            for name, kernel in kernels.items():
+                res[name] += kernel.launches
             res["peak"] = max(res["peak"], torch.cuda.max_memory_allocated())
     return out
 
@@ -4602,8 +4874,10 @@ def train_cell(tag: str, cfg: dict, batch_size: int, size: int,
                   f"{min(step_ms):.3f} to {max(step_ms):.3f}), "
                   f"{100 * bound_ms / res['step_ms']:.1f} % of the "
                   f"{bound_ms:.3f} ms bound; launches per step K1 "
-                  f"{res['k1'] / steps:g}, K2 {res['k2'] / steps:g}; peak "
-                  f"memory {res['peak'] / 2 ** 30:.2f} GiB", flush=True)
+                  f"{res['k1'] / steps:g} (backward {res['k1_bwd'] / steps:g})"
+                  f", K2 {res['k2'] / steps:g} (backward "
+                  f"{res['k2_bwd'] / steps:g}); peak memory "
+                  f"{res['peak'] / 2 ** 30:.2f} GiB", flush=True)
         main = routes[0]
         with attention_route(main):
             profile_train(run_steps, 3, results[main]["step_ms"], tag=tag,
@@ -4614,15 +4888,76 @@ def train_cell(tag: str, cfg: dict, batch_size: int, size: int,
         blocks.set_compute_dtype(None)
 
 
+def _step_device_ms(fn, iters: int = 5) -> float:
+    """Device ms per call of *fn* (one step's 14 attention pairs, a few
+    hundred launches): *iters* calls queued behind a spin kernel that
+    holds the stream for twice the host's time to queue them, so that the
+    events time the device and not Python; the median of 3 runs."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        # about 2e9 spin cycles a second
+        torch.cuda._sleep(int(2 * iters * host_s * 2e9))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def _rel_err(got, want) -> float:
+    """The worst max |got - want| of a list of tensors, each relative to
+    the largest |want|."""
+    return max(((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+               for a, b in zip(got, want))
+
+
+def _train_pair_result(pairs: dict, moved: int, ops: int, fwd_err: float,
+                       bwd_err: float) -> dict:
+    """Time the forward + backward *pairs* ({"ms": the kernel pair,
+    "recompute_ms", "plain_ms", "sdpa_ms"}: callables) with
+    :func:`_step_device_ms` and add the bound of *moved* bytes and *ops*
+    bf16 operations."""
+    import torch
+
+    out = {"fwd_err": fwd_err, "bwd_err": bwd_err,
+           "bytes_ms": 1e3 * moved / HBM_BYTES_PER_S,
+           "ops_ms": 1e3 * ops / PEAK_OPS_PER_S["torch.bfloat16"]}
+    for key, fn in pairs.items():
+        if key in ("ms", "recompute_ms"):
+            with torch.no_grad():
+                out[key] = _step_device_ms(fn)
+        else:
+            out[key] = _step_device_ms(fn)
+    out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
+    out["bound_by"] = "bytes" if out["bytes_ms"] >= out["ops_ms"] \
+        else "operations"
+    return out
+
+
 def _attention_train_pair() -> dict:
     """The attention of one swin_224_train step (the 14 calls of LEVELS at
-    batch 24, bf16) forward and backward, three ways on the same tensors:
-    K1's forward with the recompute backward (the kernel pair), the plain
-    version under autograd, and SDPA under autograd with bias and mask as
-    one additive mask (the library yardstick).  Device ms per step (CUDA
-    events with the stream held while the calls are queued), K1's outputs
-    against the plain version's and the recompute backward's gradients
-    against plain autograd, and the bound."""
+    batch 24, bf16) forward and backward, four ways on the same tensors:
+    K1's forward with its backward kernel (the kernel pair), K1's forward
+    with the plain float32 recompute backward (the pair before the
+    backward kernel, kept as a yardstick), the plain version under
+    autograd, and SDPA under autograd with bias and mask as one additive
+    mask (the library yardstick).  Device ms per step (CUDA events with
+    the stream held while the calls are queued), K1's outputs and the
+    backward kernel's gradients against plain autograd, and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -4649,6 +4984,12 @@ def _attention_train_pair() -> dict:
     def kernel_pair():
         """per call: K1's output, then dq, dk, dv, dbias"""
         return [(wa.window_attention_cuda(q, k, v, b, m, scale),
+                 *wa.window_attention_backward_cuda(
+                     q, k, v, b, m, scale, g, mask_grad=False)[:4])
+                for q, k, v, b, m, g in calls]
+
+    def recompute_pair():
+        return [(wa.window_attention_cuda(q, k, v, b, m, scale),
                  *wa.window_attention_backward(q, k, v, b, m, scale, g)[:4])
                 for q, k, v, b, m, g in calls]
 
@@ -4662,102 +5003,148 @@ def _attention_train_pair() -> dict:
             q, k, v, attn_mask=_sdpa_mask(b, m, q.shape[0], q.dtype),
             scale=scale), (q, k, v, b), g) for q, k, v, b, m, g in calls]
 
-    def device_ms(fn, iters: int = 5) -> float:
-        """Device ms per call of *fn* (one step's 14 pairs, a few hundred
-        launches): *iters* calls queued behind a spin kernel that holds
-        the stream for twice the host's time to queue them, so that the
-        events time the device and not Python; the median of 3 runs."""
-        for _ in range(2):
-            fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        host_s = time.perf_counter() - t0
-        times = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            start, end = (torch.cuda.Event(enable_timing=True)
-                          for _ in range(2))
-            # about 2e9 spin cycles a second
-            torch.cuda._sleep(int(2 * iters * host_s * 2e9))
-            start.record()
-            for _ in range(iters):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            times.append(start.elapsed_time(end) / iters)
-        return statistics.median(times)
-
-    def rel_err(got, want) -> float:
-        return max(((a.float() - b.float()).abs().max()
-                    / b.float().abs().max()).item()
-                   for a, b in zip(got, want))
-
     with torch.no_grad():
         got = kernel_pair()
         outs = [wa.window_attention_torch(q, k, v, b, m, scale)
                 for q, k, v, b, m, _ in calls]
     want = plain_pair()
-    fwd_err = rel_err([pair[0] for pair in got], outs)
-    bwd_err = max(rel_err(pair_got[1:], pair_want)
+    fwd_err = _rel_err([pair[0] for pair in got], outs)
+    bwd_err = max(_rel_err(pair_got[1:], pair_want)
                   for pair_got, pair_want in zip(got, want))
     check(fwd_err < BF16_TOL and bwd_err < BF16_TOL,
           f"[swin train] the kernel pair against plain autograd, relative "
-          f"max |diff|: K1's outputs {fwd_err}, the recompute backward's "
+          f"max |diff|: K1's outputs {fwd_err}, the backward kernel's "
           f"gradients {bwd_err} (bar {BF16_TOL})")
+    return _train_pair_result(
+        {"ms": kernel_pair, "recompute_ms": recompute_pair,
+         "plain_ms": plain_pair, "sdpa_ms": sdpa_pair},
+        moved, ops, fwd_err, bwd_err)
+
+
+def _image_train_pair() -> dict:
+    """The same for the image layout: the 14 calls of one swin_224_train
+    step under set_fused_image_mode("on") (qkv (24, R, R, 3C) of each
+    level, bf16), forward and backward: K2's forward with its backward
+    kernel, K2's forward with the plain recompute backward, the plain
+    version under autograd, and the library yardstick: the layout permute,
+    SDPA and the permute back under autograd."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+
+    gen = torch.Generator().manual_seed(8)
+    scale = HEAD_DIM ** -0.5
+    calls, moved, ops = [], 0, 0
+    for level, heads, n_w, masked, unmasked in LEVELS:
+        res = 56 // 2 ** level
+        for is_masked in [True] * masked + [False] * unmasked:
+            c = heads * HEAD_DIM
+            qkv = torch.randn(BATCH, res, res, 3 * c,
+                              generator=gen).to("cuda", torch.bfloat16)
+            g = torch.randn(BATCH, res, res, c,
+                            generator=gen).to("cuda", torch.bfloat16)
+            bias, mask = _tables(level, heads, is_masked, gen)
+            for t in (qkv, bias):
+                t.requires_grad_(True)
+            calls.append((qkv, bias, mask, g))
+            # read qkv, g, bias, mask; write out, dqkv, dbias
+            moved += (qkv.numel() * 8 // 3) * 2 + 2 * bias.numel() * 4 \
+                + (0 if mask is None else mask.numel() * 4)
+            ops += 12 * BATCH * n_w * heads * TOKENS * TOKENS * HEAD_DIM
+
+    def kernel_pair():
+        return [(wa.image_attention_cuda(x, b, m, scale, WINDOW),
+                 *wa.image_attention_backward_cuda(
+                     x, b, m, scale, WINDOW, g, mask_grad=False)[:2])
+                for x, b, m, g in calls]
+
+    def recompute_pair():
+        return [(wa.image_attention_cuda(x, b, m, scale, WINDOW),
+                 *wa.image_attention_backward(x, b, m, scale, WINDOW,
+                                              g)[:2])
+                for x, b, m, g in calls]
+
+    def plain_pair():
+        return [torch.autograd.grad(
+            wa.image_attention_torch(x, b, m, scale, WINDOW), (x, b), g)
+            for x, b, m, g in calls]
+
+    def sdpa_pair():
+        return [torch.autograd.grad(_sdpa_image_path(
+            x, _sdpa_mask(b, m, x.shape[0] * (x.shape[1] // WINDOW) ** 2,
+                          x.dtype), scale), (x, b), g)
+            for x, b, m, g in calls]
+
     with torch.no_grad():
-        pair_ms = device_ms(kernel_pair)
-    out = {"ms": pair_ms, "plain_ms": device_ms(plain_pair),
-           "sdpa_ms": device_ms(sdpa_pair), "fwd_err": fwd_err,
-           "bwd_err": bwd_err,
-           "bytes_ms": 1e3 * moved / HBM_BYTES_PER_S,
-           "ops_ms": 1e3 * ops / PEAK_OPS_PER_S["torch.bfloat16"]}
-    out["bound_ms"] = max(out["bytes_ms"], out["ops_ms"])
-    out["bound_by"] = "bytes" if out["bytes_ms"] >= out["ops_ms"] \
-        else "operations"
-    return out
+        got = kernel_pair()
+        outs = [wa.image_attention_torch(x, b, m, scale, WINDOW)
+                for x, b, m, _ in calls]
+    want = plain_pair()
+    fwd_err = _rel_err([pair[0] for pair in got], outs)
+    bwd_err = max(_rel_err(pair_got[1:], pair_want)
+                  for pair_got, pair_want in zip(got, want))
+    check(fwd_err < BF16_TOL and bwd_err < BF16_TOL,
+          f"[swin train] the K2 pair against plain autograd, relative max "
+          f"|diff|: K2's outputs {fwd_err}, the backward kernel's gradients "
+          f"{bwd_err} (bar {BF16_TOL})")
+    return _train_pair_result(
+        {"ms": kernel_pair, "recompute_ms": recompute_pair,
+         "plain_ms": plain_pair, "sdpa_ms": sdpa_pair},
+        moved, ops, fwd_err, bwd_err)
 
 
 def phase_swin_train() -> dict:
     """swin_224_train at full width (27,166,596 parameters, 224 x 224,
     batch 24, bf16, stochastic depth 0.2, SGD momentum 0.9 at 1e-3, Dice
-    loss), timed in turns on the two candidates for train=True (K1 with the
-    recompute backward, the dispatch's own; the plain version under
-    autograd) and on the image-layout path (K2); the attention pair of one
-    step against plain autograd and SDPA; the verdict for train=True."""
+    loss), timed in turns on the two candidates for train=True (K1 with its
+    backward kernel, the dispatch's own; the plain version under autograd)
+    and on the image-layout path (K2 with its backward kernel), 14 launches
+    of the route's forward and backward kernels per step and none of the
+    others'; the attention pair of one step, on each layout, against the
+    pair with the plain recompute backward, plain autograd and SDPA; the
+    verdict for train=True."""
     results = train_cell("swin train", swin_224_train_config(),
                          SWIN_TRAIN_BATCH, SWIN_TRAIN_SIZE, 27_166_596,
                          routes=("k1", "plain", "k2"))
     steps = TURNS * TURN_STEPS
-    check(results["k1"]["k1"] == SWIN_BLOCKS * steps
-          and results["k1"]["k2"] == 0,
-          f"[swin train] K1 launches on the dispatch's own route: "
-          f"{results['k1']['k1']} in {steps} steps")
-    check(results["k2"]["k2"] == SWIN_BLOCKS * steps
-          and results["k2"]["k1"] == 0 and results["plain"]["k1"] == 0
-          and results["plain"]["k2"] == 0,
-          f"[swin train] launches: {results}")
-    pair = _attention_train_pair()
+    want = {"k1": ("k1", "k1_bwd"), "k2": ("k2", "k2_bwd"), "plain": ()}
+    for route, kernels in want.items():
+        for name in ("k1", "k1_bwd", "k2", "k2_bwd"):
+            expected = SWIN_BLOCKS * steps if name in kernels else 0
+            check(results[route][name] == expected,
+                  f"[swin train] {route} route: {results[route][name]} "
+                  f"launches of {name} in {steps} steps, want {expected}")
+    pairs = {"k1": _attention_train_pair(), "k2": _image_train_pair()}
+    for path, pair in pairs.items():
+        kernel = path.upper()
+        print(f"[swin train] attention of one step on {kernel} (14 calls, "
+              f"bf16, forward + backward): {kernel} + its backward kernel "
+              f"{pair['ms']:.3f} ms ({100 * pair['bound_ms'] / pair['ms']:.1f}"
+              f" % of the bound), {kernel} + the plain recompute backward "
+              f"{pair['recompute_ms']:.3f} ms, plain autograd "
+              f"{pair['plain_ms']:.3f} ms, "
+              f"{'SDPA' if path == 'k1' else 'permute + SDPA + permute'} "
+              f"with one additive mask {pair['sdpa_ms']:.3f} ms; bound "
+              f"{pair['bound_ms']:.3f} ms ({pair['bound_by']}: bytes "
+              f"{pair['bytes_ms']:.3f}, operations {pair['ops_ms']:.3f}); "
+              f"against plain autograd, relative max |diff|: {kernel}'s "
+              f"outputs {pair['fwd_err']:.3g}, the backward kernel's "
+              f"gradients {pair['bwd_err']:.3g} (bar {BF16_TOL})",
+              flush=True)
     k1, plain = results["k1"], results["plain"]
     gap = plain["step_ms"] - k1["step_ms"]
     spread = max(k1["spread_ms"], plain["spread_ms"])
     faster = "k1" if gap > spread else "plain" if -gap > spread else "tie"
-    print(f"[swin train] attention of one step (14 calls, bf16, forward + "
-          f"backward): K1 + recompute backward {pair['ms']:.3f} ms, plain "
-          f"autograd {pair['plain_ms']:.3f} ms, SDPA with one additive mask"
-          f" {pair['sdpa_ms']:.3f} ms; bound {pair['bound_ms']:.3f} ms "
-          f"({pair['bound_by']}: bytes {pair['bytes_ms']:.3f}, operations "
-          f"{pair['ops_ms']:.3f}); against plain autograd, relative max "
-          f"|diff|: K1's outputs {pair['fwd_err']:.3g}, the recompute "
-          f"backward's gradients {pair['bwd_err']:.3g} (bar {BF16_TOL})",
-          flush=True)
     print(f"[swin train] train=True: the step with K1 {k1['step_ms']:.3f} "
           f"ms, plain {plain['step_ms']:.3f} ms (plain - K1 {gap:.3f} ms, "
           f"the turns' spread {spread:.3f} ms): faster beyond the spread: "
-          f"{faster}; train=True takes K1 (the dispatch has no other route "
-          f"for a CUDA tensor)", flush=True)
+          f"{faster}; train=True takes K1 and its backward kernel (the "
+          f"dispatch has no other route for a CUDA tensor)", flush=True)
     return {"launches": results["k1"]["k1"],
-            "k2_launches": results["k2"]["k2"], "pair": pair}
+            "bwd_launches": results["k1"]["k1_bwd"],
+            "k2_launches": results["k2"]["k2"],
+            "k2_bwd_launches": results["k2"]["k2_bwd"], "pair": pairs["k1"],
+            "k2_pair": pairs["k2"]}
 
 
 def phase_resnet_train() -> None:
@@ -4766,7 +5153,8 @@ def phase_resnet_train() -> None:
     lies on it)."""
     results = train_cell("resnet train", resnet_attention_unet_config(),
                          RESNET_TRAIN_BATCH, RESNET_TRAIN_SIZE, 94_014_977)
-    check(results["k1"]["k1"] == results["k1"]["k2"] == 0,
+    check(all(results["k1"][k] == 0
+              for k in ("k1", "k2", "k1_bwd", "k2_bwd")),
           f"[resnet train] an attention kernel launched: {results}")
 
 
@@ -5422,6 +5810,7 @@ def main() -> int:
     timed("build", phase_build)
     k1, k1_bound_by, k1_err = timed("k1", phase_k1)
     k2, k2_bound_by, k2_err, k2_bands = timed("k2", phase_k2)
+    bwd = timed("k bwd", phase_bwd)
     with tempfile.TemporaryDirectory() as tmp:
         timed("small", phase_small_vs_cpu)
         k1_launches, k2_launches = timed("serve", phase_serve, Path(tmp))
@@ -5483,23 +5872,27 @@ def main() -> int:
         # the layout permutes around SDPA included: the same function
         "library_ms": k2["library_ms"],
     }]
-    # training (swin_224_train, bf16): K1's launches in the timed steps of
-    # the default route, and the attention of one step forward and
-    # backward, the kernel pair (K1 + the recompute backward) beside plain
-    # autograd and SDPA, with its bound, and its errors against plain
-    # autograd (K1's outputs, the recompute's gradients); K1's launches in
-    # [cli swin]'s
-    # no-grad validation pass; K2's in the step under
-    # set_fused_image_mode("on")
-    pair = swin_train["pair"]
+    # training (swin_224_train, bf16): the forward kernel's launches in the
+    # timed steps of its route, and the attention of one step forward and
+    # backward, the kernel pair (the forward kernel + its backward kernel)
+    # beside the pair with the plain recompute backward, plain autograd and
+    # SDPA (for K2 with the layout permutes), with its bound, and its
+    # errors against plain autograd (the outputs, the gradients); K1's
+    # launches in [cli swin]'s no-grad validation pass
+    for entry, pair, launches in (
+            (kernels[0], swin_train["pair"], swin_train["launches"]),
+            (kernels[1], swin_train["k2_pair"], swin_train["k2_launches"])):
+        entry.update({
+            "swin_train_launches": launches,
+            "swin_train_ms": pair["ms"],
+            "swin_train_recompute_ms": pair["recompute_ms"],
+            "swin_train_plain_ms": pair["plain_ms"],
+            "swin_train_library_ms": pair["sdpa_ms"],
+            "swin_train_bound_ms": pair["bound_ms"],
+            "swin_train_bound_by": pair["bound_by"],
+            "swin_train_fwd_rel_err": pair["fwd_err"],
+            "swin_train_bwd_rel_err": pair["bwd_err"]})
     kernels[0].update({
-        "swin_train_launches": swin_train["launches"],
-        "swin_train_ms": pair["ms"], "swin_train_plain_ms": pair["plain_ms"],
-        "swin_train_library_ms": pair["sdpa_ms"],
-        "swin_train_bound_ms": pair["bound_ms"],
-        "swin_train_bound_by": pair["bound_by"],
-        "swin_train_fwd_rel_err": pair["fwd_err"],
-        "swin_train_bwd_rel_err": pair["bwd_err"],
         "cli_swin_val_launches": cli_swin_launches,
         # [tp]: K1's launches per swin_224_train step with its qkv
         # column-parallel over two ranks; [pp]: per pipeline tick of two
@@ -5509,7 +5902,6 @@ def main() -> int:
         # [sp]: per rank per swin_224_train step on two bands of rows
         "sp_swin_train_launches": par["sp_swin_k1_launches"]})
     kernels[1].update({
-        "swin_train_launches": swin_train["k2_launches"],
         "sp_swin_train_launches": par["sp_swin_k2_launches"],
         # [k2 band]: the instances on bands of rows (swin_224_train's
         # level 0 at batch 8 on 2 and 4 bands, SW-MSA with the last band's
@@ -5541,6 +5933,43 @@ def main() -> int:
             "bound_ms": att["bound_ms"], "bound_by": att["bound_by"],
             "library_ms": att[f"{kernel}_sdpa_ms"],
         })
+    # the backward kernels ([k1 bwd], [k2 bwd]): the 14 calls of one
+    # swin_224_train step at batch 24, the backward alone (dbias asked
+    # for, as training asks), summed, L2-cold; library_ms: SDPA's backward
+    # (K2: with the layout permutes); max_abs_err over the gradients of
+    # the inputs at every shape (dbias and dmask, relative to their
+    # largest value: table_rel_err).  bf16 launches: per route of the
+    # timed swin_224_train steps; float32: per step of [tp]'s and [sp]'s
+    # float32 swin_224_train (per rank), and per pipeline tick ([pp])
+    for kernel, name, line in (("k1", "window_attention", 81),
+                               ("k2", "image_attention", 266)):
+        for dtype, suffix in (("torch.bfloat16", ""), ("torch.float32",
+                                                       "_f32")):
+            reading = bwd[kernel, dtype]
+            entry = {
+                "name": f"{name}_bwd{suffix}",
+                "route": "cuda",
+                "source": f"medsegpretrainimagenet_tpu_torch/csrc/"
+                          f"{name}_bwd.cu",
+                "replaces": f"medsegpretrainimagenet_tpu/ops/"
+                            f"window_attention.py:{line}",
+                "max_abs_err": reading["max_abs_err"],
+                "table_rel_err": reading["table_err"],
+                "ms": reading["ms"], "plain_ms": reading["plain_ms"],
+                "bound_ms": reading["bound_ms"],
+                "bound_by": reading["bound_by"],
+                "library_ms": reading["library_ms"]}
+            if suffix:
+                entry["launches"] = par[f"sp_swin_{kernel}_bwd_launches"]
+                if kernel == "k1":
+                    entry["tp_swin_train_launches"] = \
+                        par["tp_swin_train_bwd_launches"]
+                    entry["pp_launches_per_tick"] = \
+                        par["pp_bwd_launches_per_tick"]
+            else:
+                entry["launches"] = swin_train[
+                    "bwd_launches" if kernel == "k1" else "k2_bwd_launches"]
+            kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

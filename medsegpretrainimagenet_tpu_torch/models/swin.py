@@ -18,11 +18,12 @@ head split, attention, head merge and window reverse.  Both paths share
 the same parameters.  The mode is off by default, as in the JAX package.
 
 A module in training passes ``train=True`` to the attention dispatch (the
-JAX package's ``train`` flag); on the card training takes the kernel's
-forward with its recompute backward, as inference takes the kernel (the
-H100's measurement: ``ops.window_attention_core``).  Attention dropout runs
-the plain version
-(the kernel has no dropout).  Every draw (dropout, attention dropout,
+JAX package's ``train`` flag); on the card training takes the forward
+kernel and its backward kernel (``ops.window_attention_core``: the
+registered operators ``medseg_torch::window_attention`` and
+``::window_attention_backward``, or K2's under the image layout), as
+inference takes the forward kernel.  Attention dropout runs the plain
+version (the kernel has no dropout).  Every draw (dropout, attention dropout,
 stochastic depth) comes from the module's ``generator``, which the train
 step sets (``blocks.Stochastic``).
 

@@ -1,7 +1,7 @@
 """Time this tree's K1 and K2 against another checkout's, on the card, in turns.
 
     python -m medsegpretrainimagenet_tpu_torch.ops.kernel_ab OTHER_CHECKOUT \
-        [--dtype bfloat16|float32] [--serve]
+        [--dtype bfloat16|float32] [--serve | --backward]
 
 Each tree's kernels are built from its own ``csrc/`` and called through its
 own wrappers (``window_attention_cuda``, ``image_attention_cuda``) in a
@@ -17,6 +17,14 @@ within the dtype's bar (bf16 0.05, float32 1e-4); each ``[ab]`` line says
 whether they are equal bit for bit.  Prints the card's name and power
 limit, ``[ab]`` lines per shape, the sums per forward, and exits non-zero
 on any failure.
+
+``--backward`` times the backward kernels instead
+(``window_attention_backward_cuda``, ``image_attention_backward_cuda``, at
+the same shapes with a random cotangent, dbias asked for and dmask not, as
+a training step asks): the bf16 shapes are also those of one
+``swin_224_train`` step.  Both trees need the backward kernels; the
+gradients (dq, dk, dv or dqkv, then dbias) must agree within the dtype's
+bar, dbias relative to its largest value.
 
 ``--serve`` times serving instead, each tree through its own package in
 turns (other, this, this, other, twice): ``swin_unet_224`` in bf16 at
@@ -99,14 +107,16 @@ def swin_unet_224_config() -> dict:
     }}}}
 
 
-def hold_stream(calls: int) -> None:
+def hold_stream(calls: int, host_s: float = 0.0) -> None:
     """Hold the current stream with a spin kernel long enough (about 0.2
-    ms a call) for the host to queue *calls* calls behind it, so that the
-    events around them time the device and not the host's launch rate: a
-    small kernel runs faster than Python can launch it."""
+    ms a call, or twice *host_s*, the host's seconds to queue one call, if
+    that is longer) for the host to queue *calls* calls behind it, so that
+    the events around them time the device and not the host's launch
+    rate: a small kernel runs faster than Python can launch it."""
     import torch
 
-    torch.cuda._sleep(400_000 * calls)
+    # about 2e9 spin cycles a second
+    torch.cuda._sleep(max(400_000, int(2 * host_s * 2e9)) * calls)
 
 
 def input_copies(*tensors) -> list:
@@ -117,7 +127,8 @@ def input_copies(*tensors) -> list:
                         for _ in range(2 * L2_BYTES // nbytes)]
 
 
-def device_ms(fn, copies: list, runs: int = 3) -> float:
+def device_ms(fn, copies: list, runs: int = 3,
+              host_bound: bool = False) -> float:
     """Device time of ``fn(*inputs)`` per call: the mean over back-to-back
     calls that rotate over *copies* of the inputs, from CUDA events around
     them, and the median of *runs* such runs.  With one copy the inputs
@@ -125,17 +136,25 @@ def device_ms(fn, copies: list, runs: int = 3) -> float:
     call finds its inputs evicted by the calls before it (L2-cold), as a
     layer of the model finds its activations.  A host stall longer than
     :func:`hold_stream` covers leaves a gap inside one run; the median
-    drops that run."""
+    drops that run.  *host_bound*: *fn* takes the host longer to queue
+    than 0.2 ms (autograd's backward of a library call), so the stream is
+    held for twice the host's time per call, measured in the warm-up."""
+    import time
+
     import torch
 
-    for i in range(max(3, len(copies))):
+    warm = max(3, len(copies))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(warm):
         fn(*copies[i % len(copies)])
+    host_s = (time.perf_counter() - t0) / warm if host_bound else 0.0
     iters = max(20, 2 * len(copies))
     times = []
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
-        hold_stream(iters)
+        hold_stream(iters, host_s)
         start.record()
         for i in range(iters):
             fn(*copies[i % len(copies)])
@@ -146,11 +165,11 @@ def device_ms(fn, copies: list, runs: int = 3) -> float:
 
 
 def instance_label(symbol: str) -> str:
-    """``window_attention<f32, DP 32>`` for the mangled symbol of an
-    instance of the attention kernels (a template on the element type and D
-    padded to 16, or, in older trees, ``window_attention_bf16<DP>``), else
-    the symbol itself."""
-    base = re.search(r"(window_attention|image_attention)(?:_bf16)?I",
+    """``window_attention<f32, DP 32>`` (``window_attention_bwd<...>`` for
+    the backward) for the mangled symbol of an instance of the attention
+    kernels (a template on the element type and D padded to 16, or, in
+    older trees, ``window_attention_bf16<DP>``), else the symbol itself."""
+    base = re.search(r"((?:window|image)_attention(?:_bwd)?)(?:_bf16)?I",
                      symbol)
     dp = re.search(r"Li(\d+)E", symbol)
     if base is None or dp is None:
@@ -205,10 +224,12 @@ def _shapes(dtype: str = "bfloat16"):
                        level, heads, n_w, masked, calls)
 
 
-def _worker(tree: Path, save: Optional[Path], dtype_name: str) -> None:
-    """Time *tree*'s kernels at every shape of *dtype_name*'s forward;
-    print ``{shape: ms}`` as JSON and, with *save*, write the outputs
-    there."""
+def _worker(tree: Path, save: Optional[Path], dtype_name: str,
+            backward: bool = False) -> None:
+    """Time *tree*'s kernels (with *backward*, their backward kernels) at
+    every shape of *dtype_name*'s forward; print ``{shape: ms}`` as JSON
+    and, with *save*, write the outputs (the gradients, dbias divided by
+    its largest magnitude, flattened and joined) there."""
     sys.path[0] = str(tree)  # the tree's package, not the one beside us
     import torch
 
@@ -240,9 +261,26 @@ def _worker(tree: Path, save: Optional[Path], dtype_name: str) -> None:
         def k2(qkv):
             return wa.image_attention_cuda(qkv, bias, mask, scale, WINDOW)
 
-        for name, fn, inputs in (("k1", k1, (q, k, v)), ("k2", k2, (qkv,))):
+        cases = [("k1", k1, (q, k, v)), ("k2", k2, (qkv,))]
+        if backward:
+            g1 = torch.randn(q.shape, generator=gen).to("cuda", dtype)
+            g2 = torch.randn(qkv.shape[:3] + (qkv.shape[3] // 3,),
+                             generator=gen).to("cuda", dtype)
+
+            def k1(q, k, v, g):
+                return wa.window_attention_backward_cuda(
+                    q, k, v, bias, mask, scale, g, mask_grad=False)
+
+            def k2(qkv, g):
+                return wa.image_attention_backward_cuda(
+                    qkv, bias, mask, scale, WINDOW, g, mask_grad=False)
+
+            cases = [("k1", k1, (q, k, v, g1)), ("k2", k2, (qkv, g2))]
+        for name, fn, inputs in cases:
             if save is not None:
-                outs[f"{name} {shape}"] = fn(*inputs).cpu()
+                out = fn(*inputs)
+                outs[f"{name} {shape}"] = (_joined(out) if backward
+                                           else out).cpu()
             copies = input_copies(*inputs)
             times[f"{name} {shape}"] = device_ms(fn, copies)
             del copies
@@ -252,6 +290,17 @@ def _worker(tree: Path, save: Optional[Path], dtype_name: str) -> None:
 
     libraries = {name: info["path"] for name, info in _build.build().items()}
     print(json.dumps({"times": times, "libraries": libraries}), flush=True)
+
+
+def _joined(grads):
+    """A backward's gradients as one flat tensor (the dtype of the first):
+    the inputs', then dbias divided by its largest magnitude."""
+    import torch
+
+    *inputs, dbias, _ = grads
+    return torch.cat([t.reshape(-1) for t in inputs]
+                     + [(dbias / dbias.abs().max()).reshape(-1)
+                        .to(inputs[0].dtype)])
 
 
 def _serve_worker(tree: Path, save: Optional[Path]) -> None:
@@ -412,10 +461,12 @@ def _serve_main(other: Path, card: str) -> int:
 
 
 def _turn(tree: Path, save: Optional[Path], dtype: str,
-          serve: bool = False) -> dict:
+          serve: bool = False, backward: bool = False) -> dict:
     cmd = [sys.executable, __file__, "--worker", str(tree), "--dtype", dtype]
     if serve:
         cmd.append("--serve")
+    if backward:
+        cmd.append("--backward")
     if save is not None:
         cmd += ["--save", str(save)]
     run = subprocess.run(cmd, cwd=tree, capture_output=True, text=True,
@@ -434,10 +485,14 @@ def main(argv=None) -> int:
                         default="bfloat16",
                         help="bfloat16: swin_unet_224's serving shapes "
                              "(the default); float32: robustness_224's")
-    parser.add_argument("--serve", action="store_true",
-                        help="time swin_unet_224's bf16 serving (eager "
-                             "forward, predict_from_config) instead of "
-                             "the kernels")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--serve", action="store_true",
+                      help="time swin_unet_224's bf16 serving (eager "
+                           "forward, predict_from_config) instead of the "
+                           "kernels")
+    mode.add_argument("--backward", action="store_true",
+                      help="time the backward kernels instead of the "
+                           "forwards")
     parser.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     parser.add_argument("--save", type=Path, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
@@ -445,7 +500,8 @@ def main(argv=None) -> int:
         if args.serve:
             _serve_worker(args.worker.resolve(), args.save)
         else:
-            _worker(args.worker.resolve(), args.save, args.dtype)
+            _worker(args.worker.resolve(), args.save, args.dtype,
+                    args.backward)
         return 0
     if args.other is None:
         parser.error("the other checkout is missing")
@@ -466,17 +522,22 @@ def main(argv=None) -> int:
     out_dir.mkdir(parents=True, exist_ok=True)
     times = {"other": [], "this": []}
     libraries = {}
+    kind = "bwd" if args.backward else "fwd"
     for who, tree in (("other", other), ("this", THIS), ("this", THIS),
                       ("other", other)):
         first = not times[who]
-        turn = _turn(tree, out_dir / f"{who}-{args.dtype}.pt" if first
-                     else None, args.dtype)
+        turn = _turn(tree, out_dir / f"{who}-{args.dtype}-{kind}.pt"
+                     if first else None, args.dtype,
+                     backward=args.backward)
         times[who].append(turn["times"])
         libraries[who] = turn["libraries"]
-    outs = {who: torch.load(out_dir / f"{who}-{args.dtype}.pt")
+    outs = {who: torch.load(out_dir / f"{who}-{args.dtype}-{kind}.pt")
             for who in times}
     _, _, tol, forward = CASES[args.dtype]
     label = "bf16" if args.dtype == "bfloat16" else "f32"
+    if args.backward:
+        label += " backward"
+        forward += " (its backward)"
     shapes = list(_shapes(args.dtype))
     failed = []
     for shape, *_, calls in shapes:

@@ -5,13 +5,17 @@ CUDA tensor the forward is the hand-written kernel in
 ``csrc/window_attention.cu`` (the counterpart of the Pallas TPU kernel
 ``_pallas_window_attention``), called as the registered torch operator
 ``torch.ops.medseg_torch.window_attention``: ``torch.export`` keeps it as a
-node of the graph (its fake implementation gives the output's shape), and
-its gradient recomputes the probabilities in plain torch, as the JAX custom
-VJP ``_fused_bwd`` does in XLA.  On a CPU tensor the plain PyTorch version
-:func:`window_attention_torch` runs; it is also the kernel's oracle on the
-card.  An eager call with no gradient to record (serving) calls the kernel
-straight, without the operator's dispatch.  Importing this module
-registers both operators; a program exported on the card needs that
+node of the graph (its fake implementation gives the output's shape).  Its
+gradient is the hand-written backward kernel in
+``csrc/window_attention_bwd.cu`` (the counterpart of the JAX custom VJP
+``_fused_bwd``: the probabilities recomputed on the chip), the operator
+``torch.ops.medseg_torch.window_attention_backward``.  On a CPU tensor the
+plain PyTorch versions run: :func:`window_attention_torch` under autograd,
+and :func:`window_attention_backward` as the backward operator's CPU
+kernel; both are also the kernels' oracles on the card.  An eager call
+with no gradient to record (serving) calls the forward kernel straight,
+without the operator's dispatch.  Importing this module registers the
+operators; a program exported on the card needs that
 (``export.load_exported`` imports it).
 
 ``window_attention_core(q, k, v, bias, mask, scale)``:
@@ -23,7 +27,10 @@ The image-layout path does the same attention straight from the (B, R, R,
 head merge and window reverse in one kernel, ``csrc/image_attention.cu``
 (the counterpart of ``_pallas_image_attention``), the operator
 ``torch.ops.medseg_torch.image_attention``, with the plain version
-:func:`image_attention_torch`.  ``set_fused_image_mode`` switches the Swin
+:func:`image_attention_torch`; its gradient is ``csrc/image_attention_bwd.cu``
+(``torch.ops.medseg_torch.image_attention_backward``), which writes dqkv
+straight into the image layout, with the plain version
+:func:`image_attention_backward`.  ``set_fused_image_mode`` switches the Swin
 blocks onto it, as in the JAX package; it is off by default.
 
 ``fused_image_window_attention(qkv, bias, mask, scale, window)``:
@@ -36,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -45,8 +52,10 @@ from . import _build
 
 __all__ = ["window_attention_core", "window_attention_torch",
            "window_attention_cuda", "window_attention_backward",
+           "window_attention_backward_cuda",
            "fused_image_window_attention", "image_attention_torch",
            "image_attention_cuda", "image_attention_backward",
+           "image_attention_backward_cuda",
            "set_fused_image_mode", "use_fused_image"]
 
 #: largest window (tokens) and head width the kernel takes
@@ -231,15 +240,171 @@ def _window_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return window_attention_cuda(q, k, v, bias, mask, scale)
 
 
+# ---------------------------------------------------------------------------
+# The backward kernels and the operators' gradients
+# ---------------------------------------------------------------------------
+
+_GRAD_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] \
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 \
+    + [ctypes.c_float, ctypes.c_void_p]
+_IMAGE_GRAD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] \
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 \
+    + [ctypes.c_float, ctypes.c_void_p]
+
+#: {(kernel, dtype, shape arguments): partial tiles}: a backward's scratch
+#: for its blocks' dS sums, as many tiles as its grid has blocks
+_TILES: dict = {}
+
+
+def _grad_entry(kernel: str, dtype: torch.dtype, tiles: bool = False):
+    """The C entry point of *kernel*'s backward (``window_attention`` or
+    ``image_attention``) for *dtype*, or with *tiles* the one that gives
+    the number of partial tiles its launch needs."""
+    lib = _build.library(f"{kernel}_bwd")
+    suffix = "bf16" if dtype == torch.bfloat16 else "f32"
+    if tiles:
+        fn = getattr(lib, f"{kernel}_bwd_tiles_{suffix}")
+        fn.argtypes = [ctypes.c_int] * (6 if kernel == "window_attention"
+                                        else 7)
+        fn.restype = ctypes.c_longlong
+    else:
+        fn = getattr(lib, f"{kernel}_bwd_{suffix}")
+        fn.argtypes = _GRAD_ARGTYPES if kernel == "window_attention" \
+            else _IMAGE_GRAD_ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _partials(kernel: str, dtype: torch.dtype, device: torch.device,
+              n: int, shape: tuple):
+    """(scratch, tiles): float32 scratch for the dS sums of the blocks of
+    *kernel*'s backward at *shape* (its tiles entry point's arguments)."""
+    key = (kernel, dtype, device.index, shape)
+    tiles = _TILES.get(key)
+    if tiles is None:
+        tiles = _grad_entry(kernel, dtype, tiles=True)(*shape)
+        if tiles < 1:
+            raise RuntimeError(f"{kernel} backward: no grid for {shape} "
+                               f"{dtype} (CUDA error {-tiles})")
+        _TILES[key] = tiles
+    return torch.empty(tiles * n * n, dtype=torch.float32,
+                       device=device), tiles
+
+
+def _check_grad(kernel: str, g: torch.Tensor, shape: tuple,
+                like: torch.Tensor) -> None:
+    if tuple(g.shape) != shape or g.dtype != like.dtype \
+            or g.device != like.device:
+        raise ValueError(f"the {kernel} backward needs g of {shape} "
+                         f"{like.dtype} on {like.device}, got "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device}")
+    if not g.is_contiguous():
+        raise ValueError(f"the {kernel} backward needs a contiguous g")
+
+
+def window_attention_backward_cuda(q, k, v, bias, mask, scale: float, g,
+                                   bias_grad: bool = True,
+                                   mask_grad: bool = True):
+    """Gradients of window attention by the backward kernel, on the current
+    stream: ``(dq, dk, dv, dbias, dmask)`` as
+    :func:`window_attention_backward` gives them, with dbias None unless
+    *bias_grad* and dmask None unless *mask_grad* and there is a mask (the
+    blocks' dS sums are then neither written nor added up).  Raises on
+    inputs it does not take or if a launch is refused."""
+    _check(q, k, v, bias, mask)
+    _check_grad("window-attention", g, tuple(q.shape), q)
+    b_, heads, n, d = q.shape
+    n_w = 1 if mask is None else mask.shape[0]
+    mask_grad = mask_grad and mask is not None
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dbias = torch.empty_like(bias) if bias_grad else None
+    dmask = torch.empty_like(mask) if mask_grad else None
+    with torch.cuda.device(q.device):
+        partial, tiles = _partials(
+            "window_attention", q.dtype, q.device, n,
+            (b_, heads, n, d, n_w, int(mask is not None))) \
+            if bias_grad or mask_grad else (None, 0)
+        err = _grad_entry("window_attention", q.dtype)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            bias.data_ptr(), None if mask is None else mask.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            None if partial is None else partial.data_ptr(), tiles,
+            None if dbias is None else dbias.data_ptr(),
+            None if dmask is None else dmask.data_ptr(),
+            b_, heads, n, d, n_w, scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"window-attention backward kernel launch failed "
+                           f"with CUDA error {err} for q {tuple(q.shape)} "
+                           f"{q.dtype}")
+    window_attention_backward_cuda.launches += 1
+    return dq, dk, dv, dbias, dmask
+
+
+#: launches of the backward kernel since the count was last set to 0
+window_attention_backward_cuda.launches = 0
+
+
+def _grads_list(grads, bias_grad: bool, mask_grad: bool) -> List:
+    """A backward's gradients, (dq, dk, dv, dbias, dmask) or (dqkv, dbias,
+    dmask) -> the operator's list: the inputs' gradients, then dbias if
+    asked for, then dmask if asked for."""
+    *inputs, dbias, dmask = grads
+    return [*inputs, *([dbias] if bias_grad else []),
+            *([dmask] if mask_grad else [])]
+
+
+@torch.library.custom_op("medseg_torch::window_attention_backward",
+                         mutates_args=(), device_types="cuda")
+def _window_attention_backward_op(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        bias: torch.Tensor, mask: Optional[torch.Tensor], g: torch.Tensor,
+        scale: float, bias_grad: bool, mask_grad: bool) -> List[torch.Tensor]:
+    """K1's backward as a torch operator: [dq, dk, dv], then dbias if
+    *bias_grad*, then dmask if *mask_grad* (only with a mask).  On the card
+    :func:`window_attention_backward_cuda`; on the CPU its plain version
+    (the kernel has no CPU mode)."""
+    mask_grad = mask_grad and mask is not None
+    return _grads_list(window_attention_backward_cuda(
+        q, k, v, bias, mask, scale, g, bias_grad, mask_grad),
+        bias_grad, mask_grad)
+
+
+@_window_attention_backward_op.register_kernel("cpu")
+def _window_attention_backward_plain(q, k, v, bias, mask, g, scale,
+                                     bias_grad, mask_grad):
+    mask_grad = mask_grad and mask is not None
+    return _grads_list(window_attention_backward(q, k, v, bias, mask, scale,
+                                                 g), bias_grad, mask_grad)
+
+
+@_window_attention_backward_op.register_fake
+def _window_attention_backward_fake(q, k, v, bias, mask, g, scale,
+                                    bias_grad, mask_grad):
+    _check(q, k, v, bias, mask)
+    mask_grad = mask_grad and mask is not None
+    return _grads_list((torch.empty_like(q), torch.empty_like(k),
+                        torch.empty_like(v), torch.empty_like(bias),
+                        None if mask is None else torch.empty_like(mask)),
+                       bias_grad, mask_grad)
+
+
 def _save_inputs(ctx, inputs, output):
     q, k, v, bias, mask, ctx.scale = inputs
     ctx.save_for_backward(q, k, v, bias, mask)
 
 
 def _window_attention_grad(ctx, g):
-    """The recompute backward (``window_attention_backward``)."""
-    return (*window_attention_backward(*ctx.saved_tensors, ctx.scale, g),
-            None)
+    """The backward operator, asked for dbias and dmask only where they
+    need a gradient."""
+    q, k, v, bias, mask = ctx.saved_tensors
+    bias_grad = ctx.needs_input_grad[3]
+    mask_grad = mask is not None and ctx.needs_input_grad[4]
+    grads = torch.ops.medseg_torch.window_attention_backward(
+        q, k, v, bias, mask, g.contiguous(), ctx.scale, bias_grad, mask_grad)
+    dbias = grads[3] if bias_grad else None
+    dmask = grads[-1] if mask_grad else None
+    return grads[0], grads[1], grads[2], dbias, dmask, None
 
 
 _window_attention_op.register_fake(_window_attention_fake)
@@ -272,14 +437,15 @@ def window_attention_core(q, k, v, bias, mask: Optional[torch.Tensor],
     version for a CPU tensor.  ``force="torch"`` pins the plain version
     (tests, and the kernel's comparison on the card).  Under autograd and
     under tracing the kernel is the operator ``medseg_torch::
-    window_attention``, its gradient the recompute backward; an eager
-    no-grad call launches it straight (:func:`_straight`).
+    window_attention``, its gradient the backward kernel (the operator
+    ``medseg_torch::window_attention_backward``); an eager no-grad call
+    launches the forward straight (:func:`_straight`).
 
     ``train`` is the JAX package's flag, which sends training to XLA on a
-    TPU.  It changes nothing here: on the H100 the Swin U-Net's bf16 step
-    ran alike on the kernel and on the plain version under autograd, within
-    the spread of its turns (chip_smoke.py ``[swin train]``, PERF.md), so
-    training takes the kernel as well."""
+    TPU.  It changes nothing here: training takes the forward kernel and
+    its backward kernel on the card (chip_smoke.py ``[swin train]`` times
+    the step on them against the plain version under autograd,
+    PERF.md)."""
     if _impl(force, q.device) == "torch":
         return window_attention_torch(q, k, v, bias, mask, scale)
     if _straight(q, k, v, bias, mask):
@@ -422,15 +588,99 @@ def _image_attention_op(qkv: torch.Tensor, bias: torch.Tensor,
     return image_attention_cuda(qkv, bias, mask, scale, window)
 
 
+def image_attention_backward_cuda(qkv, bias, mask, scale: float,
+                                  window: int, g, bias_grad: bool = True,
+                                  mask_grad: bool = True):
+    """Gradients of image-layout attention by the backward kernel, on the
+    current stream: ``(dqkv, dbias, dmask)`` as
+    :func:`image_attention_backward` gives them, dqkv written straight in
+    the (B, Rh, Rw, 3C) layout; dbias None unless *bias_grad*, dmask None
+    unless *mask_grad* and there is a mask.  Raises on inputs it does not
+    take or if a launch is refused."""
+    _check_image(qkv, bias, mask, window)
+    b, rows, cols, c3 = qkv.shape
+    _check_grad("image-attention", g, (b, rows, cols, c3 // 3), qkv)
+    heads, n = bias.shape[0], window * window
+    mask_grad = mask_grad and mask is not None
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty_like(bias) if bias_grad else None
+    dmask = torch.empty_like(mask) if mask_grad else None
+    with torch.cuda.device(qkv.device):
+        partial, tiles = _partials(
+            "image_attention", qkv.dtype, qkv.device, n,
+            (b, rows, cols, c3 // 3, heads, window, int(mask is not None))) \
+            if bias_grad or mask_grad else (None, 0)
+        err = _grad_entry("image_attention", qkv.dtype)(
+            qkv.data_ptr(), g.data_ptr(), bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), dqkv.data_ptr(),
+            None if partial is None else partial.data_ptr(), tiles,
+            None if dbias is None else dbias.data_ptr(),
+            None if dmask is None else dmask.data_ptr(),
+            b, rows, cols, c3 // 3, heads, window, scale,
+            torch.cuda.current_stream(qkv.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"image-attention backward kernel launch failed "
+                           f"with CUDA error {err} for qkv "
+                           f"{tuple(qkv.shape)} {qkv.dtype}")
+    image_attention_backward_cuda.launches += 1
+    return dqkv, dbias, dmask
+
+
+#: launches of the backward kernel since the count was last set to 0
+image_attention_backward_cuda.launches = 0
+
+
+@torch.library.custom_op("medseg_torch::image_attention_backward",
+                         mutates_args=(), device_types="cuda")
+def _image_attention_backward_op(
+        qkv: torch.Tensor, bias: torch.Tensor, mask: Optional[torch.Tensor],
+        g: torch.Tensor, scale: float, window: int, bias_grad: bool,
+        mask_grad: bool) -> List[torch.Tensor]:
+    """K2's backward as a torch operator: [dqkv], then dbias if
+    *bias_grad*, then dmask if *mask_grad* (only with a mask).  On the card
+    :func:`image_attention_backward_cuda`; on the CPU its plain version."""
+    mask_grad = mask_grad and mask is not None
+    return _grads_list(image_attention_backward_cuda(
+        qkv, bias, mask, scale, window, g, bias_grad, mask_grad),
+        bias_grad, mask_grad)
+
+
+@_image_attention_backward_op.register_kernel("cpu")
+def _image_attention_backward_plain(qkv, bias, mask, g, scale, window,
+                                    bias_grad, mask_grad):
+    mask_grad = mask_grad and mask is not None
+    return _grads_list(image_attention_backward(qkv, bias, mask, scale,
+                                                window, g),
+                       bias_grad, mask_grad)
+
+
+@_image_attention_backward_op.register_fake
+def _image_attention_backward_fake(qkv, bias, mask, g, scale, window,
+                                   bias_grad, mask_grad):
+    _check_image(qkv, bias, mask, window)
+    mask_grad = mask_grad and mask is not None
+    return _grads_list((torch.empty_like(qkv), torch.empty_like(bias),
+                        None if mask is None else torch.empty_like(mask)),
+                       bias_grad, mask_grad)
+
+
 def _save_image_inputs(ctx, inputs, output):
     qkv, bias, mask, ctx.scale, ctx.window = inputs
     ctx.save_for_backward(qkv, bias, mask)
 
 
 def _image_attention_grad(ctx, g):
-    """The recompute backward (``image_attention_backward``)."""
-    return (*image_attention_backward(*ctx.saved_tensors, ctx.scale,
-                                      ctx.window, g), None, None)
+    """The backward operator, asked for dbias and dmask only where they
+    need a gradient."""
+    qkv, bias, mask = ctx.saved_tensors
+    bias_grad = ctx.needs_input_grad[1]
+    mask_grad = mask is not None and ctx.needs_input_grad[2]
+    grads = torch.ops.medseg_torch.image_attention_backward(
+        qkv, bias, mask, g.contiguous(), ctx.scale, ctx.window, bias_grad,
+        mask_grad)
+    dbias = grads[1] if bias_grad else None
+    dmask = grads[-1] if mask_grad else None
+    return grads[0], dbias, dmask, None, None
 
 
 _image_attention_op.register_fake(_image_attention_fake)

@@ -85,7 +85,7 @@ def test_only_eager_no_grad_calls_skip_the_operator():
     """The wrappers call the kernel straight only in eager mode with no
     gradient to record; under ``torch.export`` and under autograd they take
     the registered operator, which export keeps as a node and whose
-    autograd holds the recompute backward."""
+    autograd is the registered backward operator."""
     from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
 
     seen = []

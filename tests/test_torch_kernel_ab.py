@@ -97,6 +97,55 @@ def test_sass_is_read_per_instance_without_addresses_or_encodings():
         "bfloat16S3_S3_PKfS5_PS1_iiiiiifii") == "window_attention<bf16, DP 32>"
 
 
+def test_backward_mode_is_one_of_the_modes(tmp_path):
+    """``--backward`` times the backward kernels of both trees at the
+    forward's shapes; it is not taken with ``--serve``, and a directory
+    without the package is refused as in the other modes."""
+    run = subprocess.run(
+        [sys.executable, "-m", "medsegpretrainimagenet_tpu_torch.ops.kernel_ab",
+         str(ROOT), "--serve", "--backward"], cwd=ROOT, capture_output=True,
+        text=True, timeout=120)
+    assert run.returncode == 2 and "not allowed with" in run.stderr
+    run = subprocess.run(
+        [sys.executable, "-m", "medsegpretrainimagenet_tpu_torch.ops.kernel_ab",
+         str(tmp_path), "--backward"], cwd=ROOT, capture_output=True,
+        text=True, timeout=120)
+    assert run.returncode != 0
+    assert "holds no medsegpretrainimagenet_tpu_torch package" in run.stderr
+
+
+def test_backward_instances_have_labels_of_their_own():
+    """The backward kernels' instances, as nvcc names them on the card
+    (the file's own anonymous namespace first), are labelled apart from
+    the forwards'; the partial sum keeps its symbol, which ``[build]``
+    exempts from the HMMA check."""
+    label = kernel_ab.instance_label
+    assert label("_ZN56_GLOBAL__N__ea51cef7_23_window_attention_bwd_cu_be2f1"
+                 "f0b20window_attention_bwdI13__nv_bfloat16Li32EEEvPKT_S4_S4"
+                 "_S4_PKfS6_PS2_S7_S7_iiiiifiPfi") \
+        == "window_attention_bwd<bf16, DP 32>"
+    assert label("_ZN55_GLOBAL__N__f137b209_22_image_attention_bwd_cu_c68f1a"
+                 "1219image_attention_bwdIfLi64EEEvPKT_S3_PKfS5_PS1_iiiiiifi"
+                 "Pfi") == "image_attention_bwd<f32, DP 64>"
+    assert label("_ZN52_GLOBAL__N__b3cab887_19_window_attention_cu_99c79937"
+                 "16window_attentionIfLi64EEEvPKT_S3_S3_PKfS5_PS1_iiiiifii") \
+        == "window_attention<f32, DP 64>"
+    assert label("_ZN4tile12sum_partialsEPKfPfS2_iiii") \
+        == "_ZN4tile12sum_partialsEPKfPfS2_iiii"
+
+
+def test_chip_smoke_builds_and_checks_every_kernel_source():
+    """``[build]`` wants every library of ``csrc/*.cu``: the forwards and
+    their backwards."""
+    import chip_smoke
+
+    sources = {p.stem for p in (ROOT / "medsegpretrainimagenet_tpu_torch"
+                                / "csrc").glob("*.cu")}
+    assert chip_smoke.KERNEL_LIBRARIES == sources == {
+        "window_attention", "image_attention", "window_attention_bwd",
+        "image_attention_bwd"}
+
+
 def test_serve_times_the_model_that_chip_smoke_serves():
     """``--serve`` builds chip_smoke.py's swin_unet_224 and serves it at
     the kernels' batch."""

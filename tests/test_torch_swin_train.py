@@ -15,8 +15,9 @@
   gradient of every parameter (the pull-back of one cotangent through
   ``jax.vjp`` and autograd), with the attention on its plain autograd
   path, through K1's registered operator (the kernel's forward, here its
-  plain version, and the recompute backward ``window_attention_backward``)
-  and through K2's under ``set_fused_image_mode("on")``; and the Dice loss
+  plain version, and the registered backward operator, whose CPU kernel is
+  the plain recompute ``window_attention_backward``) and through K2's
+  under ``set_fused_image_mode("on")``; and the Dice loss
   and ``jax.grad`` of it end to end."""
 import jax
 import jax.numpy as jnp
@@ -199,8 +200,8 @@ def pair():
 def _kernel_routes(monkeypatch, route, counts):
     """Send the Swin blocks' attention through K1's or K2's registered
     torch operator (forward: the kernel's wrapper, here its plain version
-    on the CPU tensor; backward: the operator's registered recompute),
-    counting the forwards."""
+    on the CPU tensor; backward: the registered backward operator, on the
+    CPU tensor its plain recompute), counting the forwards."""
     def plain_k1(q, k, v, bias, mask, scale):
         counts["k1"] += 1
         return wa.window_attention_torch(q, k, v, bias, mask, scale)

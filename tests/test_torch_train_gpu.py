@@ -2,7 +2,7 @@
 card and on the CPU agree within 1e-4 (chip_smoke.py's ``[train]`` bar),
 for the U-Net, the Swin U-Net (its attention K1, or K2 under
 ``set_fused_image_mode("on")``, under autograd: the kernel's forward and
-the recompute backward) and the ResNet attention U-Net; and a bf16 step
+its backward kernel) and the ResNet attention U-Net; and a bf16 step
 queues no host sync.
 
 Every test here is marked ``gpu`` and skips without a CUDA card.  The file
@@ -155,15 +155,19 @@ def test_bf16_train_step_queues_no_host_sync(cuda_device):
                          ids=["swin_k1", "swin_k2", "resnet"])
 def test_family_train_step_card_matches_cpu(cuda_device, family, mode):
     """Three steps of two fragments of 2 on the card and on the CPU; the
-    Swin U-Net's 6 blocks launch their kernel once per forward."""
+    Swin U-Net's 6 blocks launch their kernel once per forward, and its
+    backward kernel once per backward."""
     runs = []
     for device in ("cpu", cuda_device):
         model, state, calculator, step = _trainer(
             device, architecture=FAMILIES[family])
         metrics_state = calculator.init_state(device)
         losses = []
-        wa.window_attention_cuda.launches = 0
-        wa.image_attention_cuda.launches = 0
+        counters = (wa.window_attention_cuda, wa.image_attention_cuda,
+                    wa.window_attention_backward_cuda,
+                    wa.image_attention_backward_cuda)
+        for counter in counters:
+            counter.launches = 0
         wa.set_fused_image_mode(mode)
         try:
             for k in range(3):
@@ -176,8 +180,7 @@ def test_family_train_step_card_matches_cpu(cuda_device, family, mode):
             wa.set_fused_image_mode("off")
         runs.append((losses, {k: v.cpu() for k, v in
                               model.module.state_dict().items()}))
-    launches = (wa.window_attention_cuda.launches,
-                wa.image_attention_cuda.launches)
+    launches = tuple(counter.launches for counter in counters)
     (cpu_losses, cpu_state), (losses, state) = runs
     np.testing.assert_allclose(losses, cpu_losses, rtol=TOL, atol=TOL)
     for name, value in state.items():
@@ -185,7 +188,8 @@ def test_family_train_step_card_matches_cpu(cuda_device, family, mode):
                                    cpu_state[name].double().numpy(),
                                    rtol=TOL, atol=TOL, err_msg=name)
     want = 6 * 2 * 3 if family == "swin" else 0
-    assert launches == ((want, 0) if mode == "off" else (0, want))
+    assert launches == ((want, 0, want, 0) if mode == "off"
+                        else (0, want, 0, want))
 
 
 def test_swin_bf16_train_step_queues_no_host_sync(cuda_device):

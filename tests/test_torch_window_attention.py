@@ -87,8 +87,9 @@ def test_plain_bf16_keeps_the_jax_rounding_points():
 
 @pytest.mark.parametrize("masked", [False, True], ids=["w_msa", "sw_msa"])
 def test_recompute_backward_matches_jax_grad(masked):
-    """``window_attention_backward`` (the kernel's autograd backward) gives
-    jax.grad's dq, dk, dv, dbias and the summed dmask."""
+    """``window_attention_backward`` (the backward operator's CPU kernel,
+    and the backward kernel's oracle on the card) gives jax.grad's dq, dk,
+    dv, dbias and the summed dmask."""
     arrays = _inputs(3, masked=masked)
     g = np.random.default_rng(4).standard_normal(
         arrays[0].shape).astype(np.float32)

@@ -354,6 +354,141 @@ def image_attention_tf32(qkv, bias, mask, scale: float, window: int,
     return out.permute(0, 1, 3, 2, 4, 5).reshape(b, r, r, c)
 
 
+# ---------------------------------------------------------------------------
+# A plain-torch model of the attention backward kernels' arithmetic
+# (csrc/attention_tile_bwd.cuh)
+# ---------------------------------------------------------------------------
+
+def _bf16_scale(scale: float) -> float:
+    """*scale* rounded to bf16, as the kernels round it for q * scale."""
+    return torch.tensor(scale, dtype=torch.float32).bfloat16().item()
+
+
+def _product(a, b, bf16: bool, split: bool):
+    """a @ b of two inputs (or their gradient g) as the kernels' tensor
+    cores take them: bf16 operands, whose products are exact, summed in
+    float32; or float32 in split TF32 (one TF32 pass without *split*)."""
+    return a.float() @ b.float() if bf16 \
+        else tf32_matmul(a, b, 3 if split else 1)
+
+
+def _float_product(x, b, bf16: bool, split: bool):
+    """x @ b for x = P or dS (float32): in bf16 x as two bf16 operands, hi
+    = bf16(x) and lo = bf16(x - hi), lo.b + hi.b (hi.b alone without
+    *split*: P and dS rounded to bf16 once); in float32 split TF32."""
+    if not bf16:
+        return tf32_matmul(x, b, 3 if split else 1)
+    hi = x.bfloat16().float()
+    out = hi @ b.float()
+    return (x - hi).bfloat16().float() @ b.float() + out if split else out
+
+
+def summed_partials(ds, n_w: int, heads: int, per: int):
+    """dbias and dmask from dS (B_, H, N, N) as the kernels sum them: the
+    block of (window w mod n_w, head h) walking images c*per .. c*per +
+    per - 1 adds their dS in order into its partial; then dbias[h] sums the
+    partials over chunks c, then windows w, dmask[w] over chunks, then
+    heads."""
+    b_, h, n, _ = ds.shape
+    images = b_ // n_w
+    chunks = -(-images // per)
+    padded = torch.zeros(chunks * per, n_w, heads, n, n)
+    padded[:images] = ds.reshape(images, n_w, heads, n, n)
+    padded = padded.reshape(chunks, per, n_w, heads, n, n)
+    partial = torch.zeros(chunks, n_w, heads, n, n)
+    for i in range(per):
+        partial += padded[:, i]
+    dbias = torch.zeros(heads, n, n)
+    dmask = torch.zeros(n_w, n, n)
+    for c in range(chunks):
+        for w in range(n_w):
+            dbias += partial[c, w]
+    for c in range(chunks):
+        for hh in range(heads):
+            dmask += partial[c, :, hh]
+    return dbias, dmask
+
+
+def window_attention_backward_model(q, k, v, bias, mask, scale: float, g,
+                                    split: bool = True, n_w=None,
+                                    per: int = 1):
+    """The backward kernels' arithmetic on (B_, H, N, D) operands of their
+    dtype: S = (q * scale) . k^T as the forward takes it (bf16: q * scale
+    rounded to bf16, the scale rounded first; float32: split TF32), + bias
+    (+ mask), the softmax as e * the rounded 1 / sum(e); dP = g . v^T; dS
+    = P (dP - rowsum(dP P)) in float32; dV = P^T . g, dQ = scale dS . k,
+    dK = scale dS^T . q with P and dS split into two bf16 operands in bf16
+    and everything in split TF32 in float32 (without *split*: P and dS
+    rounded to bf16 once, or one TF32 pass); dbias and dmask from
+    :func:`summed_partials` over groups of *n_w* windows (the mask's rows,
+    or 1 without a mask, as K1's grid; K2's grid always takes the image's
+    windows) and chunks of *per* images.  Returns (dq, dk, dv, dbias,
+    dmask) in the inputs' dtype (dbias and dmask float32)."""
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        qs = (q * _bf16_scale(scale)).float()
+    else:
+        qs = q.float() * float(torch.tensor(scale, dtype=torch.float32))
+    logits = _product(qs, k.transpose(-1, -2), bf16, split) \
+        + bias[None].float()
+    b_, h, n, _ = logits.shape
+    if mask is not None:
+        rows = mask.shape[0]
+        logits = (logits.reshape(b_ // rows, rows, h, n, n)
+                  + mask[None, :, None].float()).reshape(b_, h, n, n)
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    probs = e * (1.0 / e.sum(-1, keepdim=True))
+    dprobs = _product(g, v.transpose(-1, -2), bf16, split)
+    ds = probs * (dprobs - (dprobs * probs).sum(-1, keepdim=True))
+    scale32 = float(torch.tensor(scale, dtype=torch.float32))
+    dv = _float_product(probs.transpose(-1, -2), g, bf16, split)
+    dq = scale32 * _float_product(ds, k, bf16, split)
+    dk = scale32 * _float_product(ds.transpose(-1, -2), q, bf16, split)
+    if n_w is None:
+        n_w = 1 if mask is None else mask.shape[0]
+    dbias, dmask = summed_partials(ds, n_w, h, per)
+    return (dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype), dbias,
+            None if mask is None else dmask)
+
+
+def image_windows(x, window: int, parts: int, heads: int):
+    """(B, Rh, Rw, parts * C) -> (parts, B_, H, N, D): window partition and
+    head split of each of *parts* channel blocks."""
+    b, rows, cols, c = x.shape
+    t = x.reshape(b, rows // window, window, cols // window, window, c)
+    t = t.permute(0, 1, 3, 2, 4, 5).reshape(-1, window * window, parts,
+                                            heads, c // parts // heads)
+    return t.permute(2, 0, 3, 1, 4)
+
+
+def image_merge(t, b: int, rows: int, cols: int, window: int):
+    """(parts, B_, H, N, D) -> (B, Rh, Rw, parts * C): the inverse of
+    :func:`image_windows`."""
+    parts, _, heads, n, d = t.shape
+    t = t.permute(1, 3, 0, 2, 4).reshape(b, rows // window, cols // window,
+                                         window, window, parts * heads * d)
+    return t.permute(0, 1, 3, 2, 4, 5).reshape(b, rows, cols,
+                                               parts * heads * d)
+
+
+def image_attention_backward_model(qkv, bias, mask, scale: float,
+                                   window: int, g, split: bool = True,
+                                   per: int = 1):
+    """The image-layout backward kernel's arithmetic: qkv (B, Rh, Rw, 3C),
+    g (B, Rh, Rw, C) -> (dqkv, dbias, dmask), through
+    :func:`window_attention_backward_model` on the windows with K2's grid
+    (a block per window of the image and head)."""
+    b, rows, cols, _ = qkv.shape
+    heads = bias.shape[0]
+    t = image_windows(qkv, window, 3, heads)
+    gw = image_windows(g, window, 1, heads)[0]
+    n_w = (rows // window) * (cols // window)
+    dq, dk, dv, dbias, dmask = window_attention_backward_model(
+        t[0], t[1], t[2], bias, mask, scale, gw, split, n_w=n_w, per=per)
+    dqkv = image_merge(torch.stack([dq, dk, dv]), b, rows, cols, window)
+    return dqkv, dbias, dmask
+
+
 WORKER = pathlib.Path(__file__).with_name("torch_dp_worker.py")
 
 
