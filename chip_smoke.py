@@ -6,10 +6,10 @@ Run from the root of a checkout on a machine with one NVIDIA Hopper card:
     python3 chip_smoke.py
 
 It builds every CUDA kernel of the port from ``csrc/`` (one nvcc per source,
-all at once) and counts the tensor-core instructions (HMMA) of each kernel
-instance in its SASS, beside ptxas's registers and spills: every instance,
-bf16 and float32 (split TF32), runs on the tensor cores, and one without
-HMMA fails.  It holds each
+all at once) and counts the tensor-core instructions (HMMA; HGMMA, the
+warpgroup's, in the float32 backward) of each kernel instance in its SASS,
+beside ptxas's registers and spills: every instance, bf16 and float32
+(split TF32), runs on the tensor cores, and one without HMMA fails.  It holds each
 kernel against its plain PyTorch version on the card at the shapes the
 serving path gives it: K1 (window attention, windows layout) and K2 (the
 image-layout path, which also holds against the K1 path on the same input),
@@ -20,7 +20,8 @@ exceed twice the L2) and warm, beside its plain version, one PyTorch
 library call and the bound.  ``[k1 bwd]`` and ``[k2 bwd]`` do the same
 for the backward kernels at the shapes of one ``swin_224_train`` step (K2
 also on the bands of rows of spatial sharding), the gradients bit-equal
-on a second launch.  (To time K1 and K2 against another checkout, see
+on a second launch, and print each backward instance's registers, spills,
+shared memory and warps resident per SM (eight or more in float32).  (To time K1 and K2 against another checkout, see
 ``medsegpretrainimagenet_tpu_torch/ops/kernel_ab.py``.)  It drives the
 full-width Swin U-Net 224 (``swin_unet_224``, random weights from a seed)
 through the port's ``predict_from_config`` in bf16 on both paths, the
@@ -301,6 +302,10 @@ def _ptxas_report(log: str) -> dict:
 KERNEL_LIBRARIES = {"window_attention", "image_attention",
                     "window_attention_bwd", "image_attention_bwd"}
 
+#: [build]'s report per kernel instance (``window_attention_bwd<f32, DP
+#: 32>``): ptxas's registers and spills
+PTXAS = {}
+
 
 def phase_build():
     """Build every kernel; per kernel instance its HMMA count in the SASS
@@ -328,10 +333,12 @@ def phase_build():
         instances = []
         for symbol, (code, _) in parse_sass(sass.stdout).items():
             hmma = sum(op.startswith("HMMA") for op in opcodes(code))
+            hgmma = sum(op.startswith("HGMMA") for op in opcodes(code))
             label = instance_label(symbol)
             instances.append(label)
-            print(f"[build]   {label}: {hmma} HMMA, "
-                  f"{ptxas.get(symbol, 'no ptxas report')}")
+            PTXAS[label] = ptxas.get(symbol, "no ptxas report")
+            print(f"[build]   {label}: {hmma} HMMA, {hgmma} HGMMA, "
+                  f"{PTXAS[label]}")
             check(hmma > 0 or "sum_partials" in symbol,
                   f"{label} ({symbol}): a kernel instance without "
                   f"tensor-core instructions")
@@ -861,10 +868,12 @@ def hold_grads(what: str, got, want, names, plain):
 
 
 def phase_bwd():
-    """[k1 bwd] and [k2 bwd]: each backward kernel against its plain
-    version at every level shape of one swin_224_train step (batch 24,
-    W-MSA and SW-MSA, dmask asked for under SW-MSA), bf16 and float32,
-    and K2's on the [k2 band] bands (28 x 56 and 14 x 56 of 56 at batch 8,
+    """[k1 bwd] and [k2 bwd]: each backward kernel's instance at N 49, D
+    32 (ptxas's registers and spills, shared memory a block, blocks and
+    warps resident per SM: at least eight warps in float32); each kernel
+    against its plain version at every level shape of one swin_224_train
+    step (batch 24, W-MSA and SW-MSA, dmask asked for under SW-MSA), bf16
+    and float32, and K2's on the [k2 band] bands (28 x 56 and 14 x 56 of 56 at batch 8,
     the last band's mask rows); bit-equal gradients on a second launch;
     times per shape (the backward alone, L2-cold, dbias asked for as in
     training) beside the plain backward, the library (SDPA's backward,
@@ -888,6 +897,25 @@ def phase_bwd():
                 "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                 "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                 "max_abs_err": 0.0, "table_err": 0.0}
+    # each instance at swin_unet_224's shapes (N 49, D 32, masked): its
+    # registers and spills, shared memory a block, blocks and warps per
+    # SM; the float32 instances keep eight warps an SM (two blocks)
+    for kernel, name in (("k1", "window_attention"),
+                         ("k2", "image_attention")):
+        for dtype, label in ((torch.bfloat16, "bf16"),
+                             (torch.float32, "f32")):
+            smem, blocks = wa.backward_residency(name, dtype, TOKENS,
+                                                 HEAD_DIM, True)
+            instance = f"{name}_bwd<{label}, DP {HEAD_DIM}>"
+            print(f"[{kernel} bwd] {instance}: "
+                  f"{PTXAS.get(instance, 'no ptxas report')}, {smem} bytes "
+                  f"of shared memory a block, {blocks} blocks ({4 * blocks} "
+                  f"warps) resident per SM", flush=True)
+            out[kernel, str(dtype)].update(smem_bytes=smem,
+                                           blocks_per_sm=blocks)
+            check(dtype == torch.bfloat16 or 4 * blocks >= 8,
+                  f"[{kernel} bwd] {instance}: {4 * blocks} warps per SM, "
+                  f"under eight")
     cases = [(level, heads, n_w, masked, n_masked if masked else n_plain, 1)
              for level, heads, n_w, n_masked, n_plain in LEVELS
              for masked in (False, True) if not masked or n_masked]
@@ -3484,7 +3512,7 @@ PRETRAIN_SMALL_EPS = 1e-4
 #: files, PRETRAIN_CLI_CLASSES of the 1000 classes used, each with its own
 #: tint, so that the loss has something to learn in two epochs
 PRETRAIN_TRAIN, PRETRAIN_VAL, PRETRAIN_EPOCHS, PRETRAIN_CLI_CLASSES = \
-    640, 128, 2, 20
+    448, 128, 2, 20
 #: epoch_logs.csv's columns for the pretraining config, the JAX CLI's set
 #: (tests/test_torch_cli.py holds the two CLIs' sets equal)
 PRETRAIN_EPOCH_COLUMNS = {
@@ -5332,9 +5360,9 @@ MIXED_IMAGES = 64
 #: stride IDRID_STRIDE (val: at the crop size), darkness threshold 0.99;
 #: RandomPick crops of IDRID_PICK (the shipped config's 448 -> 224), val
 #: Partition (2, 2).  The [cli] U-Net in bf16, batch CLI_BATCH, SGD at
-#: IDRID_LR (12 steps an epoch), the COVID-QU metric set; IDRID_EPOCHS
-#: epochs in one process
-IDRID_TRAIN, IDRID_TEST, IDRID_SOURCE = 12, 6, (2848, 4288)
+#: IDRID_LR (about 8 steps an epoch), the COVID-QU metric set;
+#: IDRID_EPOCHS epochs in one process
+IDRID_TRAIN, IDRID_TEST, IDRID_SOURCE = 8, 4, (2848, 4288)
 IDRID_DISC, IDRID_SPOTS = 1100, 60
 IDRID_BASE, IDRID_CROP, IDRID_STRIDE, IDRID_PICK = (1024, 2048), 448, 256, 224
 IDRID_LR, IDRID_EPOCHS = 0.05, 3
@@ -5958,7 +5986,9 @@ def main() -> int:
                 "ms": reading["ms"], "plain_ms": reading["plain_ms"],
                 "bound_ms": reading["bound_ms"],
                 "bound_by": reading["bound_by"],
-                "library_ms": reading["library_ms"]}
+                "library_ms": reading["library_ms"],
+                "smem_bytes": reading["smem_bytes"],
+                "warps_per_sm": 4 * reading["blocks_per_sm"]}
             if suffix:
                 entry["launches"] = par[f"sp_swin_{kernel}_bwd_launches"]
                 if kernel == "k1":

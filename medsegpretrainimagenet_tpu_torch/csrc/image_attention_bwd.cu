@@ -26,10 +26,11 @@
 // written: 7C * B*Rh*Rw * itemsize; the windows-layout path would add a
 // partition and a merge copy of each).  One kernel, image_attention_bwd<T,
 // DP> for T = bf16 and float, runs K1's backward body
-// (attention_tile_bwd.cuh: tile::grad_pairs) with K2's addressing: a head's
-// token is a run of D values of its pixel, loaded and stored 16 bytes at a
-// time, a block keeps its window's token offsets in shared memory, and a
-// block takes one (window, head) and walks the images.
+// (attention_tile_bwd.cuh: tile::grad_pairs, tile::grad_pairs_f32) with
+// K2's addressing: a head's token is a run of D values of its pixel,
+// loaded and stored 16 bytes at a time, a block keeps its window's token
+// offsets in shared memory, and a block takes one (window, head) and walks
+// the images.
 #include "attention_tile_bwd.cuh"
 
 #include <cuda_bf16.h>
@@ -104,13 +105,18 @@ image_attention_bwd(const T* __restrict__ qkv, const T* __restrict__ g,
                         p.w % n_wc,
                         3 * static_cast<size_t>(channels),
                         static_cast<size_t>(channels)};
-  tile::grad_pairs<DP>(
-      at, tile_smem, bias + p.h * static_cast<size_t>(n) * n,
-      mask == nullptr ? nullptr : mask + p.w * static_cast<size_t>(n) * n,
-      partial == nullptr
-          ? nullptr
-          : partial + blockIdx.x * static_cast<size_t>(n) * n,
-      n, d, p.count, scale, vec);
+  const float* bias_w = bias + p.h * static_cast<size_t>(n) * n;
+  const float* mask_w =
+      mask == nullptr ? nullptr : mask + p.w * static_cast<size_t>(n) * n;
+  float* partial_b = partial == nullptr
+                         ? nullptr
+                         : partial + blockIdx.x * static_cast<size_t>(n) * n;
+  if constexpr (std::is_same<T, float>::value)
+    tile::grad_pairs_f32<DP>(at, tile_smem, bias_w, mask_w, partial_b, n, d,
+                             p.count, scale, vec);
+  else
+    tile::grad_pairs<DP>(at, tile_smem, bias_w, mask_w, partial_b, n, d,
+                         p.count, scale, vec);
 }
 
 // the shapes the kernel takes
@@ -144,6 +150,18 @@ long long tiles(int batch, int rows, int cols, int channels, int heads,
     return tile::grad_blocks(
         reinterpret_cast<const void*>(image_attention_bwd<T, DP>),
         smem_bytes<T>(n, channels / heads, masked != 0), groups, batch);
+  });
+}
+
+template <class T>
+int residency(int window, int d, int masked, int* smem, int* blocks) {
+  if (!takes(1, window, window, d, 1, window))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return tile::with_padded_d(d, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    return tile::grad_residency(
+        reinterpret_cast<const void*>(image_attention_bwd<T, DP>),
+        smem_bytes<T>(window * window, d, masked != 0), smem, blocks);
   });
 }
 
@@ -187,6 +205,11 @@ int backward(const void* qkv, const void* g, const void* bias,
 // partial tiles a backward at these shapes needs (masked: a mask is given),
 // or minus a CUDA error.
 //
+// image_attention_bwd_residency_{bf16,f32}: the shared memory (bytes) a
+// block of the backward kernel takes for a window of window^2 tokens and
+// heads of d channels, and how many such blocks an SM holds at once (four
+// warps each); 0 or a CUDA error.
+//
 // image_attention_bwd_{bf16,f32}: mask may be null (W-MSA).  partial
 // (n_tiles tiles of n * n floats) is scratch for the blocks' dS sums;
 // dbias and dmask are written if not null (dmask only with a mask), and
@@ -204,6 +227,18 @@ extern "C" long long image_attention_bwd_tiles_f32(int batch, int rows,
                                                    int heads, int window,
                                                    int masked) {
   return tiles<float>(batch, rows, cols, channels, heads, window, masked);
+}
+
+extern "C" int image_attention_bwd_residency_bf16(int window, int d,
+                                                 int masked, int* smem,
+                                                 int* blocks) {
+  return residency<bf16>(window, d, masked, smem, blocks);
+}
+
+extern "C" int image_attention_bwd_residency_f32(int window, int d,
+                                                int masked, int* smem,
+                                                int* blocks) {
+  return residency<float>(window, d, masked, smem, blocks);
 }
 
 extern "C" int image_attention_bwd_bf16(const void* qkv, const void* g,

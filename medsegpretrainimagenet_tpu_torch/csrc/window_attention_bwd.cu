@@ -19,7 +19,8 @@
 // dk and dv written: 7 * B_*H*N*D*itemsize; about 28 FLOP per byte in
 // bf16 at N = 49, D = 32).  One kernel, window_attention_bwd<T, DP>, for T
 // = bf16 and float, makes one pass over those bytes with the probabilities
-// recomputed on the chip (attention_tile_bwd.cuh: tile::grad_pairs), and
+// recomputed on the chip (attention_tile_bwd.cuh: tile::grad_pairs in
+// bf16, tile::grad_pairs_f32 on the warpgroup MMA in float32), and
 // tile::sum_partials adds the blocks' dS sums into dbias and dmask in a
 // fixed order.  This file gives the body only K1's addressing: pair t of a
 // block is one contiguous N*D run of each of q, k, v, g, dq, dk and dv.
@@ -70,13 +71,18 @@ window_attention_bwd(const T* __restrict__ q, const T* __restrict__ k,
   const tile::Pairs p = tile::block_pairs(heads, n_w, per, images);
   const WindowsGrad<T> at{q, k, v, g, dq, dk, dv, p, heads, n_w,
                           static_cast<size_t>(n) * d, d};
-  tile::grad_pairs<DP>(
-      at, tile_smem, bias + p.h * static_cast<size_t>(n) * n,
-      mask == nullptr ? nullptr : mask + p.w * static_cast<size_t>(n) * n,
-      partial == nullptr
-          ? nullptr
-          : partial + blockIdx.x * static_cast<size_t>(n) * n,
-      n, d, p.count, scale, vec);
+  const float* bias_w = bias + p.h * static_cast<size_t>(n) * n;
+  const float* mask_w =
+      mask == nullptr ? nullptr : mask + p.w * static_cast<size_t>(n) * n;
+  float* partial_b = partial == nullptr
+                         ? nullptr
+                         : partial + blockIdx.x * static_cast<size_t>(n) * n;
+  if constexpr (std::is_same<T, float>::value)
+    tile::grad_pairs_f32<DP>(at, tile_smem, bias_w, mask_w, partial_b, n, d,
+                             p.count, scale, vec);
+  else
+    tile::grad_pairs<DP>(at, tile_smem, bias_w, mask_w, partial_b, n, d,
+                         p.count, scale, vec);
 }
 
 // the shapes the kernel takes; n_w is 1 without a mask
@@ -96,6 +102,17 @@ long long tiles(int windows, int heads, int n, int d, int n_w, int masked) {
         reinterpret_cast<const void*>(window_attention_bwd<T, DP>),
         tile::grad_smem_bytes<T, DP>(n, masked != 0),
         static_cast<long long>(n_w) * heads, windows / n_w);
+  });
+}
+
+template <class T>
+int residency(int n, int d, int masked, int* smem, int* blocks) {
+  if (!takes(1, 1, n, d, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  return tile::with_padded_d(d, [&](auto dp) {
+    constexpr int DP = decltype(dp)::value;
+    return tile::grad_residency(
+        reinterpret_cast<const void*>(window_attention_bwd<T, DP>),
+        tile::grad_smem_bytes<T, DP>(n, masked != 0), smem, blocks);
   });
 }
 
@@ -140,6 +157,10 @@ int backward(const void* q, const void* k, const void* v, const void* g,
 // partial tiles a backward at these shapes needs (masked: a mask is given),
 // or minus a CUDA error.
 //
+// window_attention_bwd_residency_{bf16,f32}: the shared memory (bytes) a
+// block of the backward kernel takes at these shapes and how many such
+// blocks an SM holds at once (four warps each); 0 or a CUDA error.
+//
 // window_attention_bwd_{bf16,f32}: mask may be null (W-MSA; n_w is then
 // ignored).  partial (n_tiles tiles of n * n floats) is scratch for the
 // blocks' dS sums; dbias and dmask are written if not null (dmask only
@@ -155,6 +176,16 @@ extern "C" long long window_attention_bwd_tiles_f32(int windows, int heads,
                                                     int n, int d, int n_w,
                                                     int masked) {
   return tiles<float>(windows, heads, n, d, n_w, masked);
+}
+
+extern "C" int window_attention_bwd_residency_bf16(int n, int d, int masked,
+                                                  int* smem, int* blocks) {
+  return residency<bf16>(n, d, masked, smem, blocks);
+}
+
+extern "C" int window_attention_bwd_residency_f32(int n, int d, int masked,
+                                                 int* smem, int* blocks) {
+  return residency<float>(n, d, masked, smem, blocks);
 }
 
 extern "C" int window_attention_bwd_bf16(

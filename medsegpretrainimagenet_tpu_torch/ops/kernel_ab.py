@@ -19,10 +19,11 @@ limit, ``[ab]`` lines per shape, the sums per forward, and exits non-zero
 on any failure.
 
 ``--backward`` times the backward kernels instead
-(``window_attention_backward_cuda``, ``image_attention_backward_cuda``, at
-the same shapes with a random cotangent, dbias asked for and dmask not, as
-a training step asks): the bf16 shapes are also those of one
-``swin_224_train`` step.  Both trees need the backward kernels; the
+(``window_attention_backward_cuda``, ``image_attention_backward_cuda``,
+with a random cotangent, dbias asked for and dmask not, as a training step
+asks) at the attention shapes of one ``swin_224_train`` step (batch 24,
+the bf16 forward's seven level shapes) in either dtype: a float32 Swin
+U-Net trains at those shapes too.  Both trees need the backward kernels; the
 gradients (dq, dk, dv or dqkv, then dbias) must agree within the dtype's
 bar, dbias relative to its largest value.
 
@@ -214,10 +215,19 @@ def library_sass(library: str) -> dict:
             for symbol, code in parse_sass(sass, usage).items()}
 
 
-def _shapes(dtype: str = "bfloat16"):
+def _case(dtype: str, backward: bool = False) -> tuple:
+    """(batch, level shapes, bar, what the sums are per) of *dtype*'s
+    forward, or with *backward* of one swin_224_train step's backward"""
+    batch, levels, tol, forward = CASES[dtype]
+    if backward:
+        return BATCH, LEVELS, tol, "swin_224_train step's backward"
+    return batch, levels, tol, forward
+
+
+def _shapes(dtype: str = "bfloat16", backward: bool = False):
     """(name, level, heads, windows per image, masked, calls per forward)
-    of *dtype*'s forward"""
-    for level, heads, n_w, n_masked, n_plain in CASES[dtype][1]:
+    of *dtype*'s forward, or with *backward* of one swin_224_train step"""
+    for level, heads, n_w, n_masked, n_plain in _case(dtype, backward)[1]:
         for masked, calls in ((False, n_plain), (True, n_masked)):
             if calls:
                 yield (f"level {level} {'SW-MSA' if masked else 'W-MSA '}",
@@ -241,9 +251,10 @@ def _worker(tree: Path, save: Optional[Path], dtype_name: str,
     gen = torch.Generator().manual_seed(4)
     scale = HEAD_DIM ** -0.5
     dtype = getattr(torch, dtype_name)
-    batch = CASES[dtype_name][0]
+    batch = _case(dtype_name, backward)[0]
     times, outs = {}, {}
-    for shape, level, heads, n_w, masked, _ in _shapes(dtype_name):
+    for shape, level, heads, n_w, masked, _ in _shapes(dtype_name,
+                                                       backward):
         res = 56 // 2 ** level
         q, k, v = (torch.randn(batch * n_w, heads, TOKENS, HEAD_DIM,
                                generator=gen).to("cuda", dtype)
@@ -533,12 +544,11 @@ def main(argv=None) -> int:
         libraries[who] = turn["libraries"]
     outs = {who: torch.load(out_dir / f"{who}-{args.dtype}-{kind}.pt")
             for who in times}
-    _, _, tol, forward = CASES[args.dtype]
+    _, _, tol, forward = _case(args.dtype, args.backward)
     label = "bf16" if args.dtype == "bfloat16" else "f32"
     if args.backward:
         label += " backward"
-        forward += " (its backward)"
-    shapes = list(_shapes(args.dtype))
+    shapes = list(_shapes(args.dtype, args.backward))
     failed = []
     for shape, *_, calls in shapes:
         for name in ("k1", "k2"):

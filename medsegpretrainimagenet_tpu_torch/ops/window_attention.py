@@ -275,6 +275,27 @@ def _grad_entry(kernel: str, dtype: torch.dtype, tiles: bool = False):
     return fn
 
 
+def backward_residency(kernel: str, dtype: torch.dtype, tokens: int,
+                       head_dim: int, masked: bool) -> tuple:
+    """``(shared-memory bytes per block, blocks per SM)`` of *kernel*'s
+    backward (``window_attention`` or ``image_attention``) in *dtype* at
+    windows of *tokens* tokens and heads of *head_dim* channels, as the
+    card schedules it (four warps a block).  Needs the card."""
+    lib = _build.library(f"{kernel}_bwd")
+    suffix = "bf16" if dtype == torch.bfloat16 else "f32"
+    fn = getattr(lib, f"{kernel}_bwd_residency_{suffix}")
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    size = tokens if kernel == "window_attention" \
+        else int(round(math.sqrt(tokens)))
+    err = fn(size, head_dim, int(masked), ctypes.byref(smem),
+             ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"{kernel} backward residency: CUDA error {err}")
+    return smem.value, blocks.value
+
+
 def _partials(kernel: str, dtype: torch.dtype, device: torch.device,
               n: int, shape: tuple):
     """(scratch, tiles): float32 scratch for the dS sums of the blocks of

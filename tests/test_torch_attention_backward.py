@@ -15,6 +15,10 @@ rows of the shift mask), two images each.
   apart).  dbias and dmask, which sum over windows,
   are held relative to their largest magnitude, to the float32 bars in
   both dtypes (dS is float32 in both).
+* The float32 kernel adds S + (bias + mask) (one table a block), the JAX
+  package (S + bias) + mask; the model follows the kernel, and the two
+  orders keep a tenth of the float32 bars apart, under the shift mask and
+  under a dense one.
 * In float32 it holds against the JAX package's custom VJPs, ``_fused_bwd``
   and ``_fused_image_bwd`` (plain jnp, called straight on the inputs;
   for the band, whose rectangle ``_xla_image_attention`` does not take,
@@ -162,6 +166,34 @@ def test_model_keeps_a_tenth_of_the_bars(kernel, dtype, level, heads, rows,
         bar = torch.clamp(_bf16_step(want[name]), min=BF16_TOL / MARGIN)
         assert (diff <= bar).all(), (name, err)
         assert err < BF16_TOL
+
+
+MASKED_SHAPES = [shape for shape in SHAPES if shape.values[3]] + [BAND]
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2"])
+@pytest.mark.parametrize("mask_kind", ["shift", "dense"])
+@pytest.mark.parametrize("level,heads,rows,masked", MASKED_SHAPES)
+def test_summed_table_keeps_a_tenth_of_the_bars(kernel, mask_kind, level,
+                                                heads, rows, masked):
+    """The float32 kernel adds S + (bias + mask), the table its block sums
+    when it loads it, where the JAX package and the plain version take (S
+    + bias) + mask.  The model in either order, against the other and
+    against the plain version, keeps a tenth of the float32 bars: under
+    Swin's shift mask (0 or -100) and under a dense mask of standard
+    normal values, whose sums with the bias round at every entry."""
+    qkv, g, bias, mask = _inputs(level, heads, rows, masked, seed=2)
+    if mask_kind == "dense":
+        rng = np.random.default_rng(7 + level)
+        mask = rng.standard_normal(mask.shape).astype(np.float32)
+    arrays = (qkv, g, bias, mask)
+    want = _grads(kernel, "plain", arrays, torch.float32)
+    summed = _grads(kernel, "model", arrays, torch.float32, summed=True)
+    added = _grads(kernel, "model", arrays, torch.float32, summed=False)
+    for got, ref in ((summed, want), (added, want), (summed, added)):
+        for name, (err, mean_err) in _readings(got, ref).items():
+            assert err < F32_TOL / MARGIN, (name, err)
+            assert mean_err < F32_MEAN_TOL / MARGIN, (name, mean_err)
 
 
 #: the JAX package's backward functions as they are, each traced once per

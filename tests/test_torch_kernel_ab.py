@@ -114,6 +114,23 @@ def test_backward_mode_is_one_of_the_modes(tmp_path):
     assert "holds no medsegpretrainimagenet_tpu_torch package" in run.stderr
 
 
+def test_backward_times_one_swin_224_train_step_in_either_dtype():
+    """``--backward`` times the 14 attention calls of one swin_224_train
+    step (batch 24, chip_smoke.py's [k1 bwd] and [k2 bwd]) in bf16 and in
+    float32, each under its dtype's bar; the float32 forward keeps
+    robustness_224's shapes."""
+    import chip_smoke
+
+    for dtype, tol in (("bfloat16", chip_smoke.BF16_TOL),
+                       ("float32", chip_smoke.F32_TOL)):
+        batch, _, bar, what = kernel_ab._case(dtype, backward=True)
+        assert (batch, bar) == (chip_smoke.BATCH, tol) == (24, tol)
+        assert "swin_224_train" in what
+        assert list(kernel_ab._shapes(dtype, backward=True)) \
+            == list(kernel_ab._shapes("bfloat16"))
+    assert kernel_ab._case("float32")[0] == kernel_ab.ROB_PROBES
+
+
 def test_backward_instances_have_labels_of_their_own():
     """The backward kernels' instances, as nvcc names them on the card
     (the file's own anonymous namespace first), are labelled apart from

@@ -201,6 +201,20 @@ def test_window_attention_backward_kernel_matches_plain(
         assert (a is None and b is None) or torch.equal(a, b)
 
 
+@pytest.mark.parametrize("kernel", ["window_attention", "image_attention"])
+def test_float32_backward_keeps_eight_warps_per_sm(cuda_device, kernel):
+    """The float32 backward at swin_unet_224's shapes (N 49, D 32, masked)
+    holds two blocks of four warps on an SM: at level 1's SW-MSA call (16
+    windows x 6 heads at batch 24) its grid, and so its partial-tile
+    count, takes at least twice the 96 groups."""
+    smem, blocks = wa.backward_residency(kernel, torch.float32, 49, 32, True)
+    assert 4 * blocks >= 8, (smem, blocks)
+    shape = (24 * 16, 6, 49, 32, 16, 1) if kernel == "window_attention" \
+        else (24, 28, 28, 6 * 32, 6, 7, 1)
+    tiles = wa._grad_entry(kernel, torch.float32, tiles=True)(*shape)
+    assert tiles >= 2 * 96, tiles
+
+
 def test_backward_kernels_give_only_the_table_gradients_asked_for(
         cuda_device):
     q, k, v, bias, mask = _inputs(torch.float32, True, cuda_device, seed=5)

@@ -411,11 +411,14 @@ def summed_partials(ds, n_w: int, heads: int, per: int):
 
 def window_attention_backward_model(q, k, v, bias, mask, scale: float, g,
                                     split: bool = True, n_w=None,
-                                    per: int = 1):
+                                    per: int = 1, summed=None):
     """The backward kernels' arithmetic on (B_, H, N, D) operands of their
     dtype: S = (q * scale) . k^T as the forward takes it (bf16: q * scale
-    rounded to bf16, the scale rounded first; float32: split TF32), + bias
-    (+ mask), the softmax as e * the rounded 1 / sum(e); dP = g . v^T; dS
+    rounded to bf16, the scale rounded first; float32: split TF32), +
+    bias (+ mask): in bf16 (S + bias) + mask as the JAX package adds them,
+    in float32 S + (bias + mask), the table that the float32 kernel sums
+    when its block loads it (*summed* picks either order in either dtype);
+    the softmax as e * the rounded 1 / sum(e); dP = g . v^T; dS
     = P (dP - rowsum(dP P)) in float32; dV = P^T . g, dQ = scale dS . k,
     dK = scale dS^T . q with P and dS split into two bf16 operands in bf16
     and everything in split TF32 in float32 (without *split*: P and dS
@@ -429,13 +432,21 @@ def window_attention_backward_model(q, k, v, bias, mask, scale: float, g,
         qs = (q * _bf16_scale(scale)).float()
     else:
         qs = q.float() * float(torch.tensor(scale, dtype=torch.float32))
-    logits = _product(qs, k.transpose(-1, -2), bf16, split) \
-        + bias[None].float()
+    logits = _product(qs, k.transpose(-1, -2), bf16, split)
     b_, h, n, _ = logits.shape
-    if mask is not None:
+    summed = not bf16 if summed is None else summed
+    if mask is None:
+        logits = logits + bias[None].float()
+    else:
         rows = mask.shape[0]
-        logits = (logits.reshape(b_ // rows, rows, h, n, n)
-                  + mask[None, :, None].float()).reshape(b_, h, n, n)
+        logits = logits.reshape(b_ // rows, rows, h, n, n)
+        if summed:
+            logits = logits + (bias[None, None].float()
+                               + mask[None, :, None].float())
+        else:
+            logits = (logits + bias[None, None].float()) \
+                + mask[None, :, None].float()
+        logits = logits.reshape(b_, h, n, n)
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
     probs = e * (1.0 / e.sum(-1, keepdim=True))
     dprobs = _product(g, v.transpose(-1, -2), bf16, split)
@@ -473,7 +484,7 @@ def image_merge(t, b: int, rows: int, cols: int, window: int):
 
 def image_attention_backward_model(qkv, bias, mask, scale: float,
                                    window: int, g, split: bool = True,
-                                   per: int = 1):
+                                   per: int = 1, summed=None):
     """The image-layout backward kernel's arithmetic: qkv (B, Rh, Rw, 3C),
     g (B, Rh, Rw, C) -> (dqkv, dbias, dmask), through
     :func:`window_attention_backward_model` on the windows with K2's grid
@@ -484,7 +495,8 @@ def image_attention_backward_model(qkv, bias, mask, scale: float,
     gw = image_windows(g, window, 1, heads)[0]
     n_w = (rows // window) * (cols // window)
     dq, dk, dv, dbias, dmask = window_attention_backward_model(
-        t[0], t[1], t[2], bias, mask, scale, gw, split, n_w=n_w, per=per)
+        t[0], t[1], t[2], bias, mask, scale, gw, split, n_w=n_w, per=per,
+        summed=summed)
     dqkv = image_merge(torch.stack([dq, dk, dv]), b, rows, cols, window)
     return dqkv, dbias, dmask
 
