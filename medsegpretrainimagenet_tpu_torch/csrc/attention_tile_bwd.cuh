@@ -2,9 +2,9 @@
 // kernels of window_attention_bwd.cu (K1's backward) and
 // image_attention_bwd.cu (K2's), in bf16 and in float32.  As in the
 // forward's attention_tile.cuh, the two kernels differ only in where a
-// pair's operands lie: each hands grad_pairs (grad_pairs_f32 in float32)
-// an addressing functor, and this header does the rest (the buffers, the
-// pipeline over a block's pairs, the dS partials and their sum).
+// pair's operands lie: each hands grad_pairs_bf16 (grad_pairs_f32 in
+// float32) an addressing functor, and this header does the rest (the
+// tiles, the walk over a block's pairs, the dS partials and their sum).
 //
 // A pair is q, k, v and the output's cotangent g: (n, d) of T (bf16 or
 // float), n <= 64, d <= 64.  It computes, with the rounding points of the
@@ -22,34 +22,38 @@
 // of 2*n*n*d operations each (the S recompute besides): at N = 49, D = 32
 // about 28 FLOP per byte in bf16, far under the card's ridges.  So both
 // instances make one pass over those bytes and keep everything else on the
-// chip; the bf16 one (grad_pairs) so:
-// - S and P are recomputed in registers, one 16-row mma strip per warp
-//   (a window's whole row fits it), as the forward computes them: no
-//   logsumexp is saved, and the forward's operator is unchanged;
+// chip:
+// - S and P are recomputed on the chip, each warp holding the 16 query
+//   rows of its strip (a window's whole row fits it), as the forward
+//   computes them: no logsumexp is saved, and the forward's operator is
+//   unchanged;
 // - phase 1, per warp and its strip of query rows: S, P, dP = g . v^T
 //   and dS in registers (dP has S's accumulator layout, so the row sum
 //   of dP o P is a quad shuffle), dQ = dS . k from the registers (dS's
 //   accumulator layout is the A layout of the next product, as P's is in
-//   the forward), and P and dS into two tiles of shared memory;
+//   the forward), and P and dS into tiles of shared memory;
 // - phase 2, per warp and its strip of key rows: the transposed products
 //   dV = P^T . g and dK = dS^T . q sum over the query rows of all four
-//   warps, so they read P and dS from those tiles with ldmatrix.trans
-//   (the tiles stored as [query][key] are the A operand's transpose);
-// - q, k, v and g come in by 16-byte cp.async, double-buffered across a
-//   block's pairs; dq, dk and dv are staged in the pair's own q, k and v
-//   tiles (after the last read of each) and leave with 16-byte stores;
+//   warps, so they read P and dS from those tiles;
 // - a block takes one (window mod nW, head) and walks its images (the
-//   forward's grid, tile::plan), so its bias and mask tiles load once and
-//   each thread keeps its strip's running sum of dS in registers; at the
-//   end the block writes that sum as an (n, n) float32 partial, and a
-//   second small launch (sum_partials) adds the partials in a fixed order
-//   into dbias (H, N, N) and dmask (nW, N, N): no float atomics, so the
-//   same inputs give bit-equal gradients run to run.
+//   forward's grid, tile::plan), so its bias and mask load once, summed
+//   into one table, and each thread keeps its strip's running sum of dS
+//   in registers; at the end the block writes that sum as an (n, n)
+//   float32 partial, and a second small launch (sum_partials) adds the
+//   partials in a fixed order into dbias (H, N, N) and dmask (nW, N, N):
+//   no float atomics, so the same inputs give bit-equal gradients run to
+//   run.
 //
-// bf16: mma.sync.m16n8k16, float32 accumulators.  q*scale is rounded to
-// bf16 with the scale rounded first (the forward's S); q, k, v and g are
-// bf16 already, so every product of them is exact in float32.  P and dS
-// are float32 (as in _fused_bwd, and the plain version
+// The summed table moves S's rounding: S + (bias + mask) where the JAX
+// package takes (S + bias) + mask.  Under Swin's shift mask (0 or -100)
+// the two differ only where the mask is -100 and P is e^-100 of the row's
+// largest: nothing reaches a gradient.
+//
+// bf16 (grad_pairs_bf16, the last section of this file): float32
+// accumulators on the warpgroup's wgmma.  q*scale is rounded to bf16 with
+// the scale rounded first (the forward's S); q, k, v and g are bf16
+// already, so every product of them is exact in float32.  P and dS are
+// float32 (as in _fused_bwd, and the plain version
 // window_attention_backward); they enter the products that take them (dV,
 // dQ, dK) split into two bf16 operands, hi = bf16(x) and lo = bf16(x -
 // hi), as lo.b + hi.b, so that they keep about 16 significant bits.  A
@@ -59,59 +63,35 @@
 // under the forward's bf16 mean bar of 1e-5, and the bf16 gradients are
 // then within one bf16 rounding step of the plain version.
 //
-// float32: the forward's split TF32, each operand x as hi = tf32(x) and lo
-// = tf32(x - hi), each product lo.hi + hi.lo + hi.hi: within a few float32
-// rounding steps of the plain version (one TF32 pass misses the float32
-// bars, as for the forward).  Its own body, grad_pairs_f32 below, is laid
-// out for the H100 (the float32 section at the end of this file).
+// float32 (grad_pairs_f32): the forward's split TF32, each operand x as
+// hi = tf32(x) and lo = tf32(x - hi), each product lo.hi + hi.lo + hi.hi:
+// within a few float32 rounding steps of the plain version (one TF32 pass
+// misses the float32 bars, as for the forward).
 //
 // Padding.  In the q, k, v and g tiles, rows >= n and columns >= d hold
 // zeros, as in the forward.  A padded query row has S = 0 on the keys
 // < n, so P is uniform there, not zero; its g row is zero, so its dP and
 // dS are zero and its P meets a zero row of g in dV: it adds nothing to
-// dV, dK or the dS sum.  Keys >= n have S = -inf and P = 0.  The staged
-// outputs are zero in the columns >= d (they sum products with zero
-// columns), so the tiles stay zero there.
-//
-// bf16 shared memory (elements of T unless said): two pair buffers of
-// four (rows_padded(n), DP + V) tiles, the P and dS tiles (rows_padded(n),
-// 72) as a hi and a lo tile of each, the bias and mask tables ((n, ldb)
-// floats).  At N = 49, D = 32 a masked block takes 99.8 KB (two fit on an
-// SM).  Banks: the P and dS tiles' stride of 72 elements puts the strips'
-// 32-bit stores and the ldmatrix.trans rows of phase 2 in distinct banks.
+// dV, dK or the dS sum.  Keys >= n have S = -inf and P = 0.
 #pragma once
+
+#include <cuda.h>  // CUtensorMap: the maps are encoded through the runtime
 
 #include "attention_tile.cuh"
 
 namespace tile {
 
-// row stride (elements of T) of the P and dS tiles: 64 keys and 8 of
-// padding
-constexpr int kProbLd = 72;
-
-// elements of T of one pair buffer: the q, k, v and g tiles
-template <class T, int DP>
-__host__ __device__ inline int grad_pair_elems(int n) {
-  return 4 * rows_padded(n) * (DP + vec_elems<T>());
-}
-
-// tiles of P and dS: in bf16 a hi and a lo tile of each
-template <class T>
-__host__ __device__ constexpr int prob_tiles() {
-  return std::is_same<T, bf16>::value ? 4 : 2;
-}
-
 template <int DP>
 __host__ __device__ inline size_t grad_smem_bytes_f32(int n);
+template <int DP>
+__host__ __device__ inline size_t grad_smem_bytes_bf16(int n);
 
-// bytes of shared memory: in bf16 two pair buffers, the P and dS tiles,
-// the bias (and mask) table; float32: grad_smem_bytes_f32
+// bytes of shared memory a block of the backward takes (grad_smem_bytes_f32
+// or grad_smem_bytes_bf16; both hold one summed table, masked or not)
 template <class T, int DP>
 __host__ __device__ inline size_t grad_smem_bytes(int n, bool masked) {
   if constexpr (std::is_same<T, float>::value) return grad_smem_bytes_f32<DP>(n);
-  return sizeof(T) * (2 * grad_pair_elems<T, DP>(n) +
-                      prob_tiles<T>() * rows_padded(n) * kProbLd) +
-         (masked ? 2 : 1) * sizeof(float) * n * table_stride(n);
+  return grad_smem_bytes_bf16<DP>(n);
 }
 
 // x0, x1 as hi + lo, each a packed pair of bf16 (lo = bf16(x - hi)), to
@@ -122,44 +102,6 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
   const float2 h =
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi));
   lo = pack_bf16(x0 - h.x, x1 - h.y);
-}
-
-// c[nt] = (a * scale) . b^T for rows r0 .. r0 + 15 of the tile a against
-// the rows (keys) of the tile b, in 8 n-tiles of 8 keys; n-tiles wholly
-// past n stay 0.  bf16 only: a * scale rounded to bf16 (kScale) from
-// ldmatrix fragments, as the forward's S.
-template <int DP, bool kScale, class T>
-__device__ __forceinline__ void strip_abt(const T* a, const T* b, int r0,
-                                          int n, float scale, int lane,
-                                          float (&c)[8][4]) {
-  static_assert(std::is_same<T, bf16>::value, "the bf16 body");
-  constexpr int LD = DP + vec_elems<T>();
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) c[nt][r] = 0.f;
-  constexpr int KS = DP / 16;
-  uint32_t fa[KS][4];
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    ldsm_x4(fa[kk], a + (r0 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-    if constexpr (kScale) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) fa[kk][r] = scale_bf16x2(fa[kk][r], scale);
-    }
-  }
-#pragma unroll
-  for (int jp = 0; jp < 4; ++jp) {
-    if (jp * 16 >= n) continue;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const int key = jp * 16 + (lane & 7) + ((lane >> 4) << 3);
-      uint32_t fb[4];
-      ldsm_x4(fb, b + key * LD + kk * 16 + ((lane >> 3) & 1) * 8);
-      mma(c[2 * jp], fa[kk], fb[0], fb[1]);
-      mma(c[2 * jp + 1], fa[kk], fb[2], fb[3]);
-    }
-  }
 }
 
 // S (the accumulators of strip rows r0 ..) to P in place, as the forward:
@@ -222,298 +164,6 @@ __device__ __forceinline__ void strip_softmax(float (&s)[8][4],
   for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
     for (int r = 0; r < 4; ++r) s[nt][r] *= inv[r >> 1];
-}
-
-// Phase 1 (bf16) of warp `warp`'s strip of query rows r0 = 16*warp ..: P
-// and dS into the tiles p_s and ds_s (rows of the strip, the key columns
-// below rows_padded(n); their hi parts, the lo parts in the tiles `lo`
-// elements further), dQ = dS . k (not yet scaled) into dq, dS added
-// to acc.  The strip lies below n.
-template <int DP, class T>
-__device__ __forceinline__ void grad_queries(
-    const T* q, const T* k, const T* v, const T* g, T* p_s, T* ds_s,
-    const float* bias, const float* mask, int ldb, int n, float scale_t,
-    int r0, int lane, int lo, float (&dq)[DP / 8][4], float (&acc)[8][4]) {
-  static_assert(std::is_same<T, bf16>::value, "the bf16 body");
-  constexpr int LD = DP + vec_elems<T>();
-  const int gr = lane >> 2, tq = lane & 3;
-  const int key_tiles = rows_padded(n) / 8;  // n-tiles phase 2 reads
-
-  float p[8][4], ds[8][4];
-  strip_abt<DP, true>(q, k, r0, n, scale_t, lane, p);
-  strip_softmax(p, bias, mask, ldb, n, r0, lane);
-  strip_abt<DP, false>(g, v, r0, n, 1.f, lane, ds);  // dP
-
-  // dS = P o (dP - rowsum(dP o P)); keys >= n have P = 0 and dP = 0
-  float dot[2] = {0.f, 0.f};
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) dot[r >> 1] += ds[nt][r] * p[nt][r];
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    dot[half] += __shfl_xor_sync(0xffffffffu, dot[half], 1);
-    dot[half] += __shfl_xor_sync(0xffffffffu, dot[half], 2);
-  }
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      ds[nt][r] = p[nt][r] * (ds[nt][r] - dot[r >> 1]);
-      acc[nt][r] += ds[nt][r];
-    }
-
-#pragma unroll
-  for (int nt = 0; nt < DP / 8; ++nt)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) dq[nt][r] = 0.f;
-  // P and dS split into bf16 hi and lo: the A fragments of k-step kk
-  // (keys 16kk .. 16kk + 15) are n-tiles 2kk and 2kk + 1, and the same
-  // packed pairs go into the tiles
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t da_hi[4], da_lo[4];
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int nt = 2 * kk + e;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        uint32_t p_hi, p_lo;
-        split_bf16(p[nt][2 * half], p[nt][2 * half + 1], p_hi, p_lo);
-        split_bf16(ds[nt][2 * half], ds[nt][2 * half + 1],
-                   da_hi[2 * e + half], da_lo[2 * e + half]);
-        if (nt >= key_tiles) continue;
-        const int at = (r0 + gr + 8 * half) * kProbLd + nt * 8 + 2 * tq;
-        *reinterpret_cast<uint32_t*>(p_s + at) = p_hi;
-        *reinterpret_cast<uint32_t*>(p_s + lo + at) = p_lo;
-        *reinterpret_cast<uint32_t*>(ds_s + at) = da_hi[2 * e + half];
-        *reinterpret_cast<uint32_t*>(ds_s + lo + at) = da_lo[2 * e + half];
-      }
-    }
-    // dQ += dS . k over these keys: one x4 ldmatrix.trans of k gives two
-    // n-tiles of 8 columns (the forward's P . v), lo first
-    if (kk * 16 >= n) continue;
-#pragma unroll
-    for (int dp = 0; dp < DP / 16; ++dp) {
-      const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      uint32_t b[4];
-      ldsm_x4_trans(b, k + key * LD + dp * 16 + (lane >> 4) * 8);
-      mma(dq[2 * dp], da_lo, b[0], b[1]);
-      mma(dq[2 * dp + 1], da_lo, b[2], b[3]);
-      mma(dq[2 * dp], da_hi, b[0], b[1]);
-      mma(dq[2 * dp + 1], da_hi, b[2], b[3]);
-    }
-  }
-}
-
-// c = x^T . y for key rows j0 .. j0 + 15: x is the (query, key) tile p_s
-// or ds_s (stride kProbLd; its hi part, the lo part `lo` elements
-// further), y the (query, DP) tile g or q; the sum runs over the query
-// rows below n.  bf16 only: A fragments of x^T by ldmatrix.trans of x,
-// lo.y then hi.y, B fragments of y by ldmatrix.trans.
-template <int DP, class T>
-__device__ __forceinline__ void strip_atb(const T* x, const T* y, int j0,
-                                          int n, int lane, int lo,
-                                          float (&c)[DP / 8][4]) {
-  static_assert(std::is_same<T, bf16>::value, "the bf16 body");
-  constexpr int LD = DP + vec_elems<T>();
-#pragma unroll
-  for (int nt = 0; nt < DP / 8; ++nt)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) c[nt][r] = 0.f;
-#pragma unroll
-  for (int kq = 0; kq < 4; ++kq) {
-    if (kq * 16 >= n) continue;
-    // matrix lane >> 3: keys + ((lane >> 3) & 1) * 8, queries +
-    // (lane >> 4) * 8; the rows of memory are queries
-    const T* xa = x + (kq * 16 + ((lane >> 4) << 3) + (lane & 7)) *
-                          kProbLd +
-                      j0 + ((lane >> 3) & 1) * 8;
-    uint32_t a_hi[4], a_lo[4];
-    ldsm_x4_trans(a_hi, xa);
-    ldsm_x4_trans(a_lo, xa + lo);
-#pragma unroll
-    for (int dp = 0; dp < DP / 16; ++dp) {
-      const int query = kq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      uint32_t b[4];
-      ldsm_x4_trans(b, y + query * LD + dp * 16 + (lane >> 4) * 8);
-      mma(c[2 * dp], a_lo, b[0], b[1]);
-      mma(c[2 * dp + 1], a_lo, b[2], b[3]);
-      mma(c[2 * dp], a_hi, b[0], b[1]);
-      mma(c[2 * dp + 1], a_hi, b[2], b[3]);
-    }
-  }
-}
-
-// the accumulators c * s of rows r0 .. r0 + 15 (those below n) into the
-// same rows of the (rows, DP + V) bf16 tile t, rounded to bf16
-template <int DP, class T>
-__device__ __forceinline__ void stage(T* t, const float (&c)[DP / 8][4],
-                                      float s, int r0, int n, int lane) {
-  static_assert(std::is_same<T, bf16>::value, "the bf16 body");
-  constexpr int LD = DP + vec_elems<T>();
-  const int g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int nt = 0; nt < DP / 8; ++nt)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int i = r0 + g + 8 * half;
-      if (i >= n) continue;
-      const float x0 = c[nt][2 * half] * s, x1 = c[nt][2 * half + 1] * s;
-      *reinterpret_cast<uint32_t*>(t + i * LD + nt * 8 + 2 * tq) =
-          pack_bf16(x0, x1);
-    }
-}
-
-// A block's walk over its `count` pairs in bf16 (float32:
-// grad_pairs_f32).  `at` is the kernel's addressing:
-// at.q, at.k, at.v, at.g and at.dq, at.dk, at.dv; at.src(t) and
-// at.src_token(i) place pair t's token i in q, k, v, dq, dk and dv,
-// at.dst(t) and at.dst_token(i) in g.  bias and mask (or null) point at
-// the group's (n, n) float tables, `smem` holds grad_smem_bytes.  partial
-// (or null: neither dbias nor dmask is asked for) is this block's (n, n)
-// float32 tile of the summed dS.  vec: 16-byte loads and stores (d a
-// multiple of the 16-byte width, every operand 16-byte aligned), else one
-// element at a time.
-template <int DP, class At>
-__device__ __forceinline__ void grad_pairs(const At& at, unsigned char* smem,
-                                           const float* bias,
-                                           const float* mask, float* partial,
-                                           int n, int d, int count,
-                                           float scale, bool vec) {
-  using T = typename At::Elem;
-  static_assert(std::is_same<T, bf16>::value, "the bf16 body");
-  constexpr int V = vec_elems<T>();
-  constexpr int LD = DP + V;
-  constexpr int CPR = DP / V;  // 16-byte chunks of a padded row
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int r0 = warp * 16;  // the warp's strip: query rows, then key rows
-  const int ldb = table_stride(n);
-  const int te = rows_padded(n) * LD;  // elements of a tile
-  const int pe = 4 * te;               // of a pair buffer: q, k, v, g
-  const int pt = rows_padded(n) * kProbLd;  // elements of a P or dS tile
-  T* buf = reinterpret_cast<T*>(smem);
-  T* p_s = buf + 2 * pe;  // then dS, then (bf16) the lo tiles of both
-  T* ds_s = p_s + pt;
-  float* bias_s = reinterpret_cast<float*>(p_s + prob_tiles<T>() * pt);
-  float* mask_s = mask == nullptr ? nullptr : bias_s + n * ldb;
-  // S multiplies q by the scale rounded to bf16 in bf16, as the forward;
-  // dq and dk are scaled in float32
-  const float scale_t = std::is_same<T, bf16>::value
-                            ? __bfloat162float(__float2bfloat16(scale))
-                            : scale;
-
-  zero_tiles(buf, 2 * pe + prob_tiles<T>() * pt, tid);
-  load_table(bias_s, bias, n, ldb, warp, lane);
-  if (mask_s != nullptr) load_table(mask_s, mask, n, ldb, warp, lane);
-  __syncthreads();  // the zeros land before any copy into the buffers
-
-  auto load = [&](int t, T* to) {
-    const size_t pair = at.src(t), gpair = at.dst(t);
-    if (vec) {
-      for (int idx = tid; idx < n * CPR; idx += kThreads) {
-        const int i = idx / CPR, c = idx - i * CPR;
-        if (c * V >= d) continue;
-        const size_t src = pair + at.src_token(i) + c * V;
-        T* dst = to + i * LD + c * V;
-        cp_async16(dst, at.q + src);
-        cp_async16(dst + te, at.k + src);
-        cp_async16(dst + 2 * te, at.v + src);
-        cp_async16(dst + 3 * te, at.g + gpair + at.dst_token(i) + c * V);
-      }
-    } else {
-      for (int idx = tid; idx < n * DP; idx += kThreads) {
-        const int i = idx / DP, c = idx - i * DP;
-        if (c >= d) continue;
-        const size_t src = pair + at.src_token(i) + c;
-        T* dst = to + i * LD + c;
-        dst[0] = at.q[src];
-        dst[te] = at.k[src];
-        dst[2 * te] = at.v[src];
-        dst[3 * te] = at.g[gpair + at.dst_token(i) + c];
-      }
-    }
-  };
-  // the warp's rows r0 .. r0 + rows - 1 of dq, dk and dv, staged in the
-  // q, k and v tiles of `from`
-  auto store = [&](int t, const T* from, int rows) {
-    const size_t pair = at.src(t);
-    if (vec) {
-      for (int idx = lane; idx < rows * CPR; idx += 32) {
-        const int i = r0 + idx / CPR, c = idx % CPR;
-        if (c * V >= d) continue;
-        const size_t off = pair + at.src_token(i) + c * V;
-        const T* row = from + i * LD + c * V;
-        *reinterpret_cast<uint4*>(at.dq + off) =
-            *reinterpret_cast<const uint4*>(row);
-        *reinterpret_cast<uint4*>(at.dk + off) =
-            *reinterpret_cast<const uint4*>(row + te);
-        *reinterpret_cast<uint4*>(at.dv + off) =
-            *reinterpret_cast<const uint4*>(row + 2 * te);
-      }
-    } else {
-      for (int idx = lane; idx < rows * DP; idx += 32) {
-        const int i = r0 + idx / DP, c = idx % DP;
-        if (c >= d) continue;
-        const size_t off = pair + at.src_token(i) + c;
-        const T* row = from + i * LD + c;
-        at.dq[off] = row[0];
-        at.dk[off] = row[te];
-        at.dv[off] = row[2 * te];
-      }
-    }
-  };
-
-  float acc[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) acc[nt][r] = 0.f;
-  const bool active = r0 < n;
-  const int rows = active ? min(16, n - r0) : 0;
-
-  load(0, buf);
-  cp_async_commit();
-  for (int t = 0; t < count; ++t) {
-    T* cur = buf + (t & 1) * pe;
-    T *q = cur, *k = cur + te, *v = cur + 2 * te, *g = cur + 3 * te;
-    if (t + 1 < count) load(t + 1, buf + ((t + 1) & 1) * pe);
-    cp_async_commit();
-    cp_async_wait_one();
-    __syncthreads();
-    float dq[DP / 8][4];
-    if (active)
-      grad_queries<DP, T>(q, k, v, g, p_s, ds_s, bias_s, mask_s, ldb, n,
-                          scale_t, r0, lane, 2 * pt, dq, acc);
-    __syncthreads();  // P and dS whole; k and v read for the last time
-    if (active) {
-      float c[DP / 8][4];
-      strip_atb<DP, T>(p_s, g, r0, n, lane, 2 * pt, c);  // dV = P^T . g
-      stage<DP, T>(v, c, 1.f, r0, n, lane);
-      strip_atb<DP, T>(ds_s, q, r0, n, lane, 2 * pt, c);  // dK = dS^T . q
-      stage<DP, T>(k, c, scale, r0, n, lane);
-    }
-    __syncthreads();  // q read for the last time
-    if (active) {
-      stage<DP, T>(q, dq, scale, r0, n, lane);
-      __syncwarp();
-      store(t, cur, rows);
-    }
-    __syncthreads();  // the buffer is free for pair t + 2
-  }
-
-  if (partial != nullptr && active) {
-    const int g = lane >> 2, tq = lane & 3;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int i = r0 + g + 8 * half, j = nt * 8 + 2 * tq + e;
-          if (i < n && j < n) partial[i * n + j] = acc[nt][2 * half + e];
-        }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1131,11 +781,692 @@ __device__ __forceinline__ void grad_pairs_f32(const At& at,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: the five products on wgmma, the loads by TMA, three blocks an SM
+// ---------------------------------------------------------------------------
+//
+// One block of four warps, one warpgroup, takes a pair at a time.  The
+// warpgroup's m64 covers a whole pair (n <= 64), and each warp gets the
+// 16-row strip of every accumulator that mma.sync gave it (the same
+// register layout), so the softmax and dS code is the float32 body's.  A
+// pair's five products are wgmma.mma_async m64nNk16 bf16, float32
+// accumulators:
+// - S = (q * scale) . k^T, N 64 keys: A q * scale rounded to bf16 in
+//   registers (ldmatrix), B k, K-major;
+// - dP = g . v^T, N 64: A g and B v from shared memory, K-major; S and dP
+//   are in flight together, and the softmax of S runs while dP finishes;
+// - dQ = dS . k, N = W (d padded to 16, 32 or 64): A dS hi and lo from the
+//   registers (dS's accumulator layout is the register A layout), B k,
+//   MN-major (k is [key][d]: N contiguous);
+// - dV = P^T . g and dK = dS^T . q, M 64 keys, N = W, in flight together:
+//   A the P and dS tiles, MN-major (they are [query][key]: M contiguous),
+//   B g and q, MN-major.
+// P and dS keep their hi + lo split, so each product that takes them is
+// two wgmma, lo first.  Phase 1 writes P and dS (hi and lo) with stmatrix
+// straight into the swizzled MN-major layout that phase 2's descriptors
+// read; dQ is issued after those stores and waited for before the barrier
+// that makes P and dS whole (held in flight through phase 2, its 32 A
+// registers cost spills at three blocks an SM).
+//
+// Tiles.  q, k, v and g are 64 rows of W bf16, one swizzle span a row
+// (32, 64 or 128 bytes: CU_TENSOR_MAP_SWIZZLE_32B, 64B, 128B, and the
+// descriptors' layout of the same name), so that the TMA writes each tile
+// as every descriptor reads it; the P and dS tiles (hi and lo) are 64 x 64
+// bf16 in the 128-byte swizzle; then the summed table, 64 rows of
+// kTableLd floats, and the mbarrier.  Every tile starts at a multiple of
+// 1024 bytes (the swizzle's period), so the swizzle of an address is that
+// of its offset in the tile.  At N = 49, D = 32 a block takes 67,592
+// bytes (K2 196 more for its token offsets): three blocks (twelve warps)
+// an SM, and the registers are held to 168 a thread for them.
+//
+// Loads.  One thread issues a pair's q, k, v and g as tensor-map copies
+// (cp.async.bulk.tensor) into the tiles; they complete on the mbarrier,
+// which every thread waits on.  The copies write W columns (the map's
+// columns >= d are out of bounds, so zeros) of rows < n; rows >= n stay
+// zero from one clear a block.  The next pair's copies go out as soon as
+// every warp's products are done, while the warps store the outputs, and
+// the other two blocks of the SM hide the rest: with two stages of these
+// tiles (and the table of n rows: 76,528 bytes, still three blocks) a
+// swin_224_train step's backward read 0.615 and 0.658 ms on K1 and K2
+// against one stage's 0.590 and 0.639 (an H100 80GB HBM3 at 700 W,
+// ops/kernel_ab.py; PERF.md).  The first pair's copies go out before the
+// block sums its table.  Where the TMA cannot go (a row whose bytes are
+// not a multiple of 16, an operand that is not 16-byte aligned: the host
+// decides by shape and alignment, never by a failed launch) every thread
+// copies elements into the same swizzled tiles.
+//
+// Outputs.  dq, dk and dv are staged, in bf16, in the warp's own 16 rows
+// of the P and dS tiles (its strip: query rows for dq, key rows for dk
+// and dv), which only this warp writes next, and leave with 16-byte
+// stores (element stores where the TMA does not go).  Two barriers a pair:
+// P and dS whole; every warp's products done.
+
+// the width (bf16 columns) of the bf16 body's q, k, v and g tiles for d
+// padded to DP: a power of two, so that a row is one swizzle span
+__host__ __device__ constexpr int bf16_width(int dp) {
+  return dp <= 16 ? 16 : dp <= 32 ? 32 : 64;
+}
+
+// rows of every bf16 tile: wgmma's m64
+constexpr int kTileRows = 64;
+// bytes of a P or dS tile: [query][key], 128-byte rows
+constexpr int kProbBytes = kTileRows * kTileRows * 2;
+
+// row stride (floats) of the bf16 body's summed table: 64 keys and 8 more
+// (the float2 reads of a C fragment in distinct banks, as table_stride)
+constexpr int kTableLd = 72;
+
+// bytes of shared memory of the bf16 body: the q, k, v and g tiles, the P
+// and dS tiles (hi and lo), the summed table (64 rows), the mbarrier
+template <int DP>
+__host__ __device__ inline size_t grad_smem_bytes_bf16(int n) {
+  return 4 * kTileRows * 2 * bf16_width(DP) + 4 * kProbBytes +
+         sizeof(float) * kTileRows * kTableLd + sizeof(uint64_t);
+}
+
+// byte offset of 16-byte chunk `chunk` of row `row` in a tile of RB-byte
+// rows swizzled over RB bytes (RB 32, 64 or 128: the TMA's and wgmma's
+// swizzle, the chunk index XOR address bits 7 .. up)
+template <int RB>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * RB + ((chunk ^ ((row * RB >> 7) & (RB / 16 - 1))) << 4);
+}
+
+// wgmma's descriptor of an operand at p in a tile of RB-byte rows swizzled
+// over RB bytes: K-major (rows along M or N, K along a row: the k-step
+// starts 32 bytes further a step) or MN-major (rows along K, M or N along
+// a row, one swizzle span wide); in both the stride byte offset is the 8
+// rows of a swizzle period, and the leading byte offset is not read (one
+// span along K, or along M or N)
+template <int RB>
+__device__ __forceinline__ uint64_t desc_bf16(const void* p) {
+  constexpr uint64_t layout = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+  return ((smem_addr(p) & 0x3FFFFu) >> 4) | (uint64_t{1} << 16) |
+         (static_cast<uint64_t>(8 * RB >> 4) << 32) | (layout << 62);
+}
+
+// d = a . b + (add ? d : 0) on m64nNk16 bf16, a this warp's 16 rows in
+// registers (the mma.sync m16n8k16 A layout), b a descriptor (TB:
+// MN-major); d[nt][r] is the mma.sync accumulator layout of n-tile nt.  A
+// chain's first product takes add = 0, so its accumulators need no
+// zeros.
+template <int N, int TB>
+__device__ __forceinline__ void wgmma_bf16_rs(float (&d)[N / 8][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int add = 1) {
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(add),
+          "n"(TB));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(add),
+          "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(add),
+          "n"(TB));
+  }
+}
+
+// d = a . b + (add ? d : 0) on m64nNk16 bf16, both from descriptors (TA,
+// TB: MN-major)
+template <int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[N / 8][4],
+                                              uint64_t a, uint64_t b,
+                                              int add = 1) {
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "l"(a), "l"(b), "r"(add), "n"(TA), "n"(TB));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15}, "
+        "%16, %17, p, 1, 1, %19, %20;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+        : "l"(a), "l"(b), "r"(add), "n"(TA), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, %11, %12;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+        : "l"(a), "l"(b), "r"(add), "n"(TA), "n"(TB));
+  }
+}
+
+// order the accumulators' uses after a wgmma_wait (wgmma_hold, any N)
+template <int NT>
+__device__ __forceinline__ void hold_acc(float (&d)[NT][4]) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+f"(d[nt][r])::"memory");
+}
+
+__device__ __forceinline__ void stsm_x4(void* p, const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(smem_addr(p)),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+// wait until every cp.async of this thread has landed
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// arrive on bar and expect `bytes` of copies to complete on it
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// wait until bar's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// a box of the tensor map at `map` (a kernel parameter) at the
+// coordinates c, into shared memory at dst, completing on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+
+// keep the registers of in-flight wgmma A operands live until here
+template <int A>
+__device__ __forceinline__ void hold_regs(uint32_t (&r)[A][4]) {
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[a][e])::"memory");
+}
+
+template <int A, int B>
+__device__ __forceinline__ void hold_regs(uint32_t (&r)[A][B][4]) {
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+#pragma unroll
+    for (int b = 0; b < B; ++b)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[a][b][e])::"memory");
+}
+
+// The bf16 tiles of a block (bytes, see above)
+template <int W>
+struct Bf16Tiles {
+  static constexpr int RB = 2 * W;  // bytes of a q, k, v or g row
+  static constexpr int TILE = kTileRows * RB;
+  unsigned char *q, *k, *v, *g, *p_hi, *p_lo, *ds_hi, *ds_lo;
+  float* table;
+  uint64_t* bar;
+  __device__ explicit Bf16Tiles(unsigned char* smem) {
+    q = smem;
+    k = q + TILE;
+    v = k + TILE;
+    g = v + TILE;
+    p_hi = g + TILE;
+    p_lo = p_hi + kProbBytes;
+    ds_hi = p_lo + kProbBytes;
+    ds_lo = ds_hi + kProbBytes;
+    table = reinterpret_cast<float*>(ds_lo + kProbBytes);
+    bar = reinterpret_cast<uint64_t*>(table + kTileRows * kTableLd);
+  }
+};
+
+// S (the accumulators of strip rows r0 ..) to P in place, the bf16 body's
+// softmax: + the summed table (64 rows of kTableLd: -inf at keys >= n, 0
+// on the rows >= n, so that nothing here tests a row or a key), e =
+// 2^((S - row max) * log2 e) (exp2f: ex2.approx and a guard against
+// denormals, about five instructions where expf takes ten; the CPU model
+// follows it), P = e * (the correctly rounded 1 /
+// sum e).  s[nt][2*half + e] is row r0 + g + 8*half, column nt*8 + 2*tq +
+// e.
+__device__ __forceinline__ void strip_softmax_bf16(float (&s)[8][4],
+                                                   const float* table,
+                                                   int r0, int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+  float row_max[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float2 b = *reinterpret_cast<const float2*>(
+          table + (r0 + g + 8 * half) * kTableLd + nt * 8 + 2 * tq);
+      s[nt][2 * half] += b.x;
+      s[nt][2 * half + 1] += b.y;
+      row_max[half] = fmaxf(row_max[half],
+                            fmaxf(s[nt][2 * half], s[nt][2 * half + 1]));
+    }
+  float row_sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    row_max[half] = fmaxf(row_max[half],
+                          __shfl_xor_sync(0xffffffffu, row_max[half], 1));
+    row_max[half] = fmaxf(row_max[half],
+                          __shfl_xor_sync(0xffffffffu, row_max[half], 2));
+  }
+  constexpr float kLog2e = 1.4426950408889634f;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      s[nt][r] = exp2f((s[nt][r] - row_max[r >> 1]) * kLog2e);
+      row_sum[r >> 1] += s[nt][r];
+    }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    row_sum[half] += __shfl_xor_sync(0xffffffffu, row_sum[half], 1);
+    row_sum[half] += __shfl_xor_sync(0xffffffffu, row_sum[half], 2);
+  }
+  const float inv[2] = {__frcp_rn(row_sum[0]), __frcp_rn(row_sum[1])};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) s[nt][r] *= inv[r >> 1];
+}
+
+// Phase 1 (bf16) of the warp's strip of query rows r0 = 16*warp .. (every
+// warp, also one whose strip lies past n: the wgmma take the warpgroup):
+// S and dP, P and dS (added to acc), P and dS hi and lo into the strip's
+// rows of their tiles; then dQ = dS . k (not yet scaled) into dq, issued
+// and committed: the caller fences the tiles' stores and then waits for
+// it.  da holds dQ's A fragments (dS hi and lo by k-step) until then.
+template <int W>
+__device__ __forceinline__ void grad_queries_bf16(
+    const Bf16Tiles<W>& t, float scale_t, int r0, int lane,
+    float (&dq)[W / 8][4], float (&acc)[8][4], uint32_t (&da)[4][2][4]) {
+  constexpr int RB = Bf16Tiles<W>::RB;
+  constexpr int KS = W / 16;  // k-steps of S and dP
+
+  // S's A fragments: q * scale_t, rounded to bf16
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    ldsm_x4(qa[kk], t.q + swz<RB>(r0 + (lane & 15), 2 * kk + (lane >> 4)));
+#pragma unroll
+    for (int r = 0; r < 4; ++r) qa[kk][r] = scale_bf16x2(qa[kk][r], scale_t);
+  }
+  float s[8][4], dp[8][4];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)  // S = (q * scale) . k^T
+    wgmma_bf16_rs<64, 0>(s, qa[kk], desc_bf16<RB>(t.k + 32 * kk), kk > 0);
+  wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)  // dP = g . v^T
+    wgmma_bf16_ss<64, 0, 0>(dp, desc_bf16<RB>(t.g + 32 * kk),
+                            desc_bf16<RB>(t.v + 32 * kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait<1>();
+  hold_acc(s);
+  hold_regs(qa);
+  strip_softmax_bf16(s, t.table, r0, lane);  // P in s
+  wgmma_wait<0>();
+  hold_acc(dp);
+
+  // dS = P o (dP - rowsum(dP o P)) in dp; keys >= n have P = 0 and dP = 0
+  float dot[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dot[e >> 1] += dp[nt][e] * s[nt][e];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    dot[half] += __shfl_xor_sync(0xffffffffu, dot[half], 1);
+    dot[half] += __shfl_xor_sync(0xffffffffu, dot[half], 2);
+  }
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dp[nt][e] = s[nt][e] * (dp[nt][e] - dot[e >> 1]);
+      acc[nt][e] += dp[nt][e];
+    }
+
+  // P and dS split into bf16 hi and lo: the A fragments of k-step kk
+  // (keys 16kk .. 16kk + 15) are n-tiles 2kk and 2kk + 1, and one
+  // stmatrix x4 puts the same four registers (the strip's rows r0 .. r0 +
+  // 15 of those keys) into a tile; lane l gives row l & 7 of matrix l >> 3
+  const int row = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t pa[2][4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int nt = 2 * kk + e;
+        split_bf16(s[nt][2 * half], s[nt][2 * half + 1], pa[0][2 * e + half],
+                   pa[1][2 * e + half]);
+        split_bf16(dp[nt][2 * half], dp[nt][2 * half + 1],
+                   da[kk][0][2 * e + half], da[kk][1][2 * e + half]);
+      }
+    const int at = swz<128>(row, 2 * kk + (lane >> 4));
+    stsm_x4(t.p_hi + at, pa[0]);
+    stsm_x4(t.p_lo + at, pa[1]);
+    stsm_x4(t.ds_hi + at, da[kk][0]);
+    stsm_x4(t.ds_lo + at, da[kk][1]);
+  }
+
+  // dQ = dS . k, lo then hi a k-step (keys >= n have dS = 0 and zero
+  // rows of k; every k-step goes out, as a wgmma on a branch would
+  // serialize them all)
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t b = desc_bf16<RB>(t.k + kk * 16 * RB);
+    wgmma_bf16_rs<W, 1>(dq, da[kk][1], b, kk > 0);
+    wgmma_bf16_rs<W, 1>(dq, da[kk][0], b);
+  }
+  wgmma_commit();
+}
+
+// Phase 2 (bf16): dV = P^T . g and dK = dS^T . q over the 64 query rows
+// (a padded row has a zero row of g and of dS), each warp's accumulators
+// its 16 key rows; issued, committed and waited for.
+template <int W>
+__device__ __forceinline__ void grad_keys_bf16(const Bf16Tiles<W>& t,
+                                               float (&dv)[W / 8][4],
+                                               float (&dk)[W / 8][4]) {
+  constexpr int RB = Bf16Tiles<W>::RB;
+  wgmma_fence();
+#pragma unroll
+  for (int kq = 0; kq < 4; ++kq) {
+    const int a = kq * 16 * 128, b = kq * 16 * RB;
+    wgmma_bf16_ss<W, 1, 1>(dv, desc_bf16<128>(t.p_lo + a),
+                           desc_bf16<RB>(t.g + b), kq > 0);
+    wgmma_bf16_ss<W, 1, 1>(dk, desc_bf16<128>(t.ds_lo + a),
+                           desc_bf16<RB>(t.q + b), kq > 0);
+    wgmma_bf16_ss<W, 1, 1>(dv, desc_bf16<128>(t.p_hi + a),
+                           desc_bf16<RB>(t.g + b));
+    wgmma_bf16_ss<W, 1, 1>(dk, desc_bf16<128>(t.ds_hi + a),
+                           desc_bf16<RB>(t.q + b));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+}
+
+// the accumulators c * s of the strip's rows r0 .. r0 + 15 into the same
+// rows of the 128-byte swizzled tile x, rounded to bf16
+template <int W>
+__device__ __forceinline__ void stage_bf16(unsigned char* x,
+                                           const float (&c)[W / 8][4],
+                                           float s, int r0, int lane) {
+  const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < W / 8; ++nt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      *reinterpret_cast<uint32_t*>(x + swz<128>(r0 + g + 8 * half, nt) +
+                                   4 * tq) =
+          pack_bf16(c[nt][2 * half] * s, c[nt][2 * half + 1] * s);
+}
+
+// A block's walk over its `count` pairs in bf16.  `at` is the kernel's
+// addressing: at.q, at.k, at.v, at.g and at.dq, at.dk, at.dv; at.src(t)
+// and at.src_token(i) place pair t's token i in q, k, v, dq, dk and dv,
+// at.dst(t) and at.dst_token(i) in g; at.issue(t, tiles) issues pair t's
+// tensor-map copies.  bias and mask (or null) point at the group's (n, n)
+// float tables, `smem` (1024-byte aligned) holds grad_smem_bytes_bf16.
+// partial (or null: neither dbias nor dmask is asked for) is this block's
+// (n, n) float32 tile of the summed dS.  tma: the loads by tensor map and
+// 16-byte stores (d a multiple of 8, every operand 16-byte aligned), else
+// element by element.
+template <int DP, class At>
+__device__ __forceinline__ void grad_pairs_bf16(const At& at,
+                                                unsigned char* smem,
+                                                const float* bias,
+                                                const float* mask,
+                                                float* partial, int n, int d,
+                                                int count, float scale,
+                                                bool tma) {
+  static_assert(std::is_same<typename At::Elem, bf16>::value,
+                "the bf16 body");
+  constexpr int W = bf16_width(DP);
+  constexpr int RB = Bf16Tiles<W>::RB;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = warp * 16;  // the warp's strip: query rows, then key rows
+  const Bf16Tiles<W> tiles(smem);
+  // S multiplies q by the scale rounded to bf16 in bf16, as the forward;
+  // dq and dk are scaled in float32
+  const float scale_t = __bfloat162float(__float2bfloat16(scale));
+
+  // the group's bias and mask, n * n floats each, copied whole into the P
+  // tiles (which the first pair writes later) by 4-byte cp.async, all in
+  // flight at once
+  float* raw = reinterpret_cast<float*>(tiles.p_hi);
+  for (int idx = tid; idx < n * n; idx += kThreads) {
+    cp_async4(raw + idx, bias + idx);
+    if (mask != nullptr) cp_async4(raw + n * n + idx, mask + idx);
+  }
+  cp_async_commit();
+  zero_tiles(reinterpret_cast<bf16*>(smem),
+             static_cast<int>((tiles.p_hi - smem) / 2), tid);
+  if (tid == 0) mbar_init(tiles.bar, 1);
+  fence_async_smem();  // the zeros before any copy or product
+  __syncthreads();
+
+  // pair p into the tiles: by tensor map (thread 0), or every thread's
+  // elements
+  auto load = [&](int p) {
+    if (tma) {
+      if (tid == 0) {
+        mbar_expect(tiles.bar, 4 * n * RB);
+        at.issue(p, tiles);
+      }
+      return;
+    }
+    const size_t pair = at.src(p), gpair = at.dst(p);
+    for (int idx = tid; idx < n * d; idx += kThreads) {
+      const int i = idx / d, c = idx - i * d;
+      const int to = swz<RB>(i, c >> 3) + 2 * (c & 7);
+      const size_t src = pair + at.src_token(i) + c;
+      *reinterpret_cast<bf16*>(tiles.q + to) = at.q[src];
+      *reinterpret_cast<bf16*>(tiles.k + to) = at.k[src];
+      *reinterpret_cast<bf16*>(tiles.v + to) = at.v[src];
+      *reinterpret_cast<bf16*>(tiles.g + to) =
+          at.g[gpair + at.dst_token(i) + c];
+    }
+    fence_async_smem();
+  };
+  // the strip's rows of dq (query rows), dk and dv (key rows), below n,
+  // staged in the strip's rows of the P hi, P lo and dS hi tiles
+  auto store = [&](int p) {
+    const size_t pair = at.src(p);
+    const int rows = min(16, n - r0);
+    if (tma) {
+      constexpr int CH = W / 8;  // 16-byte chunks of a staged row
+#pragma unroll
+      for (int k = 0; k < CH / 2; ++k) {
+        const int idx = 32 * k + lane, rr = idx / CH, c = idx % CH;
+        if (rr >= rows || 8 * c >= d) continue;
+        const int from = swz<128>(r0 + rr, c);
+        const size_t off = pair + at.src_token(r0 + rr) + 8 * c;
+        *reinterpret_cast<uint4*>(at.dq + off) =
+            *reinterpret_cast<const uint4*>(tiles.p_hi + from);
+        *reinterpret_cast<uint4*>(at.dk + off) =
+            *reinterpret_cast<const uint4*>(tiles.p_lo + from);
+        *reinterpret_cast<uint4*>(at.dv + off) =
+            *reinterpret_cast<const uint4*>(tiles.ds_hi + from);
+      }
+      return;
+    }
+    for (int idx = lane; idx < rows * d; idx += 32) {
+      const int rr = idx / d, c = idx - rr * d;
+      const int from = swz<128>(r0 + rr, c >> 3) + 2 * (c & 7);
+      const size_t off = pair + at.src_token(r0 + rr) + c;
+      at.dq[off] = *reinterpret_cast<const bf16*>(tiles.p_hi + from);
+      at.dk[off] = *reinterpret_cast<const bf16*>(tiles.p_lo + from);
+      at.dv[off] = *reinterpret_cast<const bf16*>(tiles.ds_hi + from);
+    }
+  };
+
+  // the first pair's copies go out, then the table is summed while they
+  // land
+  if (count > 0) load(0);
+  cp_async_wait_all();
+  __syncthreads();  // the bias and mask landed
+  for (int idx = tid; idx < kTileRows * kTileRows; idx += kThreads) {
+    const int i = idx / kTileRows, j = idx % kTileRows;
+    float x = -INFINITY;
+    if (j < n)
+      x = i >= n ? 0.f
+                 : raw[i * n + j] +
+                       (mask == nullptr ? 0.f : raw[(n + i) * n + j]);
+    tiles.table[i * kTableLd + j] = x;
+  }
+  __syncthreads();  // the table whole; the P tiles free
+
+  float acc[8][4];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  for (int p = 0; p < count; ++p) {
+    // the tiles' addresses, opaque to the compiler: it rebuilds the wgmma
+    // descriptors from them a pair (uniform instructions) rather than
+    // keep 28 of them in registers through the walk
+    unsigned char* base = smem;
+    asm volatile("" : "+l"(base));
+    const Bf16Tiles<W> t(base);
+    if (tma)
+      mbar_wait(t.bar, p & 1);  // the pair landed
+    else
+      __syncthreads();
+    __syncwarp();  // the strip's staged outputs stored
+    float dq[W / 8][4];
+    uint32_t da[4][2][4];
+    grad_queries_bf16<W>(t, scale_t, r0, lane, dq, acc, da);
+    fence_async_smem();
+    wgmma_wait<0>();  // dQ, so that its A registers are free for phase 2
+    hold_regs(da);
+    hold_acc(dq);
+    __syncthreads();  // P and dS whole
+    float dv[W / 8][4], dk[W / 8][4];
+    grad_keys_bf16<W>(t, dv, dk);
+    hold_acc(dv);
+    hold_acc(dk);
+    // the tiles of q, k, v and g are free for the next pair, those of P
+    // and dS for the staged outputs
+    __syncthreads();  // every warp's products done
+    if (p + 1 < count) load(p + 1);
+    if (r0 < n) {
+      stage_bf16<W>(t.p_hi, dq, scale, r0, lane);
+      stage_bf16<W>(t.p_lo, dk, scale, r0, lane);
+      stage_bf16<W>(t.ds_hi, dv, 1.f, r0, lane);
+      __syncwarp();
+      store(p);
+    }
+  }
+
+  if (partial != nullptr && r0 < n) {
+    const int g = lane >> 2, tq = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = r0 + g + 8 * half, j = nt * 8 + 2 * tq + e;
+          if (i < n && j < n) partial[i * n + j] = acc[nt][2 * half + e];
+        }
+  }
+}
+
 // dbias[h] = the sum of the partials of head h's blocks, dmask[w] = that
 // of window w's, in a fixed order (chunks, then windows or heads).  The
 // partial of block (chunk * n_w + w) * heads + h is the (n, n) tile at
-// partial + that * nn.  dbias or dmask may be null.  static: each kernel
-// library holds its own.
+// partial + that * nn.  dbias or dmask may be null.  Each sum walks its
+// partials as one loop, unrolled, so that a thread has several loads in
+// flight (the additions stay in order).  static: each kernel library
+// holds its own.
 static __global__ void __launch_bounds__(256)
 sum_partials(const float* __restrict__ partial, float* __restrict__ dbias,
              float* __restrict__ dmask, int heads, int n_w, int chunks,
@@ -1145,21 +1476,24 @@ sum_partials(const float* __restrict__ partial, float* __restrict__ dbias,
   const long long nb = dbias == nullptr ? 0 : static_cast<long long>(heads) * nn;
   if (e < nb) {
     const int h = static_cast<int>(e / nn), ij = static_cast<int>(e % nn);
+    const int blocks = chunks * n_w;  // block c * n_w + w of head h
     float s = 0.f;
-    for (int c = 0; c < chunks; ++c)
-      for (int w = 0; w < n_w; ++w)
-        s += partial[((static_cast<long long>(c) * n_w + w) * heads + h) * nn +
-                     ij];
+#pragma unroll 32
+    for (int b = 0; b < blocks; ++b)
+      s += partial[(static_cast<long long>(b) * heads + h) * nn + ij];
     dbias[e] = s;
   } else if (dmask != nullptr &&
              e < nb + static_cast<long long>(n_w) * nn) {
     const long long f = e - nb;
     const int w = static_cast<int>(f / nn), ij = static_cast<int>(f % nn);
+    const int blocks = chunks * heads;  // chunk b / heads, head b % heads
     float s = 0.f;
-    for (int c = 0; c < chunks; ++c)
-      for (int h = 0; h < heads; ++h)
-        s += partial[((static_cast<long long>(c) * n_w + w) * heads + h) * nn +
-                     ij];
+#pragma unroll 32
+    for (int b = 0; b < blocks; ++b) {
+      const int c = b / heads;
+      s += partial[((static_cast<long long>(c) * n_w + w) * heads + b -
+                    c * heads) * nn + ij];
+    }
     dmask[f] = s;
   }
 }
@@ -1223,6 +1557,58 @@ inline int grad_launch(void (*kernel)(Params...), size_t smem,
       partial, dbias, dmask, heads, n_w, static_cast<int>(blocks / groups),
       n * n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry
+// points (the libraries link no -lcuda); null if the driver has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return EncodeTiled{nullptr};
+    return reinterpret_cast<EncodeTiled>(f);
+  }();
+  return fn;
+}
+
+// an encoder's failure as the launch's error code: 10000 + its CUresult
+constexpr int kMapError = 10000;
+
+// *map*: the bf16 tensor at `base` of `rank` dimensions (innermost first:
+// dims, the byte strides of dims 1 .., the box), copied into tiles of
+// rows of w bf16 swizzled over the row (bf16_width); 0 or kMapError + the
+// encoder's error
+inline int encode_bf16(CUtensorMap* map, const void* base, int rank,
+                       const cuuint64_t* dims, const cuuint64_t* strides,
+                       const cuuint32_t* box, int w) {
+  const EncodeTiled encode = map_encoder();
+  if (encode == nullptr) return kMapError + CUDA_ERROR_NOT_FOUND;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+      const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      w == 16   ? CU_TENSOR_MAP_SWIZZLE_32B
+      : w == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                : CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kMapError + static_cast<int>(r);
+}
+
+// the blocks an SM should hold of the bf16 backward for d padded to DP:
+// three at D <= 32 (the registers capped for them), else as they come
+__host__ __device__ constexpr int grad_min_blocks_bf16(int dp) {
+  return dp <= 32 ? 3 : 1;
 }
 
 }  // namespace tile

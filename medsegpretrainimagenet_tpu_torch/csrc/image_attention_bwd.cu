@@ -24,17 +24,24 @@
 //
 // What bounds it on the H100: device-memory bytes (qkv and g read, dqkv
 // written: 7C * B*Rh*Rw * itemsize; the windows-layout path would add a
-// partition and a merge copy of each).  One kernel, image_attention_bwd<T,
-// DP> for T = bf16 and float, runs K1's backward body
-// (attention_tile_bwd.cuh: tile::grad_pairs, tile::grad_pairs_f32) with
-// K2's addressing: a head's token is a run of D values of its pixel,
-// loaded and stored 16 bytes at a time, a block keeps its window's token
-// offsets in shared memory, and a block takes one (window, head) and walks
-// the images.
+// partition and a merge copy of each).  Two kernels,
+// image_attention_bwd_bf16<DP> and image_attention_bwd<float, DP>, run K1's
+// backward bodies (attention_tile_bwd.cuh: tile::grad_pairs_bf16,
+// tile::grad_pairs_f32) with K2's addressing: a head's token is a run of D
+// values of its pixel, stored 16 bytes at a time, a block takes one
+// (window, head) and walks the images.  In bf16 the loads are boxes of
+// 5-D tensor maps over qkv, (D, 3H, Rw, Rh, B), and g, (D, H, Rw, Rh, B),
+// a box (D padded to 16, 32 or 64, 1, w, w, 1) at the head's channels: its
+// rows are the window's tokens in order, and the columns >= D read as
+// zeros.  A block keeps its window's token offsets in shared memory for
+// its stores, and for its loads where the maps cannot go (and in
+// float32).
 #include "attention_tile_bwd.cuh"
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <chrono>
 
 namespace {
 
@@ -64,6 +71,23 @@ struct ImageGrad {
   __device__ size_t src_token(int i) const { return tok[i] * c3; }
   __device__ size_t dst(int t) const { return corner(t) * channels; }
   __device__ size_t dst_token(int i) const { return tok[i] * channels; }
+};
+
+// ... and in bf16 the tensor maps of qkv and g: pair t is the box at
+// channel block h (q), H + h (k), 2H + h (v) of qkv and h of g, window
+// (wi, wj) of image img0 + t
+struct ImageGradBf16 : ImageGrad<bf16> {
+  const CUtensorMap *mqkv, *mg;
+  int h, heads;
+
+  template <class Tiles>
+  __device__ void issue(int t, const Tiles& x) const {
+    const int c = wj * w, r = wi * w, b = img0 + t;
+    tile::tma_load(x.q, mqkv, x.bar, 0, h, c, r, b);
+    tile::tma_load(x.k, mqkv, x.bar, 0, heads + h, c, r, b);
+    tile::tma_load(x.v, mqkv, x.bar, 0, 2 * heads + h, c, r, b);
+    tile::tma_load(x.g, mg, x.bar, 0, h, c, r, b);
+  }
 };
 
 template <class T, int DP>
@@ -111,12 +135,63 @@ image_attention_bwd(const T* __restrict__ qkv, const T* __restrict__ g,
   float* partial_b = partial == nullptr
                          ? nullptr
                          : partial + blockIdx.x * static_cast<size_t>(n) * n;
-  if constexpr (std::is_same<T, float>::value)
-    tile::grad_pairs_f32<DP>(at, tile_smem, bias_w, mask_w, partial_b, n, d,
-                             p.count, scale, vec);
+  static_assert(std::is_same<T, float>::value, "bf16: the kernel below");
+  tile::grad_pairs_f32<DP>(at, tile_smem, bias_w, mask_w, partial_b, n, d,
+                           p.count, scale, vec);
+}
+
+// The bf16 instance: mqkv and mg map qkv and g (tma: they are used; else
+// zeros, and every thread copies elements)
+template <int DP>
+__global__ void __launch_bounds__(tile::kThreads,
+                                  tile::grad_min_blocks_bf16(DP))
+image_attention_bwd_bf16(const __grid_constant__ CUtensorMap mqkv,
+                         const __grid_constant__ CUtensorMap mg,
+                         const bf16* __restrict__ qkv,
+                         const bf16* __restrict__ g,
+                         const float* __restrict__ bias,
+                         const float* __restrict__ mask,
+                         bf16* __restrict__ dqkv, int rows, int cols,
+                         int channels, int heads, int w, int images,
+                         float scale, int tma, float* __restrict__ partial,
+                         int per) {
+  extern __shared__ __align__(1024) unsigned char tile_smem_bf16[];
+  const int n = w * w;
+  const int d = channels / heads;
+  const int n_wc = cols / w;
+  const tile::Pairs p =
+      tile::block_pairs(heads, (rows / w) * n_wc, per, images);
+  int* tok = reinterpret_cast<int*>(
+      tile_smem_bf16 + tile::grad_smem_bytes<bf16, DP>(n, mask != nullptr));
+  for (int t = threadIdx.x; t < n; t += tile::kThreads) {
+    const int a = t / w;
+    tok[t] = a * cols + (t - a * w);  // the body syncs before reading it
+  }
+  const bf16* q = qkv + p.h * d;
+  bf16* dq = dqkv + p.h * d;
+  const ImageGradBf16 at{{q, q + channels, q + 2 * channels, g + p.h * d, dq,
+                          dq + channels, dq + 2 * channels, tok, p.img0, rows,
+                          cols, w, p.w / n_wc, p.w % n_wc,
+                          3 * static_cast<size_t>(channels),
+                          static_cast<size_t>(channels)},
+                         &mqkv, &mg, p.h, heads};
+  const float* bias_w = bias + p.h * static_cast<size_t>(n) * n;
+  const float* mask_w =
+      mask == nullptr ? nullptr : mask + p.w * static_cast<size_t>(n) * n;
+  float* partial_b = partial == nullptr
+                         ? nullptr
+                         : partial + blockIdx.x * static_cast<size_t>(n) * n;
+  tile::grad_pairs_bf16<DP>(at, tile_smem_bf16, bias_w, mask_w, partial_b, n,
+                            d, p.count, scale, tma);
+}
+
+// the backward kernel of element type T for d padded to DP
+template <class T, int DP>
+const void* kernel_of() {
+  if constexpr (std::is_same<T, bf16>::value)
+    return reinterpret_cast<const void*>(image_attention_bwd_bf16<DP>);
   else
-    tile::grad_pairs<DP>(at, tile_smem, bias_w, mask_w, partial_b, n, d,
-                         p.count, scale, vec);
+    return reinterpret_cast<const void*>(image_attention_bwd<T, DP>);
 }
 
 // the shapes the kernel takes
@@ -147,9 +222,9 @@ long long tiles(int batch, int rows, int cols, int channels, int heads,
       static_cast<long long>(rows / window) * (cols / window) * heads;
   return tile::with_padded_d(channels / heads, [&](auto dp) -> long long {
     constexpr int DP = decltype(dp)::value;
-    return tile::grad_blocks(
-        reinterpret_cast<const void*>(image_attention_bwd<T, DP>),
-        smem_bytes<T>(n, channels / heads, masked != 0), groups, batch);
+    return tile::grad_blocks(kernel_of<T, DP>(),
+                             smem_bytes<T>(n, channels / heads, masked != 0),
+                             groups, batch);
   });
 }
 
@@ -160,9 +235,38 @@ int residency(int window, int d, int masked, int* smem, int* blocks) {
   return tile::with_padded_d(d, [&](auto dp) {
     constexpr int DP = decltype(dp)::value;
     return tile::grad_residency(
-        reinterpret_cast<const void*>(image_attention_bwd<T, DP>),
-        smem_bytes<T>(window * window, d, masked != 0), smem, blocks);
+        kernel_of<T, DP>(), smem_bytes<T>(window * window, d, masked != 0),
+        smem, blocks);
   });
+}
+
+// the bf16 tensor maps of qkv, (D, 3H, Rw, Rh, B), and g, (D, H, Rw, Rh,
+// B), the box (the tiles' width, 1, w, w, 1); 0 or the encoder's error
+// (tile::kMapError + ...)
+int image_maps(CUtensorMap (&maps)[2], const void* qkv, const void* g,
+               int batch, int rows, int cols, int channels, int heads,
+               int window) {
+  const int d = channels / heads;
+  const int w = tile::bf16_width((d + 15) / 16 * 16);
+  const cuuint32_t box[5] = {static_cast<cuuint32_t>(w), 1,
+                             static_cast<cuuint32_t>(window),
+                             static_cast<cuuint32_t>(window), 1};
+  for (int i = 0; i < 2; ++i) {
+    const cuuint64_t pixel = (i == 0 ? 3 : 1) * static_cast<cuuint64_t>(
+                                                    channels) * sizeof(bf16);
+    const cuuint64_t dims[5] = {static_cast<cuuint64_t>(d),
+                                static_cast<cuuint64_t>((i == 0 ? 3 : 1) *
+                                                        heads),
+                                static_cast<cuuint64_t>(cols),
+                                static_cast<cuuint64_t>(rows),
+                                static_cast<cuuint64_t>(batch)};
+    const cuuint64_t strides[4] = {d * sizeof(bf16), pixel, pixel * cols,
+                                   pixel * cols * rows};
+    const int err = tile::encode_bf16(&maps[i], i == 0 ? qkv : g, 5, dims,
+                                      strides, box, w);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 template <class T>
@@ -185,15 +289,34 @@ int backward(const void* qkv, const void* g, const void* bias,
       (channels / heads) % tile::vec_elems<T>() == 0 && addresses % 16 == 0;
   return tile::with_padded_d(channels / heads, [&](auto dp) {
     constexpr int DP = decltype(dp)::value;
-    return tile::grad_launch(
-        image_attention_bwd<T, DP>,
-        smem_bytes<T>(n, channels / heads, mask != nullptr), groups, heads,
-        batch, n, static_cast<float*>(partial), n_tiles,
-        static_cast<float*>(dbias), static_cast<float*>(dmask), stream,
-        static_cast<const T*>(qkv), static_cast<const T*>(g),
-        static_cast<const float*>(bias), static_cast<const float*>(mask),
-        static_cast<T*>(dqkv), rows, cols, channels, heads, window, batch,
-        scale, vec);
+    if constexpr (std::is_same<T, bf16>::value) {
+      CUtensorMap maps[2] = {};
+      if (vec) {
+        const int err =
+            image_maps(maps, qkv, g, batch, rows, cols, channels, heads,
+                       window);
+        if (err != 0) return err;
+      }
+      return tile::grad_launch(
+          image_attention_bwd_bf16<DP>,
+          smem_bytes<T>(n, channels / heads, mask != nullptr), groups, heads,
+          batch, n, static_cast<float*>(partial), n_tiles,
+          static_cast<float*>(dbias), static_cast<float*>(dmask), stream,
+          maps[0], maps[1], static_cast<const T*>(qkv),
+          static_cast<const T*>(g), static_cast<const float*>(bias),
+          static_cast<const float*>(mask), static_cast<T*>(dqkv), rows, cols,
+          channels, heads, window, batch, scale, vec);
+    } else {
+      return tile::grad_launch(
+          image_attention_bwd<T, DP>,
+          smem_bytes<T>(n, channels / heads, mask != nullptr), groups, heads,
+          batch, n, static_cast<float*>(partial), n_tiles,
+          static_cast<float*>(dbias), static_cast<float*>(dmask), stream,
+          static_cast<const T*>(qkv), static_cast<const T*>(g),
+          static_cast<const float*>(bias), static_cast<const float*>(mask),
+          static_cast<T*>(dqkv), rows, cols, channels, heads, window, batch,
+          scale, vec);
+    }
   });
 }
 
@@ -214,7 +337,12 @@ int backward(const void* qkv, const void* g, const void* bias,
 // (n_tiles tiles of n * n floats) is scratch for the blocks' dS sums;
 // dbias and dmask are written if not null (dmask only with a mask), and
 // partial may be null when both are.  Each returns cudaGetLastError() after
-// the launches: 0 on success.
+// the launches: 0 on success; in bf16 the tensor maps' encoder's failure
+// as 10000 + its CUresult.
+//
+// image_attention_bwd_encode_us_bf16: the host microseconds a bf16 call at
+// these shapes spends encoding its two tensor maps, the mean of `reps`
+// encodings; minus the error if one fails.
 extern "C" long long image_attention_bwd_tiles_bf16(int batch, int rows,
                                                     int cols, int channels,
                                                     int heads, int window,
@@ -265,4 +393,21 @@ extern "C" int image_attention_bwd_f32(const void* qkv, const void* g,
   return backward<float>(qkv, g, bias, mask, dqkv, partial, n_tiles, dbias,
                          dmask, batch, rows, cols, channels, heads, window,
                          scale, stream);
+}
+
+extern "C" double image_attention_bwd_encode_us_bf16(
+    const void* qkv, const void* g, int batch, int rows, int cols,
+    int channels, int heads, int window, int reps) {
+  if (!takes(batch, rows, cols, channels, heads, window) || reps < 1)
+    return -static_cast<double>(cudaErrorInvalidValue);
+  CUtensorMap maps[2];
+  const auto t0 = std::chrono::steady_clock::now();
+  for (int r = 0; r < reps; ++r) {
+    const int err =
+        image_maps(maps, qkv, g, batch, rows, cols, channels, heads, window);
+    if (err != 0) return -static_cast<double>(err);
+  }
+  const std::chrono::duration<double, std::micro> us =
+      std::chrono::steady_clock::now() - t0;
+  return us.count() / reps;
 }

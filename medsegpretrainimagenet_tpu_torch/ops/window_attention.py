@@ -296,6 +296,32 @@ def backward_residency(kernel: str, dtype: torch.dtype, tokens: int,
     return smem.value, blocks.value
 
 
+def backward_map_us(kernel: str, *operands, reps: int = 1000) -> float:
+    """Host microseconds a bf16 call of *kernel*'s backward spends
+    encoding its tensor maps (the mean of *reps* encodings) for the
+    operands it would be given: ``window_attention`` (q, k, v, g), or
+    ``image_attention`` (qkv, g, heads, window).  Needs the card."""
+    lib = _build.library(f"{kernel}_bwd")
+    fn = getattr(lib, f"{kernel}_bwd_encode_us_bf16")
+    fn.restype = ctypes.c_double
+    if kernel == "window_attention":
+        q, k, v, g = operands
+        b_, heads, n, d = q.shape
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        us = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), b_,
+                heads, n, d, reps)
+    else:
+        qkv, g, heads, window = operands
+        b, rows, cols, c3 = qkv.shape
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+        us = fn(qkv.data_ptr(), g.data_ptr(), b, rows, cols, c3 // 3, heads,
+                window, reps)
+    if us < 0:
+        raise RuntimeError(f"{kernel} backward: encoding its tensor maps "
+                           f"failed with error {-us:g}")
+    return us
+
+
 def _partials(kernel: str, dtype: torch.dtype, device: torch.device,
               n: int, shape: tuple):
     """(scratch, tiles): float32 scratch for the dS sums of the blocks of

@@ -15,10 +15,12 @@ rows of the shift mask), two images each.
   apart).  dbias and dmask, which sum over windows,
   are held relative to their largest magnitude, to the float32 bars in
   both dtypes (dS is float32 in both).
-* The float32 kernel adds S + (bias + mask) (one table a block), the JAX
-  package (S + bias) + mask; the model follows the kernel, and the two
-  orders keep a tenth of the float32 bars apart, under the shift mask and
-  under a dense one.
+* Both kernels add S + (bias + mask) (one table a block), the JAX package
+  (S + bias) + mask; the model follows the kernels, and the two orders
+  keep a tenth of the bars apart, under the shift mask and under a dense
+  one, in either dtype.  The model sums dbias and dmask over the blocks
+  of the kernels' grid (three blocks an SM in bf16, two in float32), and
+  over chunks of several images too.
 * In float32 it holds against the JAX package's custom VJPs, ``_fused_bwd``
   and ``_fused_image_bwd`` (plain jnp, called straight on the inputs;
   for the band, whose rectangle ``_xla_image_attention`` does not take,
@@ -42,7 +44,8 @@ from medsegpretrainimagenet_tpu_torch.models.swin import (
     _relative_position_index, _shift_attn_mask)
 from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
 
-from torch_port_helpers import (image_attention_backward_model,
+from torch_port_helpers import (BACKWARD_RESIDENT, grid_per,
+                                image_attention_backward_model,
                                 image_merge, image_windows,
                                 window_attention_backward_model)
 
@@ -147,15 +150,10 @@ def _bf16_step(x: torch.Tensor) -> torch.Tensor:
     return torch.pow(2.0, exponent - 7)
 
 
-@pytest.mark.parametrize("kernel", ["k1", "k2"])
-@DTYPES
-@pytest.mark.parametrize("level,heads,rows,masked", SHAPES + [BAND])
-def test_model_keeps_a_tenth_of_the_bars(kernel, dtype, level, heads, rows,
-                                         masked):
-    arrays = _inputs(level, heads, rows, masked)
-    want = _grads(kernel, "plain", arrays, dtype)
-    got = _grads(kernel, "model", arrays, dtype, per=IMAGES // 2 + 1)
-    assert (got["dmask"] is None) == (not masked)
+def _assert_a_tenth(got: dict, want: dict, dtype) -> None:
+    """*got* keeps a tenth of the card's bars from *want*: float32 (and
+    dbias and dmask, relative) on the max and the mean; bf16 on the mean,
+    and on the max a tenth of the bar or one bf16 step of the gradient."""
     for name, (err, mean_err) in _readings(got, want).items():
         if dtype == torch.float32 or name in ("dbias", "dmask"):
             assert err < F32_TOL / MARGIN, (name, err)
@@ -168,18 +166,72 @@ def test_model_keeps_a_tenth_of_the_bars(kernel, dtype, level, heads, rows,
         assert err < BF16_TOL
 
 
+def _grid_per(kernel, dtype, heads, rows, cols, masked) -> int:
+    """The images a block of *kernel*'s backward walks at these shapes
+    (IMAGES images), as its grid takes them on the card."""
+    windows = (rows // WINDOW) * (cols // WINDOW)
+    if kernel == "k1":
+        n_w = windows if masked else 1
+        groups, images = n_w * heads, IMAGES * windows // n_w
+    else:
+        groups, images = windows * heads, IMAGES
+    return grid_per(groups, images, BACKWARD_RESIDENT[dtype])
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2"])
+@DTYPES
+@pytest.mark.parametrize("level,heads,rows,masked", SHAPES + [BAND])
+def test_model_keeps_a_tenth_of_the_bars(kernel, dtype, level, heads, rows,
+                                         masked):
+    arrays = _inputs(level, heads, rows, masked)
+    want = _grads(kernel, "plain", arrays, dtype)
+    per = _grid_per(kernel, dtype, heads, rows, 56 // 2 ** level, masked)
+    got = _grads(kernel, "model", arrays, dtype, per=per)
+    assert (got["dmask"] is None) == (not masked)
+    _assert_a_tenth(got, want, dtype)
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2"])
+@DTYPES
+@pytest.mark.parametrize("level,heads,rows,masked", SHAPES + [BAND])
+def test_model_in_chunks_of_images_keeps_a_tenth_of_the_bars(
+        kernel, dtype, level, heads, rows, masked):
+    """The same with blocks that walk two images each (a grid at a larger
+    batch), so that a partial sums several pairs before the partials'
+    sum."""
+    arrays = _inputs(level, heads, rows, masked)
+    want = _grads(kernel, "plain", arrays, dtype)
+    got = _grads(kernel, "model", arrays, dtype, per=IMAGES // 2 + 1)
+    _assert_a_tenth(got, want, dtype)
+
+
+def test_grid_per_follows_the_kernels_plan():
+    """tile::plan's grid at swin_224_train's shapes (batch 24) on 132 SMs:
+    K1's level-1 SW-MSA call (96 groups of 24 images) takes four chunks of
+    six images at three blocks an SM, two of twelve at two; its W-MSA call
+    (six groups of 384 windows) 66 chunks of six windows at three, 44 of
+    nine at two."""
+    assert grid_per(96, 24, 3) == 6 and grid_per(96, 24, 2) == 12
+    assert grid_per(6, 384, 3) == 6 and grid_per(6, 384, 2) == 9
+    assert grid_per(24 * 64, 1, 3) == 1
+
+
 MASKED_SHAPES = [shape for shape in SHAPES if shape.values[3]] + [BAND]
 
 
 @pytest.mark.parametrize("kernel", ["k1", "k2"])
-@pytest.mark.parametrize("mask_kind", ["shift", "dense"])
+@pytest.mark.parametrize("mask_kind,dtype", [
+    pytest.param("shift", torch.float32, id="shift"),
+    pytest.param("dense", torch.float32, id="dense"),
+    pytest.param("shift", torch.bfloat16, id="shift_bf16"),
+    pytest.param("dense", torch.bfloat16, id="dense_bf16")])
 @pytest.mark.parametrize("level,heads,rows,masked", MASKED_SHAPES)
-def test_summed_table_keeps_a_tenth_of_the_bars(kernel, mask_kind, level,
-                                                heads, rows, masked):
-    """The float32 kernel adds S + (bias + mask), the table its block sums
-    when it loads it, where the JAX package and the plain version take (S
-    + bias) + mask.  The model in either order, against the other and
-    against the plain version, keeps a tenth of the float32 bars: under
+def test_summed_table_keeps_a_tenth_of_the_bars(kernel, mask_kind, dtype,
+                                                level, heads, rows, masked):
+    """Both kernels add S + (bias + mask), the table a block sums when it
+    loads it, where the JAX package and the plain version take (S + bias) +
+    mask.  The model in either order, against the other and against the
+    plain version, keeps a tenth of the bars (float32's, or bf16's): under
     Swin's shift mask (0 or -100) and under a dense mask of standard
     normal values, whose sums with the bias round at every entry."""
     qkv, g, bias, mask = _inputs(level, heads, rows, masked, seed=2)
@@ -187,13 +239,11 @@ def test_summed_table_keeps_a_tenth_of_the_bars(kernel, mask_kind, level,
         rng = np.random.default_rng(7 + level)
         mask = rng.standard_normal(mask.shape).astype(np.float32)
     arrays = (qkv, g, bias, mask)
-    want = _grads(kernel, "plain", arrays, torch.float32)
-    summed = _grads(kernel, "model", arrays, torch.float32, summed=True)
-    added = _grads(kernel, "model", arrays, torch.float32, summed=False)
+    want = _grads(kernel, "plain", arrays, dtype)
+    summed = _grads(kernel, "model", arrays, dtype, summed=True)
+    added = _grads(kernel, "model", arrays, dtype, summed=False)
     for got, ref in ((summed, want), (added, want), (summed, added)):
-        for name, (err, mean_err) in _readings(got, ref).items():
-            assert err < F32_TOL / MARGIN, (name, err)
-            assert mean_err < F32_MEAN_TOL / MARGIN, (name, mean_err)
+        _assert_a_tenth(got, ref, dtype)
 
 
 #: the JAX package's backward functions as they are, each traced once per

@@ -105,7 +105,8 @@ def test_window_attention_kernel_matches_plain(cuda_device, dtype, tol,
 
 
 def _off_by_one_float(t):
-    """A contiguous copy of *t* one float past a 16-byte boundary."""
+    """A contiguous copy of *t* one element (a float, or a bf16) past a
+    16-byte boundary."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     view = buf[1:].view(t.shape)
     view.copy_(t)
@@ -213,6 +214,51 @@ def test_float32_backward_keeps_eight_warps_per_sm(cuda_device, kernel):
         else (24, 28, 28, 6 * 32, 6, 7, 1)
     tiles = wa._grad_entry(kernel, torch.float32, tiles=True)(*shape)
     assert tiles >= 2 * 96, tiles
+
+
+@pytest.mark.parametrize("kernel", ["window_attention", "image_attention"])
+def test_bfloat16_backward_keeps_twelve_warps_per_sm(cuda_device, kernel):
+    """The bf16 backward at swin_unet_224's shapes (N 49, D 32, masked)
+    holds three blocks of four warps on an SM: at level 1's SW-MSA call
+    (16 windows x 6 heads at batch 24) its grid, and so its partial-tile
+    count, takes at least three times the 96 groups."""
+    smem, blocks = wa.backward_residency(kernel, torch.bfloat16, 49, 32,
+                                         True)
+    assert 4 * blocks >= 12, (smem, blocks)
+    shape = (24 * 16, 6, 49, 32, 16, 1) if kernel == "window_attention" \
+        else (24, 28, 28, 6 * 32, 6, 7, 1)
+    tiles = wa._grad_entry(kernel, torch.bfloat16, tiles=True)(*shape)
+    assert tiles >= 3 * 96, tiles
+
+
+def test_bfloat16_backward_takes_operands_that_are_not_16_byte_aligned(
+        cuda_device):
+    """Operands one element past a 16-byte boundary cannot go through the
+    tensor maps: the bf16 backward copies them element by element, held
+    under the bf16 bars and bit-equal on a second launch."""
+    q, k, v, bias, mask = _inputs(torch.bfloat16, True, cuda_device, seed=8)
+    g = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)) \
+        .to(cuda_device, torch.bfloat16)
+    shifted = [_off_by_one_float(t) for t in (q, k, v, g)]
+    got = wa.window_attention_backward_cuda(*shifted[:3], bias, mask, SCALE,
+                                            shifted[3])
+    again = wa.window_attention_backward_cuda(*shifted[:3], bias, mask,
+                                              SCALE, shifted[3])
+    want = wa.window_attention_backward(q, k, v, bias, mask, SCALE, g)
+    torch.cuda.synchronize()
+    _hold_grads(got, want, 0.05, 1e-5, ("dq", "dk", "dv", "dbias", "dmask"))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    qkv, bias, mask = _image_inputs(torch.bfloat16, True, cuda_device,
+                                    seed=8)
+    g = torch.randn(qkv.shape[:3] + (qkv.shape[3] // 3,),
+                    generator=torch.Generator().manual_seed(9)) \
+        .to(cuda_device, torch.bfloat16)
+    got = wa.image_attention_backward_cuda(_off_by_one_float(qkv), bias,
+                                           mask, SCALE, 7,
+                                           _off_by_one_float(g))
+    want = wa.image_attention_backward(qkv, bias, mask, SCALE, 7, g)
+    torch.cuda.synchronize()
+    _hold_grads(got, want, 0.05, 1e-5, ("dqkv", "dbias", "dmask"))
 
 
 def test_backward_kernels_give_only_the_table_gradients_asked_for(

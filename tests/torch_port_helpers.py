@@ -409,24 +409,41 @@ def summed_partials(ds, n_w: int, heads: int, per: int):
     return dbias, dmask
 
 
+#: the H100's SMs, and the blocks of each backward kernel an SM holds at N
+#: 49, D 32 (bf16: three; float32: two; PERF.md)
+SMS = 132
+BACKWARD_RESIDENT = {torch.bfloat16: 3, torch.float32: 2}
+#: log2(e) in float32, by which the bf16 kernel's softmax scales S - max
+LOG2E = float(np.float32(1.4426950408889634))
+
+
+def grid_per(groups: int, images: int, resident: int, sms: int = SMS):
+    """The images a block of a backward kernel walks, as ``tile::plan``
+    sizes its grid for *groups* groups of *images* pairs: as many blocks as
+    fit on the card at once (*resident* an SM), at least one a group."""
+    chunks = max(1, min(images, sms * resident // groups))
+    return -(-images // chunks)
+
+
 def window_attention_backward_model(q, k, v, bias, mask, scale: float, g,
                                     split: bool = True, n_w=None,
                                     per: int = 1, summed=None):
     """The backward kernels' arithmetic on (B_, H, N, D) operands of their
     dtype: S = (q * scale) . k^T as the forward takes it (bf16: q * scale
-    rounded to bf16, the scale rounded first; float32: split TF32), +
-    bias (+ mask): in bf16 (S + bias) + mask as the JAX package adds them,
-    in float32 S + (bias + mask), the table that the float32 kernel sums
-    when its block loads it (*summed* picks either order in either dtype);
-    the softmax as e * the rounded 1 / sum(e); dP = g . v^T; dS
-    = P (dP - rowsum(dP P)) in float32; dV = P^T . g, dQ = scale dS . k,
-    dK = scale dS^T . q with P and dS split into two bf16 operands in bf16
-    and everything in split TF32 in float32 (without *split*: P and dS
-    rounded to bf16 once, or one TF32 pass); dbias and dmask from
-    :func:`summed_partials` over groups of *n_w* windows (the mask's rows,
-    or 1 without a mask, as K1's grid; K2's grid always takes the image's
-    windows) and chunks of *per* images.  Returns (dq, dk, dv, dbias,
-    dmask) in the inputs' dtype (dbias and dmask float32)."""
+    rounded to bf16, the scale rounded first; float32: split TF32), + the
+    bias and mask as S + (bias + mask), the one table each kernel sums
+    when its block loads it (``summed=False`` takes (S + bias) + mask, as
+    the JAX package adds them); the softmax as e * the rounded 1 / sum(e),
+    e = exp(S - max) in float32 and in bf16 2^((S - max) * log2 e) (the bf16
+    kernel's ex2); dP = g . v^T; dS = P (dP - rowsum(dP P)) in float32; dV
+    = P^T . g, dQ = scale dS . k, dK = scale dS^T . q with P and dS split
+    into two bf16 operands in bf16 and everything in split TF32 in float32
+    (without *split*: P and dS rounded to bf16 once, or one TF32 pass);
+    dbias and dmask from :func:`summed_partials` over groups of *n_w*
+    windows (the mask's rows, or 1 without a mask, as K1's grid; K2's grid
+    always takes the image's windows) and chunks of *per* images (the
+    grid's: :func:`grid_per`).  Returns (dq, dk, dv, dbias, dmask) in the
+    inputs' dtype (dbias and dmask float32)."""
     bf16 = q.dtype == torch.bfloat16
     if bf16:
         qs = (q * _bf16_scale(scale)).float()
@@ -434,7 +451,7 @@ def window_attention_backward_model(q, k, v, bias, mask, scale: float, g,
         qs = q.float() * float(torch.tensor(scale, dtype=torch.float32))
     logits = _product(qs, k.transpose(-1, -2), bf16, split)
     b_, h, n, _ = logits.shape
-    summed = not bf16 if summed is None else summed
+    summed = True if summed is None else summed
     if mask is None:
         logits = logits + bias[None].float()
     else:
@@ -447,7 +464,8 @@ def window_attention_backward_model(q, k, v, bias, mask, scale: float, g,
             logits = (logits + bias[None, None].float()) \
                 + mask[None, :, None].float()
         logits = logits.reshape(b_, h, n, n)
-    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    shifted = logits - logits.amax(-1, keepdim=True)
+    e = torch.exp2(shifted * LOG2E) if bf16 else torch.exp(shifted)
     probs = e * (1.0 / e.sum(-1, keepdim=True))
     dprobs = _product(g, v.transpose(-1, -2), bf16, split)
     ds = probs * (dprobs - (dprobs * probs).sum(-1, keepdim=True))
