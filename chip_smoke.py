@@ -46,9 +46,16 @@ falling on a fixed batch, its running statistics
 moving and no host sync queued by the timed steps; it prints images/s, the
 device's busy share and its time per step by kernel group, launches and
 peak memory per step and the share of the operations bound, and runs one
-turn with two fragments of 8.  ``[cli]`` then drives the port's experiment
+turn with two fragments of 8.  ``[remat]`` steps ``unet_256_train`` from
+the same weights with block rematerialisation off and then on
+(``blocks.set_remat``, ``meta/technical/remat``): the two within
+``[train bf16]``'s bars, every basic block under checkpoint, no host sync
+in the timed steps, the peak memory lower with remat on, both step times
+and peaks printed; and a small ResNet attention U-Net with remat on, card
+against CPU, and with drop paths from the card's generator, remat on
+against off.  ``[cli]`` then drives the port's experiment
 CLI as a user runs it, ``python3 -m medsegpretrainimagenet_tpu_torch.cli
-config.yaml`` in a process of its own, on a synthetic COVID-QU tree (1024
+config.yaml`` in a process of its own, on a synthetic COVID-QU tree (512
 training images of 256 x 256): the full-width CLI config for two epochs,
 then a third under ``--continued``.  It checks the run files (every
 ``.pt`` loads into the model), the row counts of epoch_logs.csv and
@@ -58,9 +65,9 @@ epochs' images/s beside ``[train]``'s, the val and checkpoint times and the
 device time per step.  In this process it counts the host syncs of
 ``run_epoch`` at two step counts, times host assembly and the copy to the
 card per batch, profiles the device's busy share and runs the test
-pass; ``[cli det]`` runs one epoch of the same config under
-deterministic algorithms and names any operation that has no
-deterministic CUDA kernel.  ``[metrics]`` holds every metric
+pass; ``[cli det]``: the --continued epoch runs under deterministic
+algorithms and names any operation that has no deterministic CUDA
+kernel.  ``[metrics]`` holds every metric
 of the suite (HD95, AUROC and AP, the multiclass family) on one full-width
 batch against the same port on the CPU, under sync debug mode "error" and
 under deterministic algorithms, with its device ms and launches per update,
@@ -69,8 +76,8 @@ into the step.  ``[cli acdc]`` trains the ACDC multiclass U-Net (the
 full-width U-Net with a 4-class softmax head, multiclass Dice loss, the
 multiclass Dice, Jaccard, HD95 and AUROC, the confusion-matrix export and
 a profiler trace) through the CLI on a synthetic NIfTI tree, two epochs
-and a third under ``--continued`` (the --continued runs, ``[cli det]``
-and ``[cli transfer]`` are not measured: no profiling, so no trace, and
+and a third under ``--continued`` (the --continued runs and ``[cli
+transfer]`` are not measured: no profiling, so no trace, and
 no cuDNN autotuning).  ``[pretrain small]`` holds a
 small float32 pretraining classifier (a ``FeedForwardModel`` of the U-Net
 encoder, pooling, flatten and a Linear head) card against CPU over three
@@ -109,7 +116,15 @@ forward and backward kernels a step, profiles it, times the attention of
 one step forward and backward on each layout (the kernel pair against
 the forward kernel with the plain recompute backward, plain autograd and
 SDPA), and prints which of the two candidates for ``train=True`` is
-faster;
+faster; ``[ln half]`` turns on the half-output LayerNorms
+(``blocks.set_ln_half_out``): the small Swin U-Net's bf16 steps card
+against CPU on K1 and on K2 (each reading within twice that of the same
+comparison with the switch off, or within ``[train bf16]``'s bar),
+``swin_224_train`` on K1 timed and profiled beside ``[swin train]``'s K1
+route (ms a step, busy ms, launches, the LayerNorm and copies-and-permutes
+groups), every K1 and K2 call of one step on each route, forward and
+backward, held against its plain version, and ``swin_unet_224``'s device
+ms a batch served with the switch on and off on both paths;
 ``[resnet train]`` times the ResNet-50 attention U-Net's step (16 x 256 x
 256, bf16); ``[cli swin]`` and ``[cli resnet]`` train both through the CLI
 on synthetic COVID-QU trees, three epochs in one process, the encoder
@@ -161,7 +176,8 @@ The last lines are the card's name and power limit, a JSON line with each
 kernel's launches, error and times (K1 and K2 in bf16 per serving forward,
 and in float32 per Swin encoder forward of ``robustness_224``; both
 entries also carry their launches and their forward and backward pair
-per step of ``swin_224_train`` and their launches in one forward of
+per step of ``swin_224_train`` (also with the half-output LayerNorms)
+and their launches in one forward of
 their exported artifact; K1's also per step of ``swin_224_train`` under
 tensor parallelism and per tick of the pipeline; the backward kernels,
 bf16 and float32, per step of ``swin_224_train``: ``[k1 bwd]``,
@@ -1222,9 +1238,9 @@ def phase_serve(tmp: Path):
           f"{SERVE_TOL})", flush=True)
 
     # one short run is at the mercy of the shared host: time the three
-    # again in turns (plain, K1, K2, K2, K1, plain, twice), medians
+    # again in turns (plain, K1, K2, K2, K1, plain), medians
     rates = {"plain": [], "k1": [], "k2": []}
-    for path in ("plain", "k1", "k2", "k2", "k1", "plain") * 2:
+    for path in ("plain", "k1", "k2", "k2", "k1", "plain"):
         rates[path].append(serve("turn.npy", path)["images_per_sec"])
     for path, name in (("k1", "kernel (K1, windows layout)"),
                        ("k2", "fused image layout (K2)"),
@@ -1604,6 +1620,45 @@ def _bf16_stats_batch_norm(self, x):
     return y.to(dtype)
 
 
+def _bf16_readings(run_, ref):
+    """Relative |run_ - ref| of two training runs from the same weights
+    ({"loss", "norm": per step, "delta": each leaf's change over the
+    steps}) per quantity of BF16_TRAIN_TOL, and the worst leaf of each
+    leaf family (a model without BatchNorm has no running statistics)."""
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+    read = {"loss": ((run_["loss"] - ref["loss"]).abs()
+                     / ref["loss"].abs()).max().item(),
+            "gradient norm": ((run_["norm"] - ref["norm"]).abs()
+                              / ref["norm"]).max().item()}
+    worst = {}
+    for family, stats_ in (("parameters", False),
+                           ("running statistics", True)):
+        leaves = {k: rel(d, ref["delta"][k])
+                  for k, d in run_["delta"].items()
+                  if ("running_" in k) == stats_
+                  and ref["delta"][k].norm() > 0}
+        if leaves:
+            worst[family] = max(leaves, key=leaves.get)
+            read[family] = leaves[worst[family]]
+    return read, worst
+
+
+def _run_record(model, logs, start) -> dict:
+    """A training run's losses and gradient norms (*logs*, per step) and
+    each leaf's change since *start* (float64, where *start* lies; conv
+    biases left out, as [train bf16] leaves them out) for
+    :func:`_bf16_readings`."""
+    import torch
+
+    end = model.state_dict()
+    return {"loss": torch.stack([a for a, _ in logs]).double().cpu(),
+            "norm": torch.stack([b for _, b in logs]).double().cpu(),
+            "delta": {k: end[k].to(v.device, torch.float64) - v
+                      for k, v in start.items()
+                      if not re.search(r"\.Conv_\d+\.bias$", k)}}
+
+
 def phase_train_bf16(seed: int = 0):
     """unet_256_train at full width in bf16 against the same port in
     float32 with TF32 off: BF16_STEPS steps from the same weights (biases
@@ -1644,35 +1699,11 @@ def phase_train_bf16(seed: int = 0):
                         state, metrics_state, batch)
                     logs.append((per_batch["dice_loss"],
                                  per_batch["gradient_magnitude"]))
-            end = model.module.state_dict()
-            return {"loss": torch.stack([a for a, _ in logs]).double().cpu(),
-                    "norm": torch.stack([b for _, b in logs]).double().cpu(),
-                    "delta": {k: end[k].double() - v
-                              for k, v in start.items()
-                              if not re.search(r"\.Conv_\d+\.bias$", k)}}
+            return _run_record(model.module, logs, start)
         finally:
             blocks.set_compute_dtype(None)
 
-    def readings(run_, ref):
-        """Relative |run_ - ref| per quantity, and the worst leaf of each
-        leaf family."""
-        def rel(a, b):
-            return ((a - b).norm() / b.norm()).item()
-        read = {"loss": ((run_["loss"] - ref["loss"]).abs()
-                         / ref["loss"].abs()).max().item(),
-                "gradient norm": ((run_["norm"] - ref["norm"]).abs()
-                                  / ref["norm"]).max().item()}
-        worst = {}
-        for family, stats_ in (("parameters", False),
-                               ("running statistics", True)):
-            leaves = {k: rel(d, ref["delta"][k])
-                      for k, d in run_["delta"].items()
-                      if ("running_" in k) == stats_
-                      and ref["delta"][k].norm() > 0}
-            worst[family] = max(leaves, key=leaves.get)
-            read[family] = leaves[worst[family]]
-        return read, worst
-
+    readings = _bf16_readings
     t0 = time.perf_counter()
     ref = run(None)
     sound, worst = readings(run(torch.bfloat16), ref)
@@ -1773,7 +1804,8 @@ def profile_train(run_steps, steps: int, wall_ms: float,
     steps.  The busy share is the device time over the wall time of the
     same profiled steps; *wall_ms*, the median wall time of a step in the
     unprofiled turns, is printed beside it.  Lines start with ``[profile
-    <tag>]``; *unit* names what one of the steps is."""
+    <tag>]``; *unit* names what one of the steps is.  Returns the device
+    busy ms, the launches and each group's ms, per step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1816,6 +1848,7 @@ def profile_train(run_steps, steps: int, wall_ms: float,
               f"{e.self_device_time_total / 1e3 / steps:7.3f} ms/{unit} "
               f"{e.count / steps:5.1f}x {e.key}")
     sys.stdout.flush()
+    return {"busy_ms": busy, "launches": launches, "groups": groups}
 
 
 def _timed_turns(run_steps, label: str) -> list:
@@ -2168,11 +2201,13 @@ def phase_metrics(step_rate: float) -> None:
     torch.cuda.empty_cache()
 
 
-#: the [cli] run: COVID-QU-shaped synthetic data, 1024 training images (64
+#: the [cli] run: COVID-QU-shaped synthetic data, 512 training images (32
 #: steps of 16 per epoch) and 16 test images (the val split under
 #: validate_on_test), 2 epochs, then a 3rd under --continued (cut from 3
-#: and a 4th, to keep the script under 900 s beside [cli idrid])
-CLI_IMAGES, CLI_TEST, CLI_EPOCHS, CLI_SIZE, CLI_BATCH = 1024, 16, 2, 256, 16
+#: and a 4th, to keep the script under 900 s beside [cli idrid]; from
+#: 1024 images to 512 beside [remat] and [ln half], which halves the
+#: profiler trace of the first epoch, most of its time)
+CLI_IMAGES, CLI_TEST, CLI_EPOCHS, CLI_SIZE, CLI_BATCH = 512, 16, 2, 256, 16
 #: epoch_logs.csv's columns for Dice loss and metrics.DiceIndex, the JAX
 #: CLI's set (tests/test_torch_cli.py holds the two CLIs' sets equal)
 CLI_EPOCH_COLUMNS = {"epoch", "learning_rate", "dice_loss",
@@ -2191,8 +2226,8 @@ def cli_config(workdir: Path, epochs: int, absolute_path=None,
     and metrics.DiceIndex, SGD momentum 0.9 at a constant lr of 0.01,
     validate_on_test.  Added: RepeatChannels for train and val, the mask
     cast, and the watched metric, so that a best model is written.
-    A run that is not *measured* (the --continued runs, [cli det] and
-    [cli transfer]) writes no timing files and no profiler trace and skips
+    A run that is not *measured* (the --continued runs and [cli
+    transfer]) writes no timing files and no profiler trace and skips
     cuDNN's autotuning, a large part of a process's first epoch."""
     technical = {"seed": 777, "save_destination": str(workdir / "logs"),
                  "maximum_actual_batch_size": CLI_BATCH,
@@ -2529,9 +2564,25 @@ def phase_cli(step_rate: float) -> None:
                   f"{1e3 * float(steps['p50_s']):.2f}, max "
                   f"{1e3 * float(steps['max_s']):.2f}", flush=True)
 
-        seconds = _run_cli(workdir, cli_config(
-            workdir, CLI_EPOCHS + 1, absolute_path=str(exp) + "/",
-            measured=False), "--continued")
+        # the resumed epoch runs under deterministic algorithms: an
+        # operation without a deterministic CUDA kernel raises inside the
+        # error envelope and is reported by name
+        continued = cli_config(workdir, CLI_EPOCHS + 1,
+                               absolute_path=str(exp) + "/", measured=False)
+        continued["meta"]["technical"]["use_deterministic_algorithms"] = True
+        seconds, out = _cli_process(workdir, continued, "--continued")
+        raised = sorted(set(re.findall(
+            r"(\S+) does not have a deterministic implementation",
+            out.stderr)))
+        marks = [m for m in ENVELOPE_MARKS if m in out.stderr]
+        check(out.returncode == 0 and not raised and not marks,
+              f"[cli det] --continued under deterministic algorithms: exit "
+              f"{out.returncode}, operations without a deterministic CUDA "
+              f"kernel {raised}, envelope marks {marks}; stderr tail:\n"
+              f"{out.stderr[-4000:]}")
+        print(f"[cli det] the [cli] config under deterministic algorithms "
+              f"(the --continued epoch): operations without a deterministic "
+              f"CUDA kernel that raised: none", flush=True)
         rows = _check_run(run, CLI_EPOCHS + 1, module)
         check([int(r["epoch"]) for r in rows]
               == list(range(1, CLI_EPOCHS + 2)), "[cli] resumed epochs")
@@ -2546,44 +2597,6 @@ def phase_cli(step_rate: float) -> None:
         torch.cuda.empty_cache()
         phase_cli_in_process(workdir)
     print(f"[cli] {time.perf_counter() - t0:.1f} s", flush=True)
-
-
-#: [cli det]: the [cli] config under deterministic algorithms, one epoch,
-#: not measured (no trace, no autotuning)
-DET_IMAGES = 128
-
-
-def phase_cli_deterministic() -> None:
-    """[cli det]: the [cli] config with ``use_deterministic_algorithms``
-    on, one epoch over DET_IMAGES images, in a process of its own: it must
-    exit 0; an operation without a deterministic CUDA kernel raises inside
-    the error envelope and is reported by name."""
-    t0 = time.perf_counter()
-    (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        workdir = Path(tmp)
-        write_covidqu_tree(workdir / "data", images=DET_IMAGES)
-        cfg = cli_config(workdir, 1, measured=False)
-        cfg["meta"]["technical"]["use_deterministic_algorithms"] = True
-        seconds, out = _cli_process(workdir, cfg)
-        raised = sorted(set(re.findall(
-            r"(\S+) does not have a deterministic implementation",
-            out.stderr)))
-        marks = [m for m in ENVELOPE_MARKS if m in out.stderr]
-        check(out.returncode == 0 and (raised or not marks),
-              f"[cli det] exit {out.returncode}, envelope marks {marks}; "
-              f"stderr tail:\n{out.stderr[-4000:]}")
-        (run,) = (workdir / "logs").glob("*/Experiment/run_1")
-        rows = _csv_rows(run / "epoch_logs.csv")
-        check(len(rows) == 1, f"[cli det] {len(rows)} epoch rows")
-        print(f"[cli det] the [cli] config under deterministic algorithms, "
-              f"1 epoch of {DET_IMAGES} images in {seconds:.1f} s of wall "
-              f"time (process and cuDNN autotuning included): operations "
-              f"without a deterministic CUDA kernel that raised: "
-              f"{raised or 'none'}; dice_loss {rows[0]['dice_loss']}, val "
-              f"Dice {rows[0]['val_metrics/dice_index_threshold_0.5']}",
-              flush=True)
-    print(f"[cli det] {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 #: [ddp]: images of the tree, and the bar on |torchrun - plain| of every
@@ -3363,11 +3376,13 @@ def main_parallel(cards: int = 4) -> int:
 
 
 #: [cli acdc]: a synthetic ACDC tree, ACDC_TRAIN + ACDC_TEST patients of
-#: two frames of ACDC_SHAPE each (400 training and 200 validation slices
-#: of 256 x 256 after the resize), ACDC_EPOCHS epochs in one process (the
-#: resume under --continued is [cli]'s: a process of its own took 33 s of
-#: the script's time)
-ACDC_TRAIN, ACDC_TEST, ACDC_SHAPE, ACDC_EPOCHS = 20, 10, (232, 256, 10), 3
+#: two frames of ACDC_SHAPE each (200 training and 100 validation slices
+#: of 256 x 256 after the resize; 400 and 200 until the profiler trace of
+#: the first epoch, most of the phase's time, was halved beside [remat]
+#: and [ln half]), ACDC_EPOCHS epochs in one process (the resume under
+#: --continued is [cli]'s: a process of its own took 33 s of the script's
+#: time)
+ACDC_TRAIN, ACDC_TEST, ACDC_SHAPE, ACDC_EPOCHS = 10, 5, (232, 256, 10), 3
 ACDC_CLASSES = ("RV cavity", "myocardium", "LV cavity")
 ACDC_METRICS = (MC + "DiceIndex", MC + "JaccardIndex",
                 MC + "ModifiedHausdorffDistance", MC + "AUROC")
@@ -4869,13 +4884,15 @@ def _train_turns(run_steps, routes) -> dict:
 
 
 def train_cell(tag: str, cfg: dict, batch_size: int, size: int,
-               n_params: int, routes=("k1",)) -> dict:
+               n_params: int, routes=("k1",), after=None) -> dict:
     """Build the trainer of *cfg* in bf16 on the card, warm it up on each
     route, time the routes in turns (:func:`_train_turns`) on one fixed
     batch, check the losses finite and falling, and print images/s, ms per
     step, the share of the operations bound, launches per step and peak
-    memory per route; then profile the first route.  Returns the
-    per-route results with ``images_per_s`` and ``step_ms``."""
+    memory per route; then profile the first route and call
+    ``after(run_steps)`` if given.  Returns the per-route results with
+    ``images_per_s`` and ``step_ms``, the first route's with its
+    ``profile``."""
     import torch
 
     from medsegpretrainimagenet_tpu_torch.models import blocks
@@ -4947,9 +4964,11 @@ def train_cell(tag: str, cfg: dict, batch_size: int, size: int,
                   f"{res['peak'] / 2 ** 30:.2f} GiB", flush=True)
         main = routes[0]
         with attention_route(main):
-            profile_train(run_steps, 3, results[main]["step_ms"], tag=tag,
-                          groups_of=_SWIN_TRAIN_GROUPS if "swin" in tag
-                          else None)
+            results[main]["profile"] = profile_train(
+                run_steps, 3, results[main]["step_ms"], tag=tag,
+                groups_of=_SWIN_TRAIN_GROUPS if "swin" in tag else None)
+        if after is not None:
+            after(run_steps)
         return results
     finally:
         blocks.set_compute_dtype(None)
@@ -5207,7 +5226,7 @@ def phase_swin_train() -> dict:
           f"the turns' spread {spread:.3f} ms): faster beyond the spread: "
           f"{faster}; train=True takes K1 and its backward kernel (the "
           f"dispatch has no other route for a CUDA tensor)", flush=True)
-    return {"launches": results["k1"]["k1"],
+    return {"launches": results["k1"]["k1"], "k1_cell": results["k1"],
             "bwd_launches": results["k1"]["k1_bwd"],
             "k2_launches": results["k2"]["k2"],
             "k2_bwd_launches": results["k2"]["k2_bwd"], "pair": pairs["k1"],
@@ -5510,6 +5529,501 @@ def phase_blocks_small():
               f"CPU max |diff| loss {loss_err:.3g}, parameters and running "
               f"statistics {state_err[worst]:.3g} ({worst}; bar "
               f"{TRAIN_TOL})", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# block rematerialisation and the half-output LayerNorm
+# ---------------------------------------------------------------------------
+
+#: [remat]: unet_256_train's steps held remat on against off, from the same
+#: weights on the same batch, before the timed turns of each
+REMAT_STEPS = 3
+#: the basic blocks of a U-Net, the ones ``blocks.maybe_remat`` wraps
+_BASIC_BLOCK = re.compile(
+    r"(enc|dec)\.(level_convs\.\d+\.\d+|bottom_convs\.\d+|levels\.\d+\.\d+)")
+
+
+def _basic_blocks(module) -> int:
+    return sum(bool(_BASIC_BLOCK.fullmatch(name))
+               for name, _ in module.named_modules())
+
+
+@contextlib.contextmanager
+def counted_checkpoints(calls: list):
+    """``blocks.checkpoint`` appending each block it runs to *calls*;
+    restored after."""
+    from medsegpretrainimagenet_tpu_torch.models import blocks
+
+    real = blocks.checkpoint
+
+    def counted(function, *args, **kwargs):
+        calls.append(function)
+        return real(function, *args, **kwargs)
+    blocks.checkpoint = counted
+    try:
+        yield
+    finally:
+        blocks.checkpoint = real
+
+
+def _small_attention_unet_config(rate: float) -> dict:
+    """resnet50_attention_unet_256_train cut to the tests' size
+    (tests/torch_port_helpers.py's attention_unet_config): DeepResNet v1
+    (8, 16) of widths (1, 1) from a base of 4, decoder (8, 4, 4), the
+    ResNet blocks' drop path up to *rate*."""
+    cfg = resnet_attention_unet_config()
+    arch = cfg["model"]["segmentation.models.UNet"]["architecture"]
+    arch["encoder"]["classification.models.DeepResNet"].update(
+        channel_sizes=(8, 16), widths=(1, 1), base_channel_size=4,
+        stochastic_depth_rate=rate)
+    arch["decoder_channels"] = (8, 4, 4)
+    return cfg
+
+
+def _generator_states(module) -> list:
+    """The states of the step generators that *module*'s draws took."""
+    from medsegpretrainimagenet_tpu_torch.models import blocks
+
+    return [g.get_state() for g in {
+        id(m.generator): m.generator for m in module.modules()
+        if isinstance(m, blocks.Stochastic) and m.generator is not None
+    }.values()]
+
+
+def phase_remat():
+    """[remat]: ``unet_256_train`` at full width in bf16 (31,080,449
+    parameters, batch 16, 256 x 256) built twice from the same seed,
+    REMAT_STEPS steps on one batch with ``blocks.set_remat`` off and then
+    on: the losses, gradient norms and the worst parameter leaf's and
+    running statistic's change within [train bf16]'s bars, every basic
+    block's forward under checkpoint with remat on and none off; then
+    TURNS turns of TURN_STEPS steps each under sync debug mode "error",
+    their peak memory (reset before them) lower with remat on, and the
+    step ms of both.  Then the small ResNet attention U-Net with remat on,
+    card against CPU at [blocks small]'s bar (float32, TF32 off), and on
+    the card with the ResNet blocks' drop path drawn from the step's
+    generator, remat on against off at that bar with the generator's
+    state after the steps the same; the small float32 Swin U-Net with
+    remat on, card against CPU at that bar, K1 launched twice a block
+    (its forward and the backward's recompute)."""
+    import gc
+
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.models import blocks
+
+    torch.backends.cudnn.benchmark = True
+    batch = {k: v.cuda() for k, v in segmentation_batch(
+        1, TRAIN_BATCH, TRAIN_SIZE, seed=0).items()}
+
+    def full_width(remat: bool) -> dict:
+        blocks.set_remat(remat)
+        calls, logs = [], []
+        model, state, calculator, step = build_trainer(
+            unet_256_train_config(), "cuda")
+        start = {k: v.double().cpu() for k, v in
+                 model.module.state_dict().items() if v.is_floating_point()}
+        metrics_state = calculator.init_state("cuda")
+
+        def run_steps(n):
+            nonlocal state, metrics_state
+            for _ in range(n):
+                state, metrics_state, per_batch = step(state, metrics_state,
+                                                       batch)
+                logs.append((per_batch["dice_loss"],
+                             per_batch["gradient_magnitude"]))
+
+        with counted_checkpoints(calls):
+            run_steps(REMAT_STEPS)
+            record = _run_record(model.module, logs, start)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            turns = _timed_turns(
+                run_steps, f"[remat] a host sync in a step with remat "
+                           f"{'on' if remat else 'off'}")
+        losses = torch.stack([a for a, _ in logs]).float().cpu()
+        check(bool(torch.isfinite(losses).all())
+              and losses[-1] < losses[0],
+              f"[remat] remat {remat}: losses {losses.tolist()}")
+        return {"record": record, "peak": torch.cuda.max_memory_allocated(),
+                "step_ms": statistics.median(1e3 * t / TURN_STEPS
+                                             for t in turns),
+                "checkpoints": len(calls) / len(logs),
+                "blocks": _basic_blocks(model.module)}
+
+    blocks.set_compute_dtype(torch.bfloat16)
+    try:
+        runs = {}
+        for remat in (False, True):
+            runs[remat] = full_width(remat)
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        blocks.set_remat(False)
+        blocks.set_compute_dtype(None)
+    off, on = runs[False], runs[True]
+    read, worst = _bf16_readings(on["record"], off["record"])
+    print(f"[remat] unet_256_train bf16, batch {TRAIN_BATCH}, "
+          f"{TRAIN_SIZE}x{TRAIN_SIZE}, {REMAT_STEPS} steps from the same "
+          f"weights on one batch, remat on against off: relative |diff| "
+          + ", ".join(f"{k} {v:.3g} (bar {BF16_TRAIN_TOL[k]})"
+                      for k, v in read.items()) + f"; worst {worst}; "
+          f"{on['checkpoints']:g} of {on['blocks']} basic blocks under "
+          f"checkpoint a step (remat off: {off['checkpoints']:g})",
+          flush=True)
+    print(f"[remat] {TURNS} turns of {TURN_STEPS} steps each, no host sync "
+          f"queued (sync debug mode 'error'): remat off "
+          f"{off['step_ms']:.3f} ms a step, peak memory "
+          f"{off['peak'] / 2 ** 30:.3f} GiB; remat on {on['step_ms']:.3f} "
+          f"ms a step, peak {on['peak'] / 2 ** 30:.3f} GiB "
+          f"({100 * on['peak'] / off['peak']:.1f} %); {card_line()}",
+          flush=True)
+    check(all(read[k] < BF16_TRAIN_TOL[k] for k in read),
+          f"[remat] remat on against off: {read} (bars {BF16_TRAIN_TOL})")
+    check(on["checkpoints"] == on["blocks"] > 0 and off["checkpoints"] == 0,
+          f"[remat] blocks under checkpoint a step: on {on['checkpoints']}"
+          f", off {off['checkpoints']}, basic blocks {on['blocks']}")
+    check(on["peak"] < off["peak"],
+          f"[remat] peak memory with remat on {on['peak']} bytes, off "
+          f"{off['peak']}")
+
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+
+    counters = [getattr(wa, name) for name in _KERNEL_WRAPPERS]
+
+    def small(device: str, remat: bool, cfg: dict, size: int):
+        """3 steps of 2 fragments of 2 of the small model of *cfg* at
+        *size*: (losses, state, generator states, K1 and K2 launches
+        forward and backward)."""
+        blocks.set_remat(remat)
+        calls, losses = [], []
+        for counter in counters:
+            counter.launches = 0
+        try:
+            model, state, calculator, step = build_trainer(cfg, device)
+            metrics_state = calculator.init_state(device)
+            with tf32_off(), counted_checkpoints(calls):
+                for k in range(3):
+                    stack = {key: v.to(device) for key, v in
+                             segmentation_batch(2, 2, size, seed=k).items()}
+                    state, metrics_state, per_batch = step(
+                        state, metrics_state, stack)
+                    losses.append(per_batch["dice_loss"].item())
+        finally:
+            blocks.set_remat(False)
+        check(bool(calls) == remat, f"[remat] small model ({device}, remat "
+                                    f"{remat}): {len(calls)} blocks under "
+                                    f"checkpoint")
+        return (losses, {k: v.double().cpu() for k, v in
+                         model.module.state_dict().items()},
+                _generator_states(model.module),
+                tuple(c.launches for c in counters))
+
+    def diff(a, b):
+        loss = max(abs(x - y) for x, y in zip(a[0], b[0]))
+        state_err = {k: (v - b[1][k]).abs().max().item()
+                     for k, v in a[1].items()}
+        worst = max(state_err, key=state_err.get)
+        return loss, worst, state_err[worst]
+
+    attention_unet = (_small_attention_unet_config(0.0), 64)
+    cpu_vs_card = diff(small("cuda", True, *attention_unet),
+                       small("cpu", True, *attention_unet))
+    drawn_on, drawn_off = (small("cuda", remat,
+                                 _small_attention_unet_config(0.3), 64)
+                           for remat in (True, False))
+    on_vs_off = diff(drawn_on, drawn_off)
+    same_draws = len(drawn_on[2]) == 1 and all(
+        torch.equal(a, b) for a, b in zip(drawn_on[2], drawn_off[2]))
+    print(f"[remat] small ResNet attention U-Net, remat on, 3 steps of 2 "
+          f"fragments of 2 at 64x64, f32, TF32 off: card vs CPU max |diff| "
+          f"loss {cpu_vs_card[0]:.3g}, {cpu_vs_card[1]} {cpu_vs_card[2]:.3g};"
+          f" with drop paths up to 0.3 from the card's step generator, "
+          f"remat on vs off loss {on_vs_off[0]:.3g}, {on_vs_off[1]} "
+          f"{on_vs_off[2]:.3g} (bar {TRAIN_TOL}), generator state after "
+          f"the steps the same: {same_draws}", flush=True)
+    check(max(cpu_vs_card[0], cpu_vs_card[2], on_vs_off[0], on_vs_off[2])
+          < TRAIN_TOL and same_draws,
+          f"[remat] small attention U-Net: card vs CPU {cpu_vs_card}, "
+          f"remat on vs off with draws {on_vs_off} (bar {TRAIN_TOL}), "
+          f"same generator state {same_draws}")
+
+    # the Swin blocks under checkpoint: the backward recomputes K1's
+    # forward, so a step launches it twice a block and fragment
+    swin = (swin_224_train_config(small=True, rate=0.0), 32)
+    card = small("cuda", True, *swin)
+    swin_err = diff(card, small("cpu", True, *swin))
+    want = 6 * 2 * 3
+    print(f"[remat] small f32 Swin U-Net, remat on, 3 steps of 2 fragments "
+          f"of 2 at 32x32, TF32 off: card vs CPU max |diff| loss "
+          f"{swin_err[0]:.3g}, {swin_err[1]} {swin_err[2]:.3g} (bar "
+          f"{TRAIN_TOL}); launches K1, K2, K1 backward, K2 backward "
+          f"{card[3]} (want {(2 * want, 0, want, 0)}: the forward and its "
+          f"recompute)", flush=True)
+    check(max(swin_err[0], swin_err[2]) < TRAIN_TOL
+          and card[3] == (2 * want, 0, want, 0),
+          f"[remat] small Swin U-Net: card vs CPU {swin_err} (bar "
+          f"{TRAIN_TOL}); launches {card[3]}")
+
+
+_KERNEL_WRAPPERS = ("window_attention_cuda", "image_attention_cuda",
+                    "window_attention_backward_cuda",
+                    "image_attention_backward_cuda")
+
+
+@contextlib.contextmanager
+def recorded_kernel_calls(calls: dict):
+    """Each kernel wrapper of ``ops.window_attention`` appends the
+    arguments of its calls to ``calls[name]``; its launch count goes on as
+    before (the wrapper adds to it by its module's name, which is the
+    recorder's for the while)."""
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+
+    real = {name: getattr(wa, name) for name in _KERNEL_WRAPPERS}
+
+    def recorder(name):
+        def record(*args):
+            calls.setdefault(name, []).append(args)
+            return real[name](*args)
+        record.launches = real[name].launches
+        return record
+    for name in _KERNEL_WRAPPERS:
+        setattr(wa, name, recorder(name))
+    try:
+        yield
+    finally:
+        for name in _KERNEL_WRAPPERS:
+            real[name].launches = getattr(wa, name).launches
+            setattr(wa, name, real[name])
+
+
+def _hold_path_calls(tag: str, calls: dict) -> dict:
+    """Hold every recorded kernel call of *calls* against its plain version
+    on the same arguments at [swin train]'s bar on the training path's
+    calls: the relative max |kernel - plain| of the output, or of each
+    gradient the path asks for (dq, dk, dv or dqkv, and dbias), under
+    BF16_TOL.  Returns per wrapper (calls, the worst reading)."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+
+    plain = {"window_attention_cuda": wa.window_attention_torch,
+             "image_attention_cuda": wa.image_attention_torch,
+             "window_attention_backward_cuda":
+                 lambda *a: wa.window_attention_backward(*a[:7]),
+             "image_attention_backward_cuda":
+                 lambda *a: wa.image_attention_backward(*a[:6])}
+    worst = {}
+    with torch.no_grad():
+        for name, recorded in calls.items():
+            errors = []
+            for args in recorded:
+                got, want = getattr(wa, name)(*args), plain[name](*args)
+                if isinstance(got, torch.Tensor):
+                    pairs = [(got, want)]
+                else:  # the gradients but dmask, which no step asks for
+                    pairs = [(a, b) for a, b in zip(got[:-1], want[:-1])
+                             if a is not None]
+                errors.append(_rel_err(*zip(*pairs)))
+            worst[name] = (len(errors), max(errors))
+            check(max(errors) < BF16_TOL,
+                  f"[{tag}] {name}: relative max |kernel - plain| "
+                  f"{max(errors)} on the path's calls (bar {BF16_TOL})")
+    return worst
+
+
+def _busy_ms(fn, calls: int = 3) -> float:
+    """The device time of one call of *fn*: its kernels' time summed by
+    torch.profiler over *calls* calls after one more, divided by *calls*
+    (the time the device computes, whatever the host's pace)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / calls
+
+
+def phase_ln_half(swin_train: dict) -> dict:
+    """[ln half]: ``blocks.set_ln_half_out(True)`` (the LayerNorms of
+    ``make_layer_norm`` emit the compute dtype) on the Swin U-Net.  (1) The
+    small bf16 Swin U-Net, SWIN_SMALL_STEPS steps of two fragments of 2 on
+    the card and on the CPU from the same weights, on K1 and on K2: each
+    relative |card - CPU| of the losses, gradient norms and worst
+    parameter leaf's change within twice the same reading with half-out
+    off or under [train bf16]'s bar; the route's launches forward and
+    backward.  (2) ``swin_224_train`` on K1 with half-out on, as [swin
+    train] times and profiles it, beside [swin train]'s K1 route (half-out
+    off): ms a step, device busy ms, launches, the LayerNorm and
+    copies-and-permutes groups; then one step on each route with every
+    K1 and K2 call, forward and backward, held against its plain version
+    at [swin train]'s bar.  (3) ``swin_unet_224`` serving in bf16: the
+    device busy ms of a batch's forward (24 images) with half-out on and
+    off, on K1 and on K2, the outputs within SERVE_TOL of each other.
+    Returns the launches of the K1 turns and of the held steps."""
+    import numpy as np
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch import ops
+    from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
+    from medsegpretrainimagenet_tpu_torch.models import Model, blocks
+    from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
+
+    counters = [getattr(wa, name) for name in _KERNEL_WRAPPERS]
+    small_cfg = swin_224_train_config(small=True, rate=0.0)
+    blocks.set_compute_dtype(torch.bfloat16)
+    try:
+        for route in ("k1", "k2"):
+            read, launches = {}, {}
+            for half in (False, True):
+                blocks.set_ln_half_out(half)
+                records = {}
+                for device in ("cpu", "cuda"):
+                    model, state, calculator, step = build_trainer(small_cfg,
+                                                                   device)
+                    norms = [m for m in model.module.modules()
+                             if isinstance(m, blocks.LayerNorm)]
+                    check(norms and all(isinstance(
+                        m, blocks.HalfOutLayerNorm) == half for m in norms),
+                        f"[ln half] half-out {half}: LayerNorms "
+                        f"{sorted({type(m).__name__ for m in norms})}")
+                    start = {k: v.double().cpu() for k, v in
+                             model.module.state_dict().items()
+                             if v.is_floating_point()}
+                    metrics_state = calculator.init_state(device)
+                    logs = []
+                    for counter in counters:
+                        counter.launches = 0
+                    with attention_route(route):
+                        for k in range(SWIN_SMALL_STEPS):
+                            stack = {key: v.to(device) for key, v in
+                                     segmentation_batch(2, 2, 32,
+                                                        seed=k).items()}
+                            state, metrics_state, per_batch = step(
+                                state, metrics_state, stack)
+                            logs.append((per_batch["dice_loss"],
+                                         per_batch["gradient_magnitude"]))
+                    launches[half] = tuple(c.launches for c in counters)
+                    records[device] = _run_record(model.module, logs, start)
+                read[half], worst = _bf16_readings(records["cuda"],
+                                                   records["cpu"])
+            want = 6 * 2 * SWIN_SMALL_STEPS
+            expected = (want, 0, want, 0) if route == "k1" \
+                else (0, want, 0, want)
+            print(f"[ln half] small Swin U-Net bf16, {SWIN_SMALL_STEPS} "
+                  f"steps of 2 fragments of 2 at 32x32 on {route}: card vs "
+                  f"CPU relative |diff| with half-out on "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in read[True].items())
+                  + f" ({worst}); with it off "
+                  + ", ".join(f"{k} {v:.3g}" for k, v in read[False].items())
+                  + f"; launches K1, K2, K1 backward, K2 backward "
+                  f"{launches[True]} (want {expected})", flush=True)
+            check(all(read[True][k] <= max(2 * read[False][k],
+                                           BF16_TRAIN_TOL[k])
+                      for k in read[True]) and launches[True] == expected,
+                  f"[ln half] small Swin U-Net on {route}: card vs CPU "
+                  f"{read[True]} against twice {read[False]} or the bars "
+                  f"{BF16_TRAIN_TOL}; launches {launches[True]} (want "
+                  f"{expected})")
+    finally:
+        blocks.set_ln_half_out(False)
+        blocks.set_compute_dtype(None)
+
+    held, step_launches = {}, {}
+
+    def hold_one_step_per_route(run_steps):
+        for route in ("k1", "k2"):
+            calls = {}
+            for counter in counters:
+                counter.launches = 0
+            with attention_route(route), recorded_kernel_calls(calls):
+                run_steps(1)
+            step_launches[route] = tuple(c.launches for c in counters)
+            held.update(_hold_path_calls("ln half", calls))
+            del calls
+
+    blocks.set_ln_half_out(True)
+    try:
+        results = train_cell(
+            "ln half swin train", swin_224_train_config(),
+            SWIN_TRAIN_BATCH, SWIN_TRAIN_SIZE, 27_166_596, routes=("k1",),
+            after=hold_one_step_per_route)["k1"]
+    finally:
+        blocks.set_ln_half_out(False)
+    steps = TURNS * TURN_STEPS
+    check(results["k1"] == results["k1_bwd"] == SWIN_BLOCKS * steps
+          and results["k2"] == results["k2_bwd"] == 0,
+          f"[ln half] K1 turns: launches {results}")
+    check(step_launches == {"k1": (14, 0, 14, 0), "k2": (0, 14, 0, 14)},
+          f"[ln half] launches in one step per route: {step_launches}")
+    for name, (count, err) in held.items():
+        print(f"[ln half] {name} on the half-out path: {count} calls of a "
+              f"swin_224_train step held against the plain version on "
+              f"their arguments: relative max |kernel - plain| {err:.3g} "
+              f"(bar {BF16_TOL})", flush=True)
+    off, on = swin_train["k1_cell"], results
+    groups = ("LayerNorm", "copies and permutes")
+    print(f"[ln half] swin_224_train on K1, half-out off / on: "
+          f"{off['step_ms']:.3f} / {on['step_ms']:.3f} ms a step, device "
+          f"busy {off['profile']['busy_ms']:.3f} / "
+          f"{on['profile']['busy_ms']:.3f} ms, "
+          f"{off['profile']['launches']:.0f} / "
+          f"{on['profile']['launches']:.0f} launches, "
+          + ", ".join(f"{g} {off['profile']['groups'].get(g, 0.0):.3f} / "
+                      f"{on['profile']['groups'].get(g, 0.0):.3f} ms"
+                      for g in groups)
+          + f", peak memory {off['peak'] / 2 ** 30:.2f} / "
+          f"{on['peak'] / 2 ** 30:.2f} GiB; {card_line()}", flush=True)
+
+    # serving: the same weights with half-out off and on
+    modules, weights = {}, None
+    for half in (False, True):
+        blocks.set_ln_half_out(half)
+        try:
+            cd = ConfigDict(swin_unet_224_config())
+            cd.expand()
+            registry.fill_spec(cd, "model")
+            model = registry.build(cd, key="model", wrapper=Model)
+        finally:
+            blocks.set_ln_half_out(False)
+        weights = weights if weights is not None else model.init(seed=0)
+        model.module.load_state_dict(weights)
+        modules[half] = model.module.to("cuda").eval()
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (BATCH, 224, 224, 3)).astype(np.float32)).cuda()
+    serve_ms, outputs = {}, {}
+    blocks.set_compute_dtype(torch.bfloat16)
+    try:
+        for route in ("k1", "k2"):
+            ops.set_fused_image_mode("on" if route == "k2" else "off")
+            for half, module in modules.items():
+                def forward(module=module):
+                    with torch.no_grad():
+                        return module(x)
+                outputs[route, half] = forward().float()
+                serve_ms[route, half] = _busy_ms(forward)
+    finally:
+        ops.set_fused_image_mode("off")
+        blocks.set_compute_dtype(None)
+    gaps = {route: (outputs[route, True] - outputs[route, False]).abs()
+            .max().item() for route in ("k1", "k2")}
+    print(f"[ln half] swin_unet_224 serving, bf16, device busy ms of a "
+          f"batch's forward ({BATCH} images), half-out off / on: K1 "
+          f"{serve_ms['k1', False]:.3f} / {serve_ms['k1', True]:.3f}, K2 "
+          f"{serve_ms['k2', False]:.3f} / {serve_ms['k2', True]:.3f}; max "
+          f"|on - off| of the sigmoid outputs K1 {gaps['k1']:.3g}, K2 "
+          f"{gaps['k2']:.3g} (bar {SERVE_TOL}); {card_line()}", flush=True)
+    check(all(g < SERVE_TOL for g in gaps.values()),
+          f"[ln half] serving outputs half-out on vs off: {gaps} (bar "
+          f"{SERVE_TOL})")
+    return {"launches": results["k1"], "bwd_launches": results["k1_bwd"],
+            "step_launches": step_launches}
 
 
 def mixed_config(workdir: Path) -> dict:
@@ -5885,9 +6399,9 @@ def main() -> int:
     timed("train small", phase_train_small)
     timed("train bf16", phase_train_bf16)
     step_rate = timed("train", phase_train_full)
+    timed("remat", phase_remat)
     timed("metrics", phase_metrics, step_rate)
     timed("cli", phase_cli, step_rate)
-    timed("cli det", phase_cli_deterministic)
     timed("ddp", phase_ddp, step_rate)
     par = timed("parallel", phase_parallel)
     timed("cli acdc", phase_cli_acdc, step_rate)
@@ -5902,6 +6416,7 @@ def main() -> int:
         rob = timed("robustness", phase_robustness, Path(tmp), encoder)
         timed("swin train small", phase_swin_train_small)
         swin_train = timed("swin train", phase_swin_train)
+        ln_half = timed("ln half", phase_ln_half, swin_train)
         timed("resnet train", phase_resnet_train)
         cli_swin_launches = timed("cli swin", phase_cli_family,
                                   Path(tmp) / "cli_swin", "swin")
@@ -5968,6 +6483,11 @@ def main() -> int:
         "pp_launches_per_tick": par["pp_launches_per_tick"],
         # [sp]: per rank per swin_224_train step on two bands of rows
         "sp_swin_train_launches": par["sp_swin_k1_launches"]})
+    # [ln half]: per swin_224_train step with the half-output LayerNorms,
+    # K1's in the timed turns, K2's in the one step held on its route
+    kernels[0]["ln_half_swin_train_launches"] = ln_half["launches"]
+    kernels[1]["ln_half_swin_train_launches"] = \
+        ln_half["step_launches"]["k2"][1]
     kernels[1].update({
         "sp_swin_train_launches": par["sp_swin_k2_launches"],
         # [k2 band]: the instances on bands of rows (swin_224_train's
@@ -6038,6 +6558,9 @@ def main() -> int:
             else:
                 entry["launches"] = swin_train[
                     "bwd_launches" if kernel == "k1" else "k2_bwd_launches"]
+                entry["ln_half_swin_train_launches"] = \
+                    ln_half["bwd_launches"] if kernel == "k1" \
+                    else ln_half["step_launches"]["k2"][3]
             kernels.append(entry)
     print(card)
     print(json.dumps({"kernels": kernels}))

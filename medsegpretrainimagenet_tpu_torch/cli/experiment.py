@@ -33,6 +33,7 @@ import numpy as np
 import torch.distributed as dist
 
 from ..config import ConfigDict, parse
+from ..models.blocks import set_remat
 from ..parallel import initialize_distributed, is_main_process
 from ..plotting import GeneralPlotter, export_plot
 from ..utils import handle_exception
@@ -100,6 +101,8 @@ def main(argv: Optional[List[str]] = None) -> None:
             run_experiment_from_dict(arg, modifiers, device=device)
             arg = next_arg
     finally:
+        # a later in-process caller builds and steps without remat
+        set_remat(False)
         if joined:
             dist.destroy_process_group()
 

@@ -46,7 +46,7 @@ from ..data.transforms import Compose, ConvertToType, build_transform
 from ..losses import Loss
 from ..metrics import MetricsCalculator, build_host_loggers
 from ..models import Model
-from ..models.blocks import set_compute_dtype
+from ..models.blocks import set_compute_dtype, set_remat
 from ..optim import Optimizer
 from ..parallel import (broadcast_from_main, create_grid, data_parallel,
                         device_count, is_main_process, launched,
@@ -599,9 +599,9 @@ def run_exp(train_data, val_data, test_data, destination: str,
     # stay float32); off by default, as in the JAX package
     set_compute_dtype(
         torch.bfloat16 if tech.get("mixed_precision", False) else None)
-    if tech.get("remat", False):
-        warnings.warn("meta/technical/remat is a JAX option (recompute block "
-                      "activations in the backward); the port keeps them")
+    # remat: recompute the basic blocks' activations in the backward
+    # (device memory for operations); set on every run, as the dtype
+    set_remat(tech.get("remat", False))
 
     model = registry.build(config_dict, key="model", wrapper=Model)
     model_dict = config_dict["model"].value()

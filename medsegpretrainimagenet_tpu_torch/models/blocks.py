@@ -15,7 +15,8 @@ Mixed precision follows flax's ``dtype=`` convention rather than
 :class:`Conv` casts its input and weights to the compute dtype and returns
 that dtype, :class:`LayerNorm` computes its statistics *and output* in
 float32 whatever its input, as flax's LayerNorm with float32 parameters
-does, and :class:`BatchNorm` takes and returns the compute dtype with
+does (under ``set_ln_half_out`` the output is then cast to the compute
+dtype), and :class:`BatchNorm` takes and returns the compute dtype with
 float32 statistics and parameters.
 
 On the card every 4-D activation is an NHWC tensor whose NCHW view is
@@ -25,6 +26,7 @@ without a layout copy.
 """
 from __future__ import annotations
 
+import contextlib
 import inspect
 import math
 from typing import Any, Optional, Sequence, Tuple, Union
@@ -33,18 +35,20 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ConfigDict, register
 from ..config.registry import fill_spec, get_kwargs, resolve
 from ..parallel import spatial
 from ..parallel.mesh import (all_reduce_sum, batch_stats_axis,
-                             copy_to_axis, gather_axis)
+                             batch_stats_over, copy_to_axis, gather_axis)
 from ..parallel.tp import full, sharded
 from .activations import fill_activation_spec, make_activation
 from .init import lecun_normal_
 
 __all__ = [
-    "set_compute_dtype", "compute_dtype", "Dense", "Conv", "LayerNorm",
+    "set_compute_dtype", "compute_dtype", "set_ln_half_out", "set_remat",
+    "remat_enabled", "maybe_remat", "Dense", "Conv", "LayerNorm",
     "make_layer_norm", "dropout", "drop_path", "Stochastic", "draws",
     "Identity", "Conv2d", "MaxPool2d", "max_pool",
     "Upsample", "AvgPool2d", "AdaptiveAvgPool2d", "Flatten", "Linear",
@@ -67,6 +71,80 @@ def set_compute_dtype(dtype: Optional[torch.dtype]) -> None:
 
 def compute_dtype() -> Optional[torch.dtype]:
     return _COMPUTE_DTYPE[0]
+
+
+_LN_HALF_OUT = [False]
+
+
+def set_ln_half_out(enabled: bool) -> None:
+    """LayerNorms emit the compute dtype (statistics and the affine part
+    stay float32): with a bf16 compute dtype the residual stream of the
+    Swin blocks is then bf16.  Off by default, as in the JAX package; no
+    effect when no compute dtype is set.  Takes effect when a model is
+    built (:func:`make_layer_norm`), not at the next forward."""
+    _LN_HALF_OUT[0] = bool(enabled)
+
+
+_REMAT = [False]
+#: True while a rematerialised block recomputes its forward
+_RECOMPUTING = [False]
+
+
+def set_remat(enabled: bool) -> None:
+    """Rematerialise the basic blocks' activations in the backward pass
+    (``meta/technical/remat: true``): each block keeps only its input, and
+    the backward recomputes its forward.  Trades operations for device
+    memory.  Read at every forward, so it takes effect on the next call."""
+    _REMAT[0] = bool(enabled)
+
+
+def remat_enabled() -> bool:
+    return _REMAT[0]
+
+
+def maybe_remat(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Call a basic block, under ``torch.utils.checkpoint`` when remat is
+    on and the block trains with gradients enabled (a plain call in eval or
+    under ``no_grad``).  The wrap adds no module, so parameter and buffer
+    names stay as they are and checkpoints load either way.  As flax's
+    ``nn.remat``, the recompute replays the forward's draws and discards
+    its BatchNorm updates: the drawing generators (:class:`Stochastic`)
+    are set back to their state before the forward and then to their state
+    before the recompute, and no running statistic moves in it.  It runs
+    on the forward's rows and statistics axis (spatial sharding, data
+    parallelism), whose collectives it repeats."""
+    if not (_REMAT[0] and module.training and torch.is_grad_enabled()):
+        return module(x)
+    drawing = [sub.generator for sub in module.modules()
+               if isinstance(sub, Stochastic) and sub.draws()]
+    generators = list({id(g): g for g in drawing if g is not None}.values())
+    forward = ([g.get_state() for g in generators], spatial.forward_state(),
+               batch_stats_axis())
+    return checkpoint(
+        module, x, use_reentrant=False,
+        # a draw without a generator takes the global one
+        preserve_rng_state=None in drawing,
+        context_fn=lambda: (contextlib.nullcontext(),
+                            _recompute(generators, *forward)))
+
+
+@contextlib.contextmanager
+def _recompute(generators, states, rows, stats_axis):
+    """The context of a block's recompute: its generators at *states*
+    (theirs before the forward), the forward's *rows* and *stats_axis*,
+    and BatchNorm's statistics held; after it, the generators where the
+    backward found them."""
+    found = [g.get_state() for g in generators]
+    for g, state in zip(generators, states):
+        g.set_state(state)
+    _RECOMPUTING[0] = True
+    try:
+        with spatial.forward_state_set(rows), batch_stats_over(stats_axis):
+            yield
+    finally:
+        _RECOMPUTING[0] = False
+        for g, state in zip(generators, found):
+            g.set_state(state)
 
 
 def _cast(x: torch.Tensor, *params: Optional[torch.Tensor]):
@@ -227,8 +305,22 @@ class LayerNorm(nn.Module):
                             full(self.bias), self.eps)
 
 
+class HalfOutLayerNorm(LayerNorm):
+    """:class:`LayerNorm` whose output is cast to the compute dtype, when
+    one is set (the JAX package's ``_HalfOutLayerNorm``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x)
+        dtype = compute_dtype()
+        return y if dtype is None else y.to(dtype)
+
+
 def make_layer_norm(features: int) -> LayerNorm:
-    """The framework's LayerNorm (flax defaults)."""
+    """The framework's LayerNorm: flax's defaults, or the half-output
+    variant when :func:`set_ln_half_out` is on.  The two have the same
+    parameters, so a checkpoint of either loads into the other."""
+    if _LN_HALF_OUT[0]:
+        return HalfOutLayerNorm(features)
     return LayerNorm(features)
 
 
@@ -514,20 +606,28 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = compute_dtype() or torch.promote_types(x.dtype, torch.float32)
         weight, bias = full(self.weight), full(self.bias)
+        running = self.running_mean, self.running_var
         if self.training:
-            self.num_batches_tracked.add_(1)
+            if _RECOMPUTING[0]:
+                # a rematerialised block's recompute: the forward already
+                # moved the statistics, so it moves copies (the same
+                # arguments, so autograd saves the same tensors)
+                running = tuple(t.clone() for t in running)
+            else:
+                self.num_batches_tracked.add_(1)
             axis = batch_stats_axis()
             if axis is not None:
                 return self._global_batch_norm(x.to(dtype), weight, bias,
-                                               axis)
-        return F.batch_norm(x.to(dtype).permute(0, 3, 1, 2),
-                            self.running_mean, self.running_var,
+                                               axis, *running)
+        return F.batch_norm(x.to(dtype).permute(0, 3, 1, 2), *running,
                             weight, bias, training=self.training,
                             momentum=self.momentum,
                             eps=self.eps).permute(0, 2, 3, 1)
 
     def _global_batch_norm(self, x: torch.Tensor, weight: torch.Tensor,
-                           bias: torch.Tensor, axis) -> torch.Tensor:
+                           bias: torch.Tensor, axis,
+                           running_mean: torch.Tensor,
+                           running_var: torch.Tensor) -> torch.Tensor:
         """Training on one process's slice of a global batch: the
         statistics of the global batch over *axis*, as flax's BatchNorm
         takes them on a sharded batch.  A data-axis slice on the card takes
@@ -538,12 +638,12 @@ class BatchNorm(nn.Module):
         the axis with autograd (each process's gradient then reaches the
         others' statistics), the channel sums with the element count, then
         the squared deviations from the global mean (in float64 for a
-        float64 input)."""
+        float64 input); *running_mean* and *running_var* move."""
         if x.is_cuda and axis.name == "data":
             return _GlobalBatchNorm.apply(
-                x.permute(0, 3, 1, 2), weight, bias,
-                self.running_mean, self.running_var, self.eps,
-                self.momentum, axis.group).permute(0, 2, 3, 1)
+                x.permute(0, 3, 1, 2), weight, bias, running_mean,
+                running_var, self.eps, self.momentum,
+                axis.group).permute(0, 2, 3, 1)
         dims = tuple(range(x.dim() - 1))
         wide = x.to(torch.promote_types(x.dtype, torch.float32))
         count = wide.new_full((1,), wide.numel() // wide.shape[-1])
@@ -553,8 +653,8 @@ class BatchNorm(nn.Module):
         centred = wide - mean
         var = all_reduce_sum((centred * centred).sum(dims), axis) / n
         with torch.no_grad():
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var * n / (n - 1), self.momentum)
+            running_mean.lerp_(mean, self.momentum)
+            running_var.lerp_(var * n / (n - 1), self.momentum)
         out = centred * torch.rsqrt(var + self.eps) * weight + bias
         return out.to(x.dtype)
 

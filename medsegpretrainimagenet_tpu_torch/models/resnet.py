@@ -26,7 +26,8 @@ from torch import nn
 
 from ..config import register
 from ..parallel import spatial
-from .blocks import BatchNorm, Conv, Dense, Stochastic, max_pool
+from .blocks import (BatchNorm, Conv, Dense, Stochastic, max_pool,
+                     maybe_remat)
 
 __all__ = ["DeepResNet", "BasicResBlock", "BottleneckResBlock", "drop_path"]
 
@@ -195,7 +196,7 @@ class DeepResNet(nn.Module):
         y = max_pool(y, (3, 3), (2, 2), ((1, 1), (1, 1)))
         for level in self.levels:
             for block in level:
-                y = block(y)
+                y = maybe_remat(block, y)
             skip_values.append(y)
         if self.head:
             if self.version == "v2":

@@ -97,7 +97,8 @@ class _ResidualLevels(B.Stochastic):
     layer scales, kept in lists parallel to the blocks' (``*_shortcuts``,
     ``*_scales``; empty when off).  A block's output is scaled, then, with
     a shortcut, dropped per sample at its stochastic-depth rate and added
-    to the shortcut of its input."""
+    to the shortcut of its input.  Only the block itself is rematerialised
+    (``blocks.set_remat``)."""
 
     RATES = ("residual_drop_rate",)
 
@@ -120,7 +121,7 @@ class _ResidualLevels(B.Stochastic):
         return x
 
     def _run_block(self, x, conv, scales, shortcuts, j, prob):
-        y = conv(x)
+        y = B.maybe_remat(conv, x)
         if scales:
             y = scales[j](y)
         if shortcuts:

@@ -54,9 +54,10 @@ __all__ = ["initialize_distributed", "launched", "data_parallel",
            "device_count", "rank", "is_main_process", "broadcast_from_main",
            "gather_tree_to_host", "put_replicated", "shard_batch",
            "split_rows", "all_reduce_sum", "gather_shards", "gather_batch",
-           "reduce_gradients", "sync_batch_stats", "batch_stats_axis",
-           "batch_stats_synced", "create_grid", "grid", "Axis", "Grid",
-           "gather_axis", "copy_to_axis", "SHARDED_KEY", "ROWS_KEY"]
+           "reduce_gradients", "sync_batch_stats", "batch_stats_over",
+           "batch_stats_axis", "batch_stats_synced", "create_grid", "grid",
+           "Axis", "Grid", "gather_axis", "copy_to_axis", "SHARDED_KEY",
+           "ROWS_KEY"]
 
 #: reserved batch key that marks a batch as this process's slice of the
 #: global batch (set by shard_batch, popped by the train and eval steps)
@@ -591,6 +592,15 @@ def sync_batch_stats(active: bool = True):
     axis = grid().stats_axis if active and data_parallel() else None
     if axis is not None and axis.group is None:
         axis = None
+    with batch_stats_over(axis):
+        yield
+
+
+@contextlib.contextmanager
+def batch_stats_over(axis: Optional[Axis]):
+    """While active, BatchNorm in training takes its statistics over *axis*
+    (None: its own batch); a rematerialised block's recompute runs under
+    the :func:`batch_stats_axis` of its forward."""
     previous, _STATS_AXIS[0] = _STATS_AXIS[0], axis
     try:
         yield

@@ -62,7 +62,8 @@ import torch.distributed as dist
 
 from .mesh import Axis, _gather_pieces, all_reduce_sum
 
-__all__ = ["row_shards", "bands", "whole", "global_size", "halo",
+__all__ = ["row_shards", "forward_state", "forward_state_set", "bands",
+           "whole", "global_size", "halo",
            "token_grid", "band_part", "roll_rows", "to_whole", "to_bands",
            "mean_rows", "draw_uniform", "fits", "check_supported"]
 
@@ -80,6 +81,25 @@ def row_shards(axis: Optional[Axis]):
     previous = _ROWS[0], _WHOLE[0]
     _ROWS[0] = axis if axis is not None and axis.group is not None else None
     _WHOLE[0] = False
+    try:
+        yield
+    finally:
+        _ROWS[0], _WHOLE[0] = previous
+
+
+def forward_state() -> Tuple[Optional[Axis], bool]:
+    """The state of the bands that the forward's layers read now, which a
+    rematerialised block's recompute runs under again
+    (:func:`forward_state_set`)."""
+    return _ROWS[0], _WHOLE[0]
+
+
+@contextlib.contextmanager
+def forward_state_set(state: Tuple[Optional[Axis], bool]):
+    """While active, the bands' state is *state* (:func:`forward_state`):
+    a recompute in the backward runs on the rows its forward ran on."""
+    previous = _ROWS[0], _WHOLE[0]
+    _ROWS[0], _WHOLE[0] = state
     try:
         yield
     finally:

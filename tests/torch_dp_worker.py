@@ -14,7 +14,7 @@ rank's slice and writes the step's scalars, the whole state dict and the
 gathered eval values to ``OUT`` (for each of the payload's ``runs``, if it
 has them); a run may name its ``loss`` (Dice on masks by default), its
 device augmentation's kind (``augment_kind``: the segmentation chain, or
-``classification``) and the Swin blocks' ``fused_image`` mode.
+``classification``), the Swin blocks' ``fused_image`` mode and ``remat``.
 ``forward`` runs the eval forward of a model on this rank's slice and
 rows (in the payload's ``fused_image`` mode) and writes the gathered
 output.  ``roll`` holds ``spatial.roll_rows`` against ``torch.roll`` of
@@ -53,6 +53,7 @@ def _train(payload) -> dict:
     from medsegpretrainimagenet_tpu_torch import losses, parallel
     from medsegpretrainimagenet_tpu_torch.config import ConfigDict
     from medsegpretrainimagenet_tpu_torch.metrics import MetricsCalculator
+    from medsegpretrainimagenet_tpu_torch.models.blocks import set_remat
     from medsegpretrainimagenet_tpu_torch.ops import augment as augments
     from medsegpretrainimagenet_tpu_torch.ops import set_fused_image_mode
     from medsegpretrainimagenet_tpu_torch.optim import Optimizer
@@ -73,6 +74,7 @@ def _train(payload) -> dict:
             model.module, state.optimizer,
             min_channels=payload["tp_min_channels"])
     set_fused_image_mode(payload.get("fused_image", "off"))
+    set_remat(payload.get("remat", False))
     loss_name, loss_params = payload.get("loss",
                                          ("DiceLoss", {"label type": "mask"}))
     loss = losses.Loss(getattr(losses, loss_name), ConfigDict(loss_params))
