@@ -26,6 +26,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from .base import MetricSpec
 
 __all__ = ["auroc", "average_precision", "auroc_rows",
@@ -155,6 +156,9 @@ class AUCSpec(MetricSpec):
              "average_precision_score": average_precision}
     FROM_COUNTS = {"area_under_roc": auroc_from_counts,
                    "average_precision_score": average_precision_from_counts}
+    #: the profiler span of each kind's update
+    SPANS = {"area_under_roc": "medseg.auroc",
+             "average_precision_score": "medseg.average_precision"}
 
     #: carry base of the two-word int32 bin accumulators: one batch adds
     #: less than 2^24 to a bin, so the low word never wraps before its
@@ -170,6 +174,7 @@ class AUCSpec(MetricSpec):
         self.label_type = label_type
         self._fn = self.KINDS[kind]
         self._from_counts = self.FROM_COUNTS[kind]
+        self._span = self.SPANS[kind]
 
     def init_state(self, device):
         def zeros():
@@ -185,18 +190,22 @@ class AUCSpec(MetricSpec):
         return lo - carry * self.CARRY, hi + carry
 
     def update(self, state, prediction, batch):
-        target = batch[self.label_type]
-        value, valid = self._fn(prediction, target)
-        # squash: the prediction may be logits (final_activation null); the
-        # sigmoid keeps the ranking, and N_BINS keeps [0, 1] probabilities
-        # (in sigma's [0.5, 0.73] band) finely resolved
-        pos, neg = score_histogram(prediction, target, squash=True)
-        pos_lo, pos_hi = self._carry_add(state["pos"], state["pos_hi"], pos)
-        neg_lo, neg_hi = self._carry_add(state["neg"], state["neg_hi"], neg)
-        new_state = {"pos": pos_lo, "pos_hi": pos_hi,
-                     "neg": neg_lo, "neg_hi": neg_hi,
-                     "sum": state["sum"] + torch.where(valid, value, 0.0),
-                     "count": state["count"] + valid.float()}
+        with span(self._span):
+            target = batch[self.label_type]
+            value, valid = self._fn(prediction, target)
+            # squash: the prediction may be logits (final_activation null);
+            # the sigmoid keeps the ranking, and N_BINS keeps [0, 1]
+            # probabilities (in sigma's [0.5, 0.73] band) finely resolved
+            pos, neg = score_histogram(prediction, target, squash=True)
+            pos_lo, pos_hi = self._carry_add(state["pos"], state["pos_hi"],
+                                             pos)
+            neg_lo, neg_hi = self._carry_add(state["neg"], state["neg_hi"],
+                                             neg)
+            new_state = {"pos": pos_lo, "pos_hi": pos_hi,
+                         "neg": neg_lo, "neg_hi": neg_hi,
+                         "sum": state["sum"]
+                         + torch.where(valid, value, 0.0),
+                         "count": state["count"] + valid.float()}
         return new_state, {self.name: value}
 
     def finalize(self, host_state) -> Dict[str, float]:

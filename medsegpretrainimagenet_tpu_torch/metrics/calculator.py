@@ -28,6 +28,7 @@ import torch
 
 from ..config import ConfigDict
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .auc import AUCSpec
 from .base import MetricSpec, threshold_tag
 from .confusion import (ConfusionMatrixSpec, DerivedCMSpec,
@@ -320,21 +321,24 @@ class MetricsCalculator:
 
     def update(self, state, prediction, batch,
                loss_value=None) -> Tuple[dict, Dict[str, Any]]:
-        """Fold one (virtual) batch into the state; no host sync."""
-        if isinstance(prediction, torch.Tensor) \
-                and prediction.dtype == torch.bfloat16:
-            prediction = prediction.float()  # mixed precision
-        new_state = dict(state)
-        per_batch: Dict[str, Any] = {}
-        for key, spec in self.specs.items():
-            new_slice, values = spec.update(state[key], prediction, batch)
-            new_state[key] = new_slice
-            per_batch.update(values)
-        if loss_value is not None:
-            new_state["__loss__"] = {
-                "sum": state["__loss__"]["sum"] + loss_value,
-                "count": state["__loss__"]["count"] + 1.0}
-            per_batch[self.loss_name] = loss_value
+        """Fold one (virtual) batch into the state; no host sync.  Under
+        a profiler it runs inside the span ``medseg.metrics``."""
+        with span("medseg.metrics"):
+            if isinstance(prediction, torch.Tensor) \
+                    and prediction.dtype == torch.bfloat16:
+                prediction = prediction.float()  # mixed precision
+            new_state = dict(state)
+            per_batch: Dict[str, Any] = {}
+            for key, spec in self.specs.items():
+                new_slice, values = spec.update(state[key], prediction,
+                                                batch)
+                new_state[key] = new_slice
+                per_batch.update(values)
+            if loss_value is not None:
+                new_state["__loss__"] = {
+                    "sum": state["__loss__"]["sum"] + loss_value,
+                    "count": state["__loss__"]["count"] + 1.0}
+                per_batch[self.loss_name] = loss_value
         return new_state, per_batch
 
     # ------------------------------------------------------------------

@@ -15,7 +15,10 @@ reference, except a CUDA error, which is sticky (every later launch would
 fail the same way): it ends the run.  With ``meta/technical/profile: true``
 the loop writes ``profile/epoch_times.csv`` (host wall time per phase) and
 ``profile/step_times.csv`` (per-step device time, from CUDA events) and a
-``torch.profiler`` trace of the first epoch it runs under ``profile/trace/``.
+``torch.profiler`` trace of the first epoch it runs under ``profile/trace/``,
+which holds the port's spans (``utils/profiling.py``): ``medseg.loader_wait``
+around each take from the prefetcher, ``medseg.h2d`` around each batch's
+pinned copy, and the steps' own.
 
 Under data parallelism (``parallel``) each batch is cut to this process's
 slice before its copy to the card (``parallel.shard_batch``; a batch the
@@ -40,6 +43,7 @@ metrics) is not finite, and raises FloatingPointError naming the steps.
 from __future__ import annotations
 
 import csv
+import itertools
 import math
 import os
 import sys
@@ -56,6 +60,7 @@ from ..parallel import (full_optimizer_state_dict, full_state_dict, grid,
                         is_main_process, shard_batch)
 from ..utils import handle_exception, swallow
 from ..utils.device import resolve_device
+from ..utils.profiling import span, start_trace, stop_trace
 from . import checkpoint as ckpt
 from .state import TrainState
 from .step import (_dequantize_inputs, _select_prediction, make_eval_step,
@@ -85,25 +90,6 @@ def _export_confusion_matrix(calculator, metrics_state, destination: str,
         "fname": f"{prefix}confusion_matrix_epoch_{epoch}"})
     export_plot(plotter, config_dict.get_str_tuple(
         "meta/technical/export_plots_as") or ("png",))
-
-
-def _start_trace(device: torch.device):
-    """A started ``torch.profiler`` trace of the host and, on the card, of
-    its kernels."""
-    from torch.profiler import ProfilerActivity, profile
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    trace = profile(activities=activities)
-    trace.start()
-    return trace
-
-
-def _stop_trace(trace, directory: str) -> None:
-    """Stop *trace* and write it as a Chrome trace into *directory*."""
-    trace.stop()
-    os.makedirs(directory, exist_ok=True)
-    trace.export_chrome_trace(os.path.join(directory, "trace.json"))
 
 
 def append_csv_row(path: str, row: Dict[str, Any]) -> None:
@@ -212,10 +198,12 @@ def _prefetched(iterator, device: torch.device, depth: int = 2,
     spatial = "spatial" if cut_rows and grid().size("spatial") > 1 else None
 
     def put(batch):
-        local = batch.pop(BalancedDataLoader.LOCAL_SLICE_KEY,
-                          None) is not None
-        return copy(shard_batch(batch, batch_dim=1, spatial_axis=spatial,
-                                already_local=local))
+        with span("medseg.h2d"):
+            local = batch.pop(BalancedDataLoader.LOCAL_SLICE_KEY,
+                              None) is not None
+            return copy(shard_batch(batch, batch_dim=1,
+                                    spatial_axis=spatial,
+                                    already_local=local))
 
     def on_error(exc):
         if is_sticky_cuda_error(exc):
@@ -279,9 +267,14 @@ def run_epoch(step_fn, state, metrics_state, loader,
                 f"step(s) {bad} of this pass (the window of steps {first} "
                 f"to {first + count - 1})")
 
-    for i, batch_stack in enumerate(_prefetched(
-            _virtual_batches(loader, accumulation_scale), device,
-            threaded=threaded_prefetch, cut_rows=cut_rows)):
+    batches = _prefetched(_virtual_batches(loader, accumulation_scale),
+                          device, threaded=threaded_prefetch,
+                          cut_rows=cut_rows)
+    for i in itertools.count():
+        with span("medseg.loader_wait"):
+            batch_stack = next(batches, None)
+        if batch_stack is None:
+            break
         try:
             if train:
                 state, metrics_state, per_batch = step_fn(
@@ -533,7 +526,7 @@ def train_model(model, train_data, val_data, test_data,
                 trace = None
                 if profile_cfg and epoch == epoch_start:
                     with swallow("Could not start the profiler trace."):
-                        trace = _start_trace(device)
+                        trace = start_trace(device)
                 try:
                     metrics_state = _init_metrics()
                     state, metrics_state = run_epoch(
@@ -547,7 +540,7 @@ def train_model(model, train_data, val_data, test_data,
                 finally:
                     if trace is not None:
                         with swallow("Could not stop the profiler trace."):
-                            _stop_trace(trace, profile_dir + "trace")
+                            stop_trace(trace, profile_dir + "trace")
                     with swallow("Exception writing step_times.csv."):
                         _dump_step_times()
                 row.update(_finalize(metrics_state))

@@ -37,6 +37,11 @@ sharded parameter's slices once.
 A step queues device work only: it returns device tensors and reads no
 value back (no ``.item()``, no ``.cpu()``, no branch on a tensor), so the
 host runs ahead of the card.  The learning rate is a host float.
+
+Under a ``torch.profiler`` session each call opens the spans
+``medseg.train_step`` (or ``medseg.eval_step``), ``medseg.forward`` and
+``medseg.backward`` per fragment, and ``medseg.optimizer``
+(``utils/profiling.py``).
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ from ..parallel import (ROWS_KEY, SHARDED_KEY, data_parallel, gather_batch,
                         sync_batch_stats)
 from ..parallel.spatial import row_shards
 from ..parallel.tp import sharded as tp_sharded
+from ..utils.profiling import span
 from .state import TrainState
 
 __all__ = ["make_train_step", "make_eval_step", "global_norm"]
@@ -173,6 +179,10 @@ def make_train_step(model, loss_fn: Callable, calculator, optimizer,
     uses_rng = device_augment is not None or draws(module)
 
     def train_step(state: TrainState, metrics_state, batch_stack):
+        with span("medseg.train_step"):
+            return _train_step(state, metrics_state, batch_stack)
+
+    def _train_step(state: TrainState, metrics_state, batch_stack):
         batch_stack, sharded, rows, rows_cut = _split_sharded(batch_stack)
         fragments = _fragments(batch_stack)
         n_frag = len(fragments)
@@ -194,14 +204,16 @@ def make_train_step(model, loss_fn: Callable, calculator, optimizer,
                 # the augmentation took the whole image (a rotation is
                 # global); now this process's band of rows
                 fragment = split_rows(fragment, rows)
-            with sync_batch_stats(sharded), row_shards(rows):
+            with span("medseg.forward"), sync_batch_stats(sharded), \
+                    row_shards(rows):
                 pred = module(fragment["x"])
             if sharded:
                 # the global fragment's loss, on every process
                 pred = gather_shards(pred, rows is not None)
                 fragment = gather_batch(fragment, rows is not None)
             loss = loss_fn(pred, fragment)
-            loss.backward()
+            with span("medseg.backward"):
+                loss.backward()
             loss = loss.detach()
             loss_sum = loss if loss_sum is None else loss_sum + loss
             # the (augmented) fragment rides along, so metrics compare
@@ -210,29 +222,31 @@ def make_train_step(model, loss_fn: Callable, calculator, optimizer,
                          else type(pred)(p.detach() for p in pred))
             seen.append(fragment)
 
-        # a trainable parameter the loss does not reach has no gradient,
-        # and torch.optim would skip it; optax applies momentum and decay
-        # to its zero gradient, so give it one
-        for group in state.optimizer.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-        params = [p for p in module.parameters() if p.grad is not None]
-        grads = [p.grad for p in params]
-        reduce_gradients(grads, replicated=not sharded)
-        if n_frag > 1:
-            torch._foreach_mul_(grads, 1.0 / n_frag)
-        loss_value = loss_sum * (1.0 / n_frag)
-        if grad_clip_value is not None and grad_clip_value != float("inf"):
-            grad_norm = _clip_by_norm(params, grads, grad_clip_value,
-                                      grad_clip_norm_type)
-        else:
-            grad_norm = _parameters_norm(params, grads, grad_clip_norm_type)
-
-        lr = optimizer.set_lr(state.optimizer, state.step)
-        state.optimizer.step()
+        with span("medseg.optimizer"):
+            # a trainable parameter the loss does not reach has no
+            # gradient, and torch.optim would skip it; optax applies
+            # momentum and decay to its zero gradient, so give it one
+            for group in state.optimizer.param_groups:
+                for p in group["params"]:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+            params = [p for p in module.parameters() if p.grad is not None]
+            grads = [p.grad for p in params]
+            reduce_gradients(grads, replicated=not sharded)
+            if n_frag > 1:
+                torch._foreach_mul_(grads, 1.0 / n_frag)
+            if grad_clip_value is not None \
+                    and grad_clip_value != float("inf"):
+                grad_norm = _clip_by_norm(params, grads, grad_clip_value,
+                                          grad_clip_norm_type)
+            else:
+                grad_norm = _parameters_norm(params, grads,
+                                             grad_clip_norm_type)
+            lr = optimizer.set_lr(state.optimizer, state.step)
+            state.optimizer.step()
         state.step += 1
         state.micro_step += 1
+        loss_value = loss_sum * (1.0 / n_frag)
 
         per_batch = {"gradient_magnitude": grad_norm, "learning_rate": lr}
         if calculator is not None:
@@ -258,6 +272,10 @@ def make_eval_step(model, loss_fn: Optional[Callable], calculator,
     module = getattr(model, "module", model)
 
     def eval_step(state: TrainState, metrics_state, batch_stack):
+        with span("medseg.eval_step"):
+            return _eval_step(state, metrics_state, batch_stack)
+
+    def _eval_step(state: TrainState, metrics_state, batch_stack):
         batch_stack, sharded, rows, rows_cut = _split_sharded(batch_stack)
         module.eval()
         with torch.inference_mode():
@@ -266,7 +284,7 @@ def make_eval_step(model, loss_fn: Optional[Callable], calculator,
                 fragment = _dequantize_inputs(fragment)
                 if rows is not None and not rows_cut:
                     fragment = split_rows(fragment, rows)
-                with row_shards(rows):
+                with span("medseg.forward"), row_shards(rows):
                     pred = module(fragment["x"])
                 if sharded:
                     pred = gather_shards(pred, rows is not None)

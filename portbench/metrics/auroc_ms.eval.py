@@ -1,0 +1,13 @@
+"""``auroc_ms.eval``: device ms an evaluation step in the kernels launched
+inside the port's ``medseg.auroc`` span (AUROC's update: the per-batch sort
+and the score histogram), over the steps traced with the host's ranges; None
+on a program without the span."""
+
+SPAN = "medseg.auroc"
+
+
+def read(record):
+    if record is None or record.kind != "eval" or record.spans is None:
+        return None
+    spent = sum(k.dur for k in record.spans.in_span(SPAN))
+    return 1e3 * spent / record.span_steps if spent > 0 else None
