@@ -319,9 +319,13 @@ def _ptxas_report(log: str) -> dict:
             for k, v in report.items()}
 
 
-#: the kernel libraries, csrc/<name>.cu: the forwards and their backwards
+#: the kernel libraries, csrc/<name>.cu: the attention forwards and their
+#: backwards, and the LayerNorm's forward and backward
 KERNEL_LIBRARIES = {"window_attention", "image_attention",
-                    "window_attention_bwd", "image_attention_bwd"}
+                    "window_attention_bwd", "image_attention_bwd",
+                    "layer_norm"}
+#: the libraries without tensor-core instructions: memory-bound kernels
+NO_TENSOR_CORES = {"layer_norm"}
 
 #: [build]'s report per kernel instance (``window_attention_bwd<f32, DP
 #: 32>``): ptxas's registers and spills
@@ -333,7 +337,8 @@ def phase_build():
     the SASS (every attention instance, bf16 and float32, forward and
     backward, runs on the tensor cores: one without either fails, and the
     bf16 backward instances take HGMMA only; the backward's partial sum,
-    tile::sum_partials, has none) and ptxas's registers and spills."""
+    tile::sum_partials, has none, nor has the LayerNorm, which moves bytes)
+    and ptxas's registers and spills."""
     from medsegpretrainimagenet_tpu_torch.ops import _build
     from medsegpretrainimagenet_tpu_torch.ops.kernel_ab import (
         instance_label, opcodes, parse_sass)
@@ -364,14 +369,16 @@ def phase_build():
             PTXAS[label] = ptxas.get(symbol, "no ptxas report")
             print(f"[build]   {label}: {hmma} HMMA, {hgmma} HGMMA, "
                   f"{PTXAS[label]}")
-            check(hmma + hgmma > 0 or "sum_partials" in symbol,
+            check(hmma + hgmma > 0 or "sum_partials" in symbol
+                  or name in NO_TENSOR_CORES,
                   f"{label} ({symbol}): a kernel instance without "
                   f"tensor-core instructions")
             if label.startswith(f"{name}<bf16") and name.endswith("_bwd"):
                 check(hgmma > 0 and hmma == 0,
                       f"{label}: {hmma} HMMA and {hgmma} HGMMA, where every "
                       f"product of the bf16 backward is a wgmma")
-        for dtype in ("bf16", "f32"):
+        for dtype in ("bf16", "f32") if name not in NO_TENSOR_CORES \
+                else ():
             check(sum(f"<{dtype}," in i for i in instances) == 4,
                   f"{name}: want the four {dtype} instances (D padded to 16,"
                   f" 32, 48, 64), got {instances}")
@@ -1099,6 +1106,224 @@ def phase_bwd():
     return out
 
 
+#: the LayerNorms of one swin_unet_224 forward: PatchEmbed's, two in each
+#: of the 14 Swin blocks, the three PatchMergings', the three PatchExpands',
+#: the encoder's last and the two of FinalPatchExpand_X4
+SWIN_LAYER_NORMS = 37
+#: [layer norm]'s held widths: every register instance, then two of the
+#: general instance
+LN_WIDTHS = (96, 192, 384, 768, 1536, 100, 2000)
+#: [layer norm]'s timed shapes, (label, rows, C, x's dtype): LayerNorm_1 of
+#: FinalPatchExpand_X4 in a swin_unet_224.train_b256 step (224 x 224 tokens
+#: an image), and a level-3 Swin block's norm at batch 256 (7 x 7 tokens)
+LN_TIMED = (("LayerNorm_1 b256", 256 * 224 * 224, 96, "bfloat16"),
+            ("level 3 norm b256", 256 * 49, 768, "float32"))
+
+
+def _ln_bars(x_dtype, out_dtype) -> tuple:
+    """[layer norm]'s bars on the relative max |kernel - plain| of y, dx,
+    dgamma and dbeta, each keyed on its own dtype as
+    tests/test_torch_layer_norm_gpu.py keys them: a bf16 rounding step of
+    the largest element (2^-8), fp16's (2^-11), and for a float32 output the
+    order of a row's sums only; dx has 1e-4 at least (its row sums cancel),
+    and dgamma and dbeta, float32 sums over every row, 1e-4."""
+    import torch
+
+    tol = {torch.bfloat16: 8e-3, torch.float16: 1e-3, torch.float32: 2e-5}
+    return tol[out_dtype], max(tol[x_dtype], 1e-4), 1e-4, 1e-4
+
+
+def _ln_errors(x, w, b, dy, eps, y, grads, chunk: int = 1 << 20) -> list:
+    """The relative max |kernel - plain| of y and of the gradients *grads*
+    (dx, dgamma, dbeta) of one LayerNorm: the plain version
+    (``layer_norm_torch``, ``layer_norm_stats`` and ``layer_norm_backward``)
+    in float64, *chunk* rows at a time, so that the full-size shapes fit."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.ops import layer_norm as ln
+
+    w64, b64 = w.double(), b.double()
+    diff, scale = [0.0, 0.0], [0.0, 0.0]
+    sums = [torch.zeros_like(w64), torch.zeros_like(w64)]
+    for i in range(0, x.shape[0], chunk):
+        xs = x[i:i + chunk].double()
+        want_dx, dgamma, dbeta = ln.layer_norm_backward(
+            dy[i:i + chunk], xs, *ln.layer_norm_stats(xs, eps), w64)
+        sums[0] += dgamma
+        sums[1] += dbeta
+        for k, (got, want) in enumerate((
+                (y[i:i + chunk], ln.layer_norm_torch(xs, w64, b64, eps)),
+                (grads[0][i:i + chunk], want_dx))):
+            diff[k] = max(diff[k], (got.double() - want).abs().max().item())
+            scale[k] = max(scale[k], want.abs().max().item())
+    diff += [(g.double() - want).abs().max().item()
+             for g, want in zip(grads[1:], sums)]
+    scale += [want.abs().max().item() for want in sums]
+    return [d / max(s, 1e-30) for d, s in zip(diff, scale)]
+
+
+def _ln_bound_ms(rows: int, c: int, x_bytes: int, y_bytes: int,
+                 backward: bool) -> float:
+    """The least device ms by bytes: the forward reads x, gamma and beta
+    and writes y and the rows' mean and rstd; the backward reads dy, x,
+    mean, rstd and gamma and writes dx, dgamma and dbeta."""
+    per = x_bytes + y_bytes + (x_bytes if backward else 0)
+    total = rows * c * per + 8 * rows + 3 * 4 * c
+    return total / HBM_BYTES_PER_S * 1e3
+
+
+def phase_layer_norm() -> list:
+    """[layer norm]: the LayerNorm kernels (``csrc/layer_norm.cu``) against
+    their plain versions at ``LN_WIDTHS``, on 4099 rows, bf16 and float32 in,
+    float32 and half out, forward and gradients, each output under its own
+    bar (:func:`_ln_bars`); dgamma and dbeta the same bits twice.  Then at
+    ``LN_TIMED``, the main path's shapes: y, dx, dgamma and dbeta held
+    against the plain version in float64 (:func:`_ln_errors`) under the
+    same bars, dgamma and dbeta the same bits twice, and the forward and
+    the backward timed L2-cold (warm beside it) against the bound by bytes,
+    the plain version (the rows' statistics and the affine part as PyTorch
+    ops; the plain backward's formula) and the library path the port took
+    before (the promote cast and ``F.layer_norm``; ATen's
+    ``native_layer_norm_backward`` and the cast of dx).  Returns the
+    ``kernels`` entries, each with its own outputs' errors."""
+    import torch
+
+    from medsegpretrainimagenet_tpu_torch.ops import layer_norm as ln
+    from medsegpretrainimagenet_tpu_torch.ops.kernel_ab import (
+        device_ms, input_copies)
+
+    gen = torch.Generator().manual_seed(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+    worst = {}
+    for c in LN_WIDTHS:
+        for dtype, out_dtype in ((bf16, f32), (f32, f32), (bf16, bf16)):
+            x = (torch.randn(4099, c, generator=gen) * 3 + 0.5).cuda() \
+                .to(dtype)
+            w = (1 + 0.2 * torch.randn(c, generator=gen)).cuda()
+            b = (0.2 * torch.randn(c, generator=gen)).cuda()
+            dy = torch.randn(x.shape, generator=gen).cuda().to(out_dtype)
+            y, mean, rstd = ln.layer_norm_cuda(x, w, b, 1e-6, out_dtype)
+            grads = ln.layer_norm_backward_cuda(dy, x, mean, rstd, w)
+            again = ln.layer_norm_backward_cuda(dy, x, mean, rstd, w)
+            check(all(torch.equal(p, q) for p, q in zip(grads, again)),
+                  f"[layer norm] C={c} {dtype}: two backward runs differ")
+            leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+            want = ln.layer_norm_torch(*leaves, 1e-6, out_dtype)
+            wants = torch.autograd.grad(want, leaves, dy)
+            errs = [_relative_max(got, ref) for got, ref in
+                    zip((y, *grads), (want, *wants))]
+            key = f"{str(dtype)[6:]}->{str(out_dtype)[6:]}"
+            worst[key] = [max(a, b) for a, b in
+                          zip(worst.get(key, [0.0] * 4), errs)]
+            bars = _ln_bars(dtype, out_dtype)
+            check(all(e < bar for e, bar in zip(errs, bars)),
+                  f"[layer norm] C={c} {key}: relative max |kernel - plain| "
+                  f"y, dx, dgamma, dbeta {errs} (bars {bars})")
+    for key, errs in worst.items():
+        dtype, out_dtype = (getattr(torch, n) for n in key.split("->"))
+        print(f"[layer norm] {key} at C={LN_WIDTHS}: relative max |kernel "
+              f"- plain| y {errs[0]:.3g} dx {errs[1]:.3g} dgamma "
+              f"{errs[2]:.3g} dbeta {errs[3]:.3g} (bars "
+              f"{_ln_bars(dtype, out_dtype)}); dgamma, dbeta the same bits "
+              f"twice", flush=True)
+
+    entries = []
+    cuda_gen = torch.Generator("cuda").manual_seed(8)
+    for label, rows, c, dname in LN_TIMED:
+        dtype = getattr(torch, dname)
+        x = torch.randn(rows, c, device="cuda", generator=cuda_gen) \
+            .mul_(3).add_(0.5).to(dtype)
+        w = 1 + 0.2 * torch.randn(c, device="cuda", generator=cuda_gen)
+        b = 0.2 * torch.randn(c, device="cuda", generator=cuda_gen)
+        y, mean, rstd = ln.layer_norm_cuda(x, w, b, 1e-6)
+        dy = torch.randn(y.shape, device="cuda", generator=cuda_gen)
+        grads = ln.layer_norm_backward_cuda(dy, x, mean, rstd, w)
+        again = ln.layer_norm_backward_cuda(dy, x, mean, rstd, w)
+        check(all(torch.equal(p, q) for p, q in zip(grads[1:], again[1:])),
+              f"[layer norm] {label}: two backward runs give other dgamma "
+              f"or dbeta bits")
+        del again
+        errs = _ln_errors(x, w, b, dy, 1e-6, y, grads)
+        bars = _ln_bars(dtype, y.dtype)
+        check(all(e < bar for e, bar in zip(errs, bars)),
+              f"[layer norm] {label} ({rows} x {c}, {dname} in): relative "
+              f"max |kernel - plain (float64)| y, dx, dgamma, dbeta {errs} "
+              f"(bars {bars})")
+        print(f"[layer norm] {label} ({rows} x {c}, {dname} in, float32 "
+              f"out): relative max |kernel - plain (float64)| y "
+              f"{errs[0]:.3g} dx {errs[1]:.3g} dgamma {errs[2]:.3g} dbeta "
+              f"{errs[3]:.3g} (bars {bars}); dgamma, dbeta the same bits "
+              f"twice", flush=True)
+        del grads
+
+        def plain_forward(x):
+            m, r = ln.layer_norm_stats(x, 1e-6)
+            return (x.float() - m[:, None]) * r[:, None] * w + b
+
+        def library_backward(dy, x32, m, r):
+            dx, dw, db = torch.ops.aten.native_layer_norm_backward(
+                dy, x32, [c], m, r, w, b, [True, True, True])
+            return dx.to(dtype), dw, db
+
+        times = {}
+        copies = input_copies(x)
+        for name, fn in (("kernel", lambda x: ln.layer_norm_cuda(
+                x, w, b, 1e-6)), ("plain", plain_forward),
+                ("library", lambda x: ln.layer_norm_torch(x, w, b, 1e-6))):
+            times[f"fwd_{name}"] = device_ms(fn, copies)
+            if name != "plain":
+                times[f"fwd_{name}_warm"] = device_ms(fn, copies[:1])
+        del copies
+        copies = input_copies(dy, x, mean, rstd)
+        for name, fn in (
+                ("kernel", lambda dy, x, m, r: ln.layer_norm_backward_cuda(
+                    dy, x, m, r, w)),
+                ("plain", lambda dy, x, m, r: ln.layer_norm_backward(
+                    dy, x, m, r, w))):
+            times[f"bwd_{name}"] = device_ms(fn, copies)
+            if name == "kernel":
+                times["bwd_kernel_warm"] = device_ms(fn, copies[:1])
+        del copies
+        x32 = x.float()
+        _, m, r = torch.native_layer_norm(x32, [c], w, b, 1e-6)
+        copies = input_copies(dy, x32, m, r)
+        times["bwd_library"] = device_ms(library_backward, copies)
+        times["bwd_library_warm"] = device_ms(library_backward, copies[:1])
+        del copies, x32, m, r
+        size = torch.finfo(dtype).bits // 8
+        bounds = {"fwd": _ln_bound_ms(rows, c, size, 4, False),
+                  "bwd": _ln_bound_ms(rows, c, size, 4, True)}
+        part_errs = {"fwd": {"y": errs[0]},
+                     "bwd": dict(zip(("dx", "dgamma", "dbeta"), errs[1:]))}
+        for part in ("fwd", "bwd"):
+            print(f"[layer norm] {label} ({rows} x {c}, {dname} in, float32 "
+                  f"out) {part}, L2-cold: kernel_ms="
+                  f"{times[f'{part}_kernel']:.4f} (warm "
+                  f"{times[f'{part}_kernel_warm']:.4f}) plain_ms="
+                  f"{times[f'{part}_plain']:.4f} library_ms="
+                  f"{times[f'{part}_library']:.4f} (warm "
+                  f"{times[f'{part}_library_warm']:.4f}) bound_ms="
+                  f"{bounds[part]:.4f} (bytes), "
+                  f"{100 * bounds[part] / times[f'{part}_kernel']:.1f} % of "
+                  f"the bound", flush=True)
+            entries.append({
+                "name": f"layer_norm_{part}", "shape": label, "rows": rows,
+                "width": c, "dtype": dname, "route": "cuda",
+                "source": "medsegpretrainimagenet_tpu_torch/csrc/"
+                          "layer_norm.cu",
+                "replaces": None,
+                "max_rel_err": max(part_errs[part].values()),
+                "rel_errs": part_errs[part],
+                "ms": times[f"{part}_kernel"],
+                "warm_ms": times[f"{part}_kernel_warm"],
+                "plain_ms": times[f"{part}_plain"],
+                "library_ms": times[f"{part}_library"],
+                "bound_ms": bounds[part], "bound_by": "bytes"})
+        del x, y, dy, mean, rstd
+        torch.cuda.empty_cache()
+    return entries
+
+
 def phase_small_vs_cpu():
     """The port's small Swin U-Net in float32: the card (kernel) against
     the CPU (plain version), the same weights, on the windows-layout path
@@ -1148,12 +1373,14 @@ def phase_serve(tmp: Path):
     """Full-width swin_unet_224 bf16 serving through predict_from_config on
     the windows-layout path (K1), then with the attention pinned to the
     plain version, then on the image-layout path (K2).  Returns the K1 and
-    K2 launches of their serving runs."""
+    K2 launches of their serving runs and the LayerNorm forward's of the
+    K1 run."""
     import numpy as np
 
     from medsegpretrainimagenet_tpu_torch import ops
     from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
     from medsegpretrainimagenet_tpu_torch.models import Model, swin
+    from medsegpretrainimagenet_tpu_torch.ops import layer_norm as ln
     from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
     from medsegpretrainimagenet_tpu_torch.predict import predict_from_config
     from medsegpretrainimagenet_tpu_torch.train.checkpoint import (
@@ -1188,12 +1415,22 @@ def phase_serve(tmp: Path):
             ops.set_fused_image_mode("off")
 
     def counted(path: str):
-        """One serving run of *path* with both launch counts set to 0
-        just before it; returns (stats, outputs, K1 launches, K2
-        launches)."""
+        """One serving run of *path* with the launch counts set to 0 just
+        before it; returns (stats, outputs, K1 launches, K2 launches),
+        after checking the LayerNorm kernels' launches: the forward's once
+        per LayerNorm of every forward on each path (the plain one pins
+        only the attention), the backward's none."""
         wa.window_attention_cuda.launches = 0
         wa.image_attention_cuda.launches = 0
+        ln.layer_norm_cuda.launches = 0
+        ln.layer_norm_backward_cuda.launches = 0
         stats = serve(f"{path}.npy", path)
+        norms = (ln.layer_norm_cuda.launches,
+                 ln.layer_norm_backward_cuda.launches)
+        check(norms == (SWIN_LAYER_NORMS * forwards, 0),
+              f"[serve] {path}: LayerNorm forward, backward launches "
+              f"{norms} (want {(SWIN_LAYER_NORMS * forwards, 0)})")
+        ln_launches[path] = norms[0]
         out = np.load(tmp / f"{path}.npy")
         check(out.shape == (SERVE_IMAGES, 224, 224, 1)
               and out.dtype == np.float32 and np.isfinite(out).all()
@@ -1204,6 +1441,7 @@ def phase_serve(tmp: Path):
                 wa.image_attention_cuda.launches)
 
     forwards = -(-SERVE_IMAGES // BATCH)
+    ln_launches = {}
     serve("warmup.npy")  # first calls: cuBLAS/cuDNN set-up, kernel load
     stats, out, k1_launches, k2_none = counted("k1")
     check(k1_launches == 14 * forwards and k2_none == 0,
@@ -1217,9 +1455,11 @@ def phase_serve(tmp: Path):
     print(f"[serve] swin_unet_224 bf16, {SERVE_IMAGES} images, batch "
           f"{BATCH}: kernel {stats['images_per_sec']} images/s, plain "
           f"attention {plain_stats['images_per_sec']} images/s; K1 "
-          f"launches {k1_launches} ({k1_launches // forwards} per forward); "
-          f"max |kernel - plain| of the sigmoid outputs {diff:.3g} (bar "
-          f"{SERVE_TOL})", flush=True)
+          f"launches {k1_launches} ({k1_launches // forwards} per forward), "
+          f"LayerNorm launches {ln_launches['k1']} "
+          f"({ln_launches['k1'] // forwards} per forward); max |kernel - "
+          f"plain| of the sigmoid outputs {diff:.3g} (bar {SERVE_TOL})",
+          flush=True)
 
     serve("warmup.npy", "k2")  # the image-layout path's own GEMM shapes
     fused_stats, fused, k1_none, k2_launches = counted("k2")
@@ -1251,7 +1491,7 @@ def phase_serve(tmp: Path):
     for path in ("k1", "k2"):
         profile_serving(functools.partial(serve, path=path), path,
                         SERVE_IMAGES / statistics.median(rates[path]))
-    return k1_launches, k2_launches
+    return k1_launches, k2_launches, ln_launches["k1"]
 
 
 #: [export]: the two swin_unet_224 artifacts' operator: (fused image
@@ -1331,11 +1571,14 @@ def phase_export(tmp: Path) -> dict:
         targets = [str(n.target) for n in torch.export.load(
             str(path)).graph.nodes if n.op == "call_function"]
         nodes = targets.count(f"medseg_torch.{op}.default")
-        others = sum("medseg_torch" in t for t in targets) - nodes
+        norms = targets.count("medseg_torch.layer_norm.default")
+        others = sum("medseg_torch" in t for t in targets) - nodes - norms
         softmax = sum("softmax" in t for t in targets)
-        check(nodes == 14 and others == 0 and softmax == 0,
+        check(nodes == 14 and others == 0 and softmax == 0
+              and norms == SWIN_LAYER_NORMS,
               f"[export] {op} artifact: {nodes} nodes of its operator (want "
-              f"14), {others} of the other, {softmax} softmax")
+              f"14), {others} of the other, {softmax} softmax, {norms} "
+              f"LayerNorm nodes (want {SWIN_LAYER_NORMS})")
         served = export.load_exported(str(path))
         x = torch.from_numpy(np.repeat(imgs[:BATCH].transpose(0, 2, 3, 1),
                                        3, axis=-1)).cuda().float() / 255.0
@@ -4848,14 +5091,17 @@ def _train_turns(run_steps, routes) -> dict:
     (k1, plain, k2, k2, plain, k1, ...), each turn under sync debug mode
     "error" and with the launch counts set to 0 just before it.  Returns
     per route: seconds of each turn, K1 and K2 launches and their backward
-    kernels' (k1_bwd, k2_bwd), peak memory."""
+    kernels' (k1_bwd, k2_bwd), the LayerNorm kernels' (ln, ln_bwd), peak
+    memory."""
     import torch
 
+    from medsegpretrainimagenet_tpu_torch.ops import layer_norm as ln
     from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
 
     kernels = {"k1": wa.window_attention_cuda, "k2": wa.image_attention_cuda,
                "k1_bwd": wa.window_attention_backward_cuda,
-               "k2_bwd": wa.image_attention_backward_cuda}
+               "k2_bwd": wa.image_attention_backward_cuda,
+               "ln": ln.layer_norm_cuda, "ln_bwd": ln.layer_norm_backward_cuda}
     out = {r: {"turns": [], "peak": 0, **{k: 0 for k in kernels}}
            for r in routes}
     for i in range(TURNS):
@@ -5200,6 +5446,13 @@ def phase_swin_train() -> dict:
             check(results[route][name] == expected,
                   f"[swin train] {route} route: {results[route][name]} "
                   f"launches of {name} in {steps} steps, want {expected}")
+        # every route reaches the LayerNorm kernels, forward and backward,
+        # once per LayerNorm a step
+        for name in ("ln", "ln_bwd"):
+            check(results[route][name] == SWIN_LAYER_NORMS * steps,
+                  f"[swin train] {route} route: {results[route][name]} "
+                  f"launches of {name} in {steps} steps, want "
+                  f"{SWIN_LAYER_NORMS * steps}")
     pairs = {"k1": _attention_train_pair(), "k2": _image_train_pair()}
     for path, pair in pairs.items():
         kernel = path.upper()
@@ -5229,7 +5482,9 @@ def phase_swin_train() -> dict:
     return {"launches": results["k1"]["k1"], "k1_cell": results["k1"],
             "bwd_launches": results["k1"]["k1_bwd"],
             "k2_launches": results["k2"]["k2"],
-            "k2_bwd_launches": results["k2"]["k2_bwd"], "pair": pairs["k1"],
+            "k2_bwd_launches": results["k2"]["k2_bwd"],
+            "ln_launches": results["k1"]["ln"],
+            "ln_bwd_launches": results["k1"]["ln_bwd"], "pair": pairs["k1"],
             "k2_pair": pairs["k2"]}
 
 
@@ -6373,6 +6628,24 @@ def phase_cli_idrid(workdir: Path, step_rate: float) -> None:
     print(f"[cli idrid] {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def main_layer_norm() -> int:
+    """``chip_smoke.py --only layer_norm``: [build] and [layer norm] alone,
+    on one card."""
+    sys.path.insert(0, str(ROOT))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: the port's kernels run only on the card")
+    card = card_line()
+    print(card, flush=True)
+    timed("build", phase_build)
+    entries = timed("layer norm", phase_layer_norm)
+    print(card)
+    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"ok": True}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not (ROOT / "medsegpretrainimagenet_tpu_torch").is_dir():
         fail("run from a checkout: the package medsegpretrainimagenet_tpu_"
@@ -6392,9 +6665,11 @@ def main() -> int:
     k1, k1_bound_by, k1_err = timed("k1", phase_k1)
     k2, k2_bound_by, k2_err, k2_bands = timed("k2", phase_k2)
     bwd = timed("k bwd", phase_bwd)
+    layer_norm = timed("layer norm", phase_layer_norm)
     with tempfile.TemporaryDirectory() as tmp:
         timed("small", phase_small_vs_cpu)
-        k1_launches, k2_launches = timed("serve", phase_serve, Path(tmp))
+        k1_launches, k2_launches, ln_serve_launches = timed(
+            "serve", phase_serve, Path(tmp))
         exported = timed("export", phase_export, Path(tmp))
     timed("train small", phase_train_small)
     timed("train bf16", phase_train_bf16)
@@ -6562,6 +6837,15 @@ def main() -> int:
                     ln_half["bwd_launches"] if kernel == "k1" \
                     else ln_half["step_launches"]["k2"][3]
             kernels.append(entry)
+    # the LayerNorm kernels: the forward's launches in [serve]'s K1 run,
+    # both kernels' in [swin train]'s timed K1 steps
+    for entry in layer_norm:
+        if entry["name"] == "layer_norm_fwd":
+            entry["launches"] = ln_serve_launches
+        entry["swin_train_launches"] = swin_train[
+            "ln_launches" if entry["name"] == "layer_norm_fwd"
+            else "ln_bwd_launches"]
+    kernels += layer_norm
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -6573,7 +6857,9 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--only", "parallel"]:
         sys.exit(main_parallel())
+    if sys.argv[1:] == ["--only", "layer_norm"]:
+        sys.exit(main_layer_norm())
     if sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
-             f"--only parallel (four cards)")
+        fail(f"unknown arguments {sys.argv[1:]}: run with none, with "
+             f"--only parallel (four cards) or with --only layer_norm")
     sys.exit(main())

@@ -39,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ConfigDict, register
 from ..config.registry import fill_spec, get_kwargs, resolve
+from ..ops.layer_norm import layer_norm
 from ..parallel import spatial
 from ..parallel.mesh import (all_reduce_sum, batch_stats_axis,
                              batch_stats_over, copy_to_axis, gather_axis)
@@ -300,19 +301,19 @@ class LayerNorm(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(torch.promote_types(x.dtype, self.weight.dtype))
-        return F.layer_norm(x, x.shape[-1:], full(self.weight),
-                            full(self.bias), self.eps)
+        # on the card the hand-written kernel (ops.layer_norm), which reads
+        # x in its own dtype; on the CPU the promote cast and F.layer_norm
+        return layer_norm(x, full(self.weight), full(self.bias), self.eps)
 
 
 class HalfOutLayerNorm(LayerNorm):
     """:class:`LayerNorm` whose output is cast to the compute dtype, when
-    one is set (the JAX package's ``_HalfOutLayerNorm``)."""
+    one is set (the JAX package's ``_HalfOutLayerNorm``): on the card the
+    kernel writes that dtype itself."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = super().forward(x)
-        dtype = compute_dtype()
-        return y if dtype is None else y.to(dtype)
+        return layer_norm(x, full(self.weight), full(self.bias), self.eps,
+                          compute_dtype())
 
 
 def make_layer_norm(features: int) -> LayerNorm:

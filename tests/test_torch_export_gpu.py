@@ -2,7 +2,8 @@
 opcheck`` on both (schema, fake implementation, autograd registration and
 AOT dispatch with dynamic shapes), and a small Swin U-Net exported with a
 symbolic batch on the card, whose graph holds the operator of its attention
-path and whose forward equals the module's at two batch sizes, and a U-Net
+path and the LayerNorm operator, once a LayerNorm, and whose forward equals
+the module's at two batch sizes, and a U-Net
 with BatchNorm exported on the card whose forward equals the module's at b =
 1, 3 and 5.
 
@@ -17,8 +18,9 @@ import torch
 
 from medsegpretrainimagenet_tpu_torch import export, ops
 from medsegpretrainimagenet_tpu_torch.config import ConfigDict, registry
-from medsegpretrainimagenet_tpu_torch.models import Model
+from medsegpretrainimagenet_tpu_torch.models import Model, blocks
 from medsegpretrainimagenet_tpu_torch.models.blocks import set_compute_dtype
+from medsegpretrainimagenet_tpu_torch.ops.layer_norm import layer_norm_cuda
 from medsegpretrainimagenet_tpu_torch.models.swin import _shift_attn_mask
 from medsegpretrainimagenet_tpu_torch.ops import window_attention as wa
 
@@ -108,18 +110,26 @@ def test_card_artifact_holds_the_kernel(cuda_device, tmp_path, mode, op,
                  if n.op == "call_function" and "medseg_torch" in str(
                      n.target)]
         # 2 blocks at each of the 3 stages (down, bottom, up)
-        assert nodes == [f"medseg_torch.{op}.default"] * 6, nodes
+        assert [t for t in nodes if "attention" in t] \
+            == [f"medseg_torch.{op}.default"] * 6, nodes
+        # and every LayerNorm on its kernel
+        norms = sum(isinstance(m, blocks.LayerNorm)
+                    for m in module.modules())
+        assert nodes.count("medseg_torch.layer_norm.default") == norms
+        assert len(nodes) == 6 + norms, nodes
         served = export.load_exported(path)
         tol = 0.05 if dtype == torch.bfloat16 else 1e-4
         for b in (1, 3):
             x = torch.rand(b, 56, 56, 3, device=cuda_device)
             wa.window_attention_cuda.launches = 0
             wa.image_attention_cuda.launches = 0
+            layer_norm_cuda.launches = 0
             got = served(x)
             torch.cuda.synchronize()
             launches = (wa.window_attention_cuda.launches,
                         wa.image_attention_cuda.launches)
             assert launches == ((6, 0) if mode == "off" else (0, 6))
+            assert layer_norm_cuda.launches == norms
             with torch.no_grad():
                 want = module(x)
             assert got.shape == want.shape == (b, 56, 56, 1)

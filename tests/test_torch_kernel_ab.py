@@ -152,15 +152,17 @@ def test_backward_instances_have_labels_of_their_own():
 
 
 def test_chip_smoke_builds_and_checks_every_kernel_source():
-    """``[build]`` wants every library of ``csrc/*.cu``: the forwards and
-    their backwards."""
+    """``[build]`` wants every library of ``csrc/*.cu``: the attention
+    forwards and their backwards, and the LayerNorm's, the one library
+    without tensor-core instructions."""
     import chip_smoke
 
     sources = {p.stem for p in (ROOT / "medsegpretrainimagenet_tpu_torch"
                                 / "csrc").glob("*.cu")}
     assert chip_smoke.KERNEL_LIBRARIES == sources == {
         "window_attention", "image_attention", "window_attention_bwd",
-        "image_attention_bwd"}
+        "image_attention_bwd", "layer_norm"}
+    assert chip_smoke.NO_TENSOR_CORES == {"layer_norm"}
 
 
 def test_serve_times_the_model_that_chip_smoke_serves():
