@@ -1,35 +1,29 @@
-"""Plain forwards of the two U-Nets, over a dict of float32 tensors.
-
-The parameters are keyed by the port's state-dict names, so the tensors
-that the benchmark makes go to both sides as they are.  The layers are
-written from the published descriptions (Swin-Unet, arXiv:2105.05537;
-U-Net, arXiv:1505.04597) in the arrangement the config tree gives: NHWC
-images, LayerNorm epsilon 1e-6, BatchNorm with momentum 0.1 and epsilon
-1e-5, lax's SAME padding.  ``checkpoint=True`` recomputes each block in
-the backward so that the float32 step at the timed batch fits beside
-nothing else on the card.
-"""
+"""The Swin U-Net (Swin-Unet, arXiv:2105.05537) as the config tree
+arranges it: PatchEmbed, Swin blocks with shifted windows and relative
+position bias, patch merging and expanding, the final X4 expansion, a 1x1
+conv and a sigmoid; NHWC tokens, LayerNorm epsilon 1e-6, float32, every
+product through :class:`~portbench.reference.ops.Ops`.  The parameters are
+keyed by the port's state-dict names.  ``ckpt=True`` recomputes each block
+in the backward, so that the float32 step at the timed batch fits beside
+nothing else on the card."""
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .ops import Ops, drop_path, gelu, same_pads
+from portbench import bounds
+from portbench.reference.ops import Ops, drop_path, gelu
 
-__all__ = ["SwinShape", "UNetShape", "shape_of", "swin_unet_forward",
-           "unet_forward", "forward", "drop_rates", "shift_mask",
-           "relative_position_index"]
+__all__ = ["SwinShape", "shape_of", "forward", "drop_rates", "small",
+           "attention_calls", "shift_mask", "relative_position_index"]
 
 Params = Dict[str, torch.Tensor]
-
-
-def _arch(tree: dict) -> dict:
-    return tree["model"]["segmentation.models.UNet"]["architecture"]
+_BLOCK = "segmentation.models.blocks.SwinTransformerBlock"
 
 
 @dataclass
@@ -47,38 +41,40 @@ class SwinShape:
     out_channels: int
 
 
-@dataclass
-class UNetShape:
-    channels: Sequence[int]
-    in_channels: int
-    out_channels: int
+def _arch(tree: dict) -> dict:
+    return tree["model"]["segmentation.models.UNet"]["architecture"]
 
 
-def shape_of(tree: dict):
-    """The sizes of the model a config tree describes."""
+def shape_of(tree: dict) -> SwinShape:
     arch = _arch(tree)
-    block = arch.get("basic_block") or arch.get("basic block")
-    if isinstance(block, dict) and \
-            "segmentation.models.blocks.SwinTransformerBlock" in block:
-        swin = block["segmentation.models.blocks.SwinTransformerBlock"]
-        return SwinShape(
-            img_size=swin["img_size"], patch=swin["patch_size"],
-            embed=swin["embed_dim"], heads=tuple(swin["num_heads_layers"]),
-            window=swin["window_size"], mlp_ratio=swin["mlp_ratio"],
-            depth=arch["depth"], width=arch["width"],
-            rate=float(arch.get("stochastic depth rate", 0.0)),
-            in_channels=arch["in_channel_size"],
-            out_channels=arch["out_channel_size"])
-    depth = arch.get("depth", 4)
-    channels = arch.get("channels") or [64 * 2 ** i for i in range(depth + 1)]
-    return UNetShape(channels=tuple(channels),
-                     in_channels=arch.get("in_channel_size", 3),
-                     out_channels=arch.get("out_channel_size", 1))
+    swin = (arch.get("basic_block") or arch.get("basic block"))[_BLOCK]
+    return SwinShape(
+        img_size=swin["img_size"], patch=swin["patch_size"],
+        embed=swin["embed_dim"], heads=tuple(swin["num_heads_layers"]),
+        window=swin["window_size"], mlp_ratio=swin["mlp_ratio"],
+        depth=arch["depth"], width=arch["width"],
+        rate=float(arch.get("stochastic depth rate", 0.0)),
+        in_channels=arch["in_channel_size"],
+        out_channels=arch["out_channel_size"])
 
 
-# ---------------------------------------------------------------------------
-# Swin U-Net
-# ---------------------------------------------------------------------------
+def small(tree: dict) -> dict:
+    """*tree* cut to embed 8, heads 2 and 4, window 4, depth 1, for 32 x
+    32 images."""
+    tree = copy.deepcopy(tree)
+    arch = _arch(tree)
+    arch.update(channels=[8, 16], depth=1)
+    arch["basic_block"][_BLOCK].update(img_size=32, embed_dim=8,
+                                       num_heads_layers=[2, 4],
+                                       window_size=4)
+    return tree
+
+
+def attention_calls(s: SwinShape, batch: int) -> List[bounds.Call]:
+    """The window-attention (K1) calls of one forward of *batch* images."""
+    return bounds.attention_calls(batch, s.img_size, s.patch, s.embed,
+                                  s.heads, s.window, s.depth, s.width)
+
 
 def relative_position_index(window: int) -> np.ndarray:
     coords = np.stack(np.meshgrid(np.arange(window), np.arange(window),
@@ -156,12 +152,10 @@ def _swin_block(ops: Ops, p: Params, name: str, x, s: SwinShape,
     return x + drop_path(m, keeps[1], rate)
 
 
-def drop_rates(s) -> List[float]:
+def drop_rates(s: SwinShape) -> List[float]:
     """The stochastic-depth rate of every block in forward order (encoder
     levels, bottom, decoder levels): linearly spaced over the encoder's
     blocks, the decoder's mirrored."""
-    if not isinstance(s, SwinShape):
-        return []
     probs = np.linspace(0.0, s.rate, (s.depth + 1) * s.width)
     down = list(probs[:s.depth * s.width])
     bottom = list(probs[s.depth * s.width:])
@@ -175,11 +169,12 @@ def _tokens_grid(length: int) -> int:
     return side
 
 
-def swin_unet_forward(ops: Ops, p: Params, x, s: SwinShape, train: bool,
-                      keeps: Optional[list] = None, ckpt: bool = False):
+def forward(ops: Ops, p: Params, x, s: SwinShape, train: bool,
+            keeps: Optional[list] = None, running=None, ckpt: bool = False):
     """(B, H, W, C) images in [0, 1] -> (B, H, W, out) probabilities.
     *keeps*: per block in forward order, the two drawn (B, 1, 1) keep
-    masks of its branches, or (None, None)."""
+    masks of its branches, or (None, None); *running* is unused (no
+    BatchNorm)."""
     rates = drop_rates(s)
     keeps = keeps or [(None, None)] * len(rates)
     blocks = iter(zip(keeps, rates))
@@ -246,80 +241,3 @@ def swin_unet_forward(ops: Ops, p: Params, x, s: SwinShape, train: bool,
     f = f.reshape(b, scale * side, scale * side, c)
     f = ops.conv(f, p["dec.final.Conv_0.weight"])
     return ops.output(torch.sigmoid(f))
-
-
-# ---------------------------------------------------------------------------
-# U-Net
-# ---------------------------------------------------------------------------
-
-def _conv_block(ops: Ops, p: Params, name: str, x, train: bool,
-                running: Dict[str, torch.Tensor]):
-    for i in range(2):
-        x = ops.conv(x, p[f"{name}.Conv_{i}.weight"],
-                     p[f"{name}.Conv_{i}.bias"], pads=((1, 1), (1, 1)))
-        bn = f"{name}.BatchNorm_{i}"
-        x = ops.batch_norm(x, p[f"{bn}.weight"], p[f"{bn}.bias"],
-                           running[f"{bn}.running_mean"],
-                           running[f"{bn}.running_var"], train)
-        x = torch.relu(x)
-    return x
-
-
-def unet_forward(ops: Ops, p: Params, x, s: UNetShape, train: bool,
-                 running: Optional[Dict[str, torch.Tensor]] = None,
-                 ckpt: bool = False):
-    """(B, H, W, C) images in [0, 1] -> (B, H, W, out) probabilities.
-    *running*: the BatchNorm running statistics (read in eval; training
-    leaves the batch statistics in ``ops.stats``)."""
-    running = running if running is not None else p
-    depth = len(s.channels) - 1
-
-    def block(name, h):
-        def fn(h_):
-            return _conv_block(ops, p, name, h_, train, running)
-        if ckpt:
-            return checkpoint(fn, h, use_reentrant=False)
-        return fn(h)
-
-    h = ops.conv(x, p["enc.stem_block.Conv_0.weight"],
-                 p["enc.stem_block.Conv_0.bias"], pads=((1, 1), (1, 1)),
-                 first=True)
-    skips = []
-    for i in range(depth):
-        h = block(f"enc.level_convs.{i}.0", h)
-        skips.append(h)
-        h = F.max_pool2d(h.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
-    h = block("enc.bottom_convs.0", h)
-    for i in range(depth):
-        u = F.interpolate(h.permute(0, 3, 1, 2), scale_factor=2,
-                          mode="nearest").permute(0, 2, 3, 1)
-        pad = same_pads(u.shape[1], 2)
-        u = torch.relu(ops.conv(u, p[f"dec.upsamples.{i}.Conv_0.weight"],
-                                p[f"dec.upsamples.{i}.Conv_0.bias"],
-                                pads=(pad, pad)))
-        h = block(f"dec.level_convs.{i}.0",
-                  torch.cat([u, skips.pop()], dim=-1))
-    out = ops.conv(h, p["dec.final.Conv_0.weight"], p["dec.final.Conv_0.bias"])
-    return ops.output(torch.sigmoid(out))
-
-
-def forward(ops: Ops, p: Params, x, s, train: bool, keeps=None,
-            running=None, ckpt: bool = False):
-    if isinstance(s, SwinShape):
-        return swin_unet_forward(ops, p, x, s, train, keeps, ckpt)
-    return unet_forward(ops, p, x, s, train, running, ckpt)
-
-
-def bn_names(p: Params) -> List[str]:
-    """The BatchNorm layers of a U-Net in the order its forward runs
-    them."""
-    order = []
-    names = sorted({k.rsplit(".", 1)[0] for k in p if ".BatchNorm_" in k})
-    depth = len({k.split(".")[2] for k in names
-                 if k.startswith("enc.level_convs.")})
-    blocks = [f"enc.level_convs.{i}.0" for i in range(depth)] + \
-        ["enc.bottom_convs.0"] + [f"dec.level_convs.{i}.0"
-                                  for i in range(depth)]
-    for blk in blocks:
-        order += [f"{blk}.BatchNorm_0", f"{blk}.BatchNorm_1"]
-    return [n for n in order if n in names]

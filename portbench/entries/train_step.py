@@ -1,4 +1,5 @@
-"""Entry ``train_step``: the port's ``make_train_step`` on one card."""
+"""Entry ``train_step``: the port's ``make_train_step`` on one card, or on
+one rank a card of a cell on several (data parallelism)."""
 from portbench import session
 
 

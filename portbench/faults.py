@@ -6,7 +6,11 @@ that show the check rejects them.  None is ever on in a benchmark run:
 * ``half_batch``: the step sees the first half of each batch only, and
   its loss and gradient are the mean over that half;
 * ``altered_answer``: the first image's probabilities come out flipped
-  where the model produces them.
+  where the model produces them;
+* ``no_exchange``: on several cards, each rank steps on its own slice's
+  gradient (the step's gradient sum left out);
+* ``local_stats``: on several cards, BatchNorm takes the statistics of
+  the rank's own slice, not of the global batch.
 """
 from __future__ import annotations
 
@@ -15,9 +19,12 @@ from typing import Iterable
 
 import torch
 
+from . import port
+
 __all__ = ["FAULTS", "patched", "wrap_step"]
 
-FAULTS = ("unchanged", "half_batch", "altered_answer")
+FAULTS = ("unchanged", "half_batch", "altered_answer", "no_exchange",
+          "local_stats")
 
 
 @contextlib.contextmanager
@@ -37,6 +44,10 @@ def patched(faults: Iterable[str], module=None):
                 out[0] = 1 - out[0]
                 return out
             stack.callback(module.register_forward_hook(flip).remove)
+        if "no_exchange" in faults:
+            stack.enter_context(port.no_exchange())
+        if "local_stats" in faults:
+            stack.enter_context(port.local_stats())
         yield
 
 

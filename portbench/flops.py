@@ -14,21 +14,22 @@ from typing import Dict, Tuple
 
 import torch
 
-from .reference.models import forward, shape_of
 from .reference.ops import Ops
 
 __all__ = ["forward_macs", "train_flops", "eval_flops"]
 
 
-def forward_macs(tree: dict, size: int, channels: int,
+def forward_macs(arch, tree: dict, size: int, channels: int,
                  leaves: Dict[str, Tuple[int, ...]]) -> Tuple[int, int]:
     """(all multiply-adds, those of the products on the image) of one
-    forward of one image; *leaves* maps the parameter names to shapes."""
+    forward of one image through the model of the architecture module
+    *arch* and *tree*; *leaves* maps the parameter names to shapes."""
     meta = torch.device("meta")
     params = {k: torch.empty(s, device=meta) for k, s in leaves.items()}
     ops = Ops()
-    forward(ops, params, torch.empty((1, size, size, channels), device=meta),
-            shape_of(tree), train=False, running=params)
+    arch.forward(ops, params,
+                 torch.empty((1, size, size, channels), device=meta),
+                 arch.shape_of(tree), train=False, running=params)
     return ops.macs, ops.first_macs
 
 

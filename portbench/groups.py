@@ -6,7 +6,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-__all__ = ["K1", "LAYOUT", "NORM", "group_of"]
+__all__ = ["K1", "LAYOUT", "NORM", "NCCL", "group_of"]
 
 #: K1's forward and backward kernels, and the backward's dbias sum
 K1 = ("window_attention", "sum_partials")
@@ -16,6 +16,8 @@ LAYOUT = ("roll", "copy", "catarray", "index", "transpose",
 #: LayerNorm and BatchNorm, forward and backward
 NORM = ("layer_norm", "gammabeta", "batch_norm", "batchnorm", "bn_fw",
         "bn_bw")
+#: NCCL's collectives
+NCCL = ("nccl",)
 
 
 def group_of(name: str, fragments) -> Optional[str]:

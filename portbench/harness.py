@@ -37,8 +37,9 @@ class Context:
     seconds: float
     trace: bool
     device: torch.device
-    started: float            # perf_counter at process start
+    started: float            # perf_counter at the run's start
     faults: tuple = ()        # planted by tests and readings, never a run
+    rank: Optional[Any] = None  # ranks.Rank of a cell on several cards
 
 
 @dataclass
@@ -78,11 +79,14 @@ def forbidden_modules() -> List[str]:
                   & set(FORBIDDEN))
 
 
-def run_cell(ctx: Context, bench: dict) -> dict:
-    """Run *ctx*'s cell once and return the result line's object."""
+def run_cell(ctx: Context, bench: dict) -> Optional[dict]:
+    """Run *ctx*'s cell once and return the result line's object (None on
+    a rank but the first of a cell on several cards)."""
     cell = ctx.cell
     entry = spec.load_module("entries", cell.workload["entry"])
     outcome = entry.run(ctx)
+    if outcome is None:
+        return None
     correct, rows = judge(outcome.numbers, cell.limits)
     metrics: Dict[str, Dict[str, Any]] = {}
     if ctx.trace:

@@ -9,13 +9,16 @@ This is the only module of the benchmark that imports the program.
 from __future__ import annotations
 
 import copy
+import fcntl
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-__all__ = ["Port", "build", "MetricsRange", "apply_switches"]
+__all__ = ["Port", "build", "MetricsRange", "apply_switches", "join",
+           "replicate", "shard", "no_exchange", "local_stats",
+           "one_build_at_a_time"]
 
 
 @dataclass
@@ -134,3 +137,84 @@ def train_step(port: Port, calculator):
 def eval_step(port: Port, calculator):
     from medsegpretrainimagenet_tpu_torch.train import make_eval_step
     return make_eval_step(port.model, port.loss, calculator)
+
+
+# ---------------------------------------------------------------------------
+# data parallelism, as the command line runs it under a launcher
+# ---------------------------------------------------------------------------
+
+def join(device: torch.device) -> torch.device:
+    """Join the launcher's process group on *device* (``RANK``,
+    ``WORLD_SIZE``, an ``env://`` rendezvous): NCCL on a card, gloo on the
+    CPU."""
+    from medsegpretrainimagenet_tpu_torch.parallel import \
+        initialize_distributed
+    return initialize_distributed(device)
+
+
+def replicate(module: torch.nn.Module) -> None:
+    """Every rank starts from rank 0's weights."""
+    from medsegpretrainimagenet_tpu_torch.parallel import put_replicated
+    put_replicated(module)
+
+
+def shard(batch: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """This rank's slice of a global batch, marked as a slice: the step
+    then takes BatchNorm's statistics and the loss over the global batch
+    and sums the gradients."""
+    from medsegpretrainimagenet_tpu_torch.parallel import shard_batch
+    return shard_batch(batch, batch_dim=0)
+
+
+@contextmanager
+def no_exchange():
+    """A fault: each rank steps on its own slice's gradient (the step's
+    gradient sum left out)."""
+    from medsegpretrainimagenet_tpu_torch.train import step
+
+    saved = step.reduce_gradients
+    step.reduce_gradients = lambda grads, replicated=False: None
+    try:
+        yield
+    finally:
+        step.reduce_gradients = saved
+
+
+@contextmanager
+def local_stats():
+    """A fault: BatchNorm takes the statistics of the rank's own slice,
+    not of the global batch."""
+    from medsegpretrainimagenet_tpu_torch.parallel import mesh
+    from medsegpretrainimagenet_tpu_torch.train import step
+
+    saved = step.sync_batch_stats
+    step.sync_batch_stats = lambda active=True: mesh.sync_batch_stats(False)
+    try:
+        yield
+    finally:
+        step.sync_batch_stats = saved
+
+
+@contextmanager
+def one_build_at_a_time():
+    """The port's kernels build at first use into ``build/kernels/``:
+    while active, one process of the checkout builds and the others wait
+    on a file lock beside it, then find the library built."""
+    from medsegpretrainimagenet_tpu_torch.ops import _build
+
+    original = _build.build
+    lock = _build.BUILD_DIR.parent / "kernels.lock"
+
+    def build(names=None):
+        lock.parent.mkdir(parents=True, exist_ok=True)
+        with open(lock, "a") as handle:
+            fcntl.flock(handle, fcntl.LOCK_EX)
+            try:
+                return original(names)
+            finally:
+                fcntl.flock(handle, fcntl.LOCK_UN)
+    _build.build = build
+    try:
+        yield
+    finally:
+        _build.build = original

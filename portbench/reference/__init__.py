@@ -1,3 +1,4 @@
-"""The plain float32 reference: the two U-Nets, the Dice loss, SGD and the
-COVID-QU metric set in plain PyTorch, numpy and scipy.  It imports nothing
-of the program."""
+"""The plain float32 reference: its layers (``ops.py``), the Dice loss,
+SGD and the COVID-QU metric set in plain PyTorch, numpy and scipy.  The
+models are the architecture modules of ``portbench/archs/``.  It imports
+nothing of the program."""

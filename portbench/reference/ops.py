@@ -10,7 +10,7 @@ BatchNorm's running averages take.  Nothing here imports the program.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,8 +41,8 @@ class Ops:
 
     ``macs`` counts the multiply-adds of every product, ``first_macs``
     those of products whose input is the image itself (they need no input
-    gradient).  ``stats`` collects ``(mean, unbiased var)`` of each
-    training BatchNorm in call order while ``record_stats`` is on."""
+    gradient).  ``stats`` holds ``(mean, unbiased var)`` of each training
+    BatchNorm under the layer's name while ``record_stats`` is on."""
 
     def __init__(self, precision: str = "float32"):
         if precision not in PRECISIONS:
@@ -50,7 +50,7 @@ class Ops:
         self.precision = precision
         self.macs = 0
         self.first_macs = 0
-        self.stats: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self.stats: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         self.record_stats = True
 
     def _q(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
@@ -69,17 +69,21 @@ class Ops:
         return out
 
     def conv(self, x, w, b=None, stride=1, pads=((0, 0), (0, 0)),
-             first=False):
+             first=False, groups=1, dilation=1):
         """NHWC conv with (lo, hi) zero padding per spatial axis; the
-        weight is torch's (out, in, kh, kw)."""
+        weight is torch's (out, in / groups, kh, kw).  A multiply-add a
+        weight of one output channel per output element, which counts a
+        grouped conv's too."""
         x = x.permute(0, 3, 1, 2).contiguous()
         (top, bottom), (left, right) = pads
         if (top, left) == (bottom, right):
             out = F.conv2d(self._q(x), self._q(w), b, stride=stride,
-                           padding=(top, left))
+                           padding=(top, left), dilation=dilation,
+                           groups=groups)
         else:
             out = F.conv2d(F.pad(self._q(x), (left, right, top, bottom)),
-                           self._q(w), b, stride=stride)
+                           self._q(w), b, stride=stride, dilation=dilation,
+                           groups=groups)
         self._count(out.numel() * w[0].numel(), first)
         return out.permute(0, 2, 3, 1)
 
@@ -109,11 +113,11 @@ class Ops:
     def layer_norm(x, w, b, eps=1e-6):
         return F.layer_norm(x, x.shape[-1:], w, b, eps)
 
-    def batch_norm(self, x, w, b, running_mean, running_var, train,
+    def batch_norm(self, name, x, w, b, running_mean, running_var, train,
                    eps=1e-5):
-        """BatchNorm of NHWC *x*: batch statistics in training (the
-        biased variance normalises; the unbiased one goes to ``stats``),
-        running ones otherwise."""
+        """BatchNorm *name* of NHWC *x*: batch statistics in training (the
+        biased variance normalises; the unbiased one goes to
+        ``stats[name]``), running ones otherwise."""
         if not train:
             return (x - running_mean) * torch.rsqrt(running_var + eps) \
                 * w + b
@@ -122,8 +126,8 @@ class Ops:
         var = ((x - mean) ** 2).mean(dims)
         if self.record_stats:
             n = x.numel() // x.shape[-1]
-            self.stats.append((mean.detach(),
-                               var.detach() * n / max(n - 1, 1)))
+            self.stats[name] = (mean.detach(),
+                                var.detach() * n / max(n - 1, 1))
         return (x - mean) * torch.rsqrt(var + eps) * w + b
 
 

@@ -3,7 +3,9 @@
 Three steps of SGD with momentum on the Dice loss from the benchmark's
 weights and batches, as the published training does them, and the
 COVID-QU metric set of one evaluated batch on the host (numpy, and scipy's
-distance transform, imported when the check runs).
+distance transform, imported when the check runs).  The model is the
+configuration's architecture module (``portbench/archs/<arch>.py``), which
+the caller hands in: its ``shape_of``, ``forward`` and ``drop_rates``.
 The stochastic-depth masks are drawn again from the seed the way the
 training step's contract fixes them: one generator a step, seeded from
 (seed, step, fragment), one (B, 1, 1) uniform draw for each branch of each
@@ -17,7 +19,6 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from .models import bn_names, drop_rates, forward, shape_of
 from .ops import Ops
 
 __all__ = ["dice_loss", "step_generator", "draw_keeps", "train_reference",
@@ -50,9 +51,10 @@ def step_generator(seed: int, step: int, fragment: int,
     return torch.Generator(device=device).manual_seed(int(value))
 
 
-def draw_keeps(shape, seed: int, step: int, batch: int, device) -> list:
+def draw_keeps(arch, shape, seed: int, step: int, batch: int,
+               device) -> list:
     """The keep masks of one training step, per block in forward order."""
-    rates = drop_rates(shape)
+    rates = arch.drop_rates(shape)
     if not any(rates):
         return None
     gen = step_generator(seed, step, 0, device)
@@ -72,18 +74,19 @@ def _leaves(params: Dict[str, torch.Tensor]) -> List[str]:
             and not k.endswith(("running_mean", "running_var"))]
 
 
-def train_reference(tree: dict, weights: Dict[str, torch.Tensor],
+def train_reference(arch, tree: dict, weights: Dict[str, torch.Tensor],
                     batches: List[Dict[str, torch.Tensor]], seed: int,
                     lr: float, momentum: float, precision: str = "float32",
                     ckpt: bool = False) -> dict:
     """Steps of SGD (buffer = first gradient, then m * buffer + g; p -=
     lr * buffer) on *batches* (uint8 ``x`` (B, H, W, C) and ``mask`` (B,
-    H, W) on the device) from *weights*.
+    H, W) on the device) from *weights*, through the model of *arch* and
+    *tree*.
 
     Returns the loss of every step, the norm of every leaf's first
     gradient, the norm of every leaf's change over the steps, and of every
     BatchNorm running statistic's change."""
-    shape = shape_of(tree)
+    shape = arch.shape_of(tree)
     params = {k: v.detach().float().clone().requires_grad_(True)
               for k, v in weights.items() if k in _leaves(weights)}
     running = {k: v.detach().float().clone() for k, v in weights.items()
@@ -96,9 +99,10 @@ def train_reference(tree: dict, weights: Dict[str, torch.Tensor],
     for step, batch in enumerate(batches):
         x = batch["x"].float() / 255.0
         ops = Ops(precision)
-        keeps = draw_keeps(shape, seed, step, x.shape[0], x.device)
-        prob = forward(ops, {**params, **running}, x, shape, train=True,
-                       keeps=keeps, running=running, ckpt=ckpt)
+        keeps = draw_keeps(arch, shape, seed, step, x.shape[0], x.device)
+        prob = arch.forward(ops, {**params, **running}, x, shape,
+                            train=True, keeps=keeps, running=running,
+                            ckpt=ckpt)
         loss = dice_loss(prob, batch["mask"])
         ops.record_stats = False
         grads = torch.autograd.grad(loss, [params[k] for k in names])
@@ -111,7 +115,7 @@ def train_reference(tree: dict, weights: Dict[str, torch.Tensor],
                 else:
                     buffers[name].mul_(momentum).add_(grad)
                 params[name].sub_(lr * buffers[name])
-            for layer, (mean, var) in zip(bn_names(params), ops.stats):
+            for layer, (mean, var) in ops.stats.items():
                 running[f"{layer}.running_mean"].lerp_(mean, 0.1)
                 running[f"{layer}.running_var"].lerp_(var, 0.1)
         del prob, loss, grads
@@ -127,19 +131,19 @@ def train_reference(tree: dict, weights: Dict[str, torch.Tensor],
 # evaluation: the prediction, the loss and the COVID-QU metric set
 # ---------------------------------------------------------------------------
 
-def eval_reference(tree: dict, weights: Dict[str, torch.Tensor],
+def eval_reference(arch, tree: dict, weights: Dict[str, torch.Tensor],
                    batch: Dict[str, torch.Tensor],
                    precision: str = "float32") -> dict:
     """The eval-mode forward of one batch, its loss and metrics.  The
     control (``precision="fp8"``) computes its metrics in bfloat16, the
     step below the float32 the metrics are stated in."""
-    shape = shape_of(tree)
+    shape = arch.shape_of(tree)
     params = {k: v.float() for k, v in weights.items()
               if v.is_floating_point()}
     with torch.no_grad():
         x = batch["x"].float() / 255.0
-        prob = forward(Ops(precision), params, x, shape, train=False,
-                       running=params)
+        prob = arch.forward(Ops(precision), params, x, shape, train=False,
+                            running=params)
     values = metric_values(prob[..., 0].float().cpu().numpy(),
                            batch["mask"].cpu().numpy().astype(bool),
                            low=precision != "float32")

@@ -9,17 +9,23 @@ The last line of standard output is one JSON object (``correct``,
 its limit); the compared numbers are also the last lines of standard
 error.  Without as many CUDA cards as the cell asks for, or with JAX or
 the JAX package loaded once the window has closed, it exits non-zero and
-prints no result.
+prints no result.  A cell on several cards runs this command once per
+card under ``torch.distributed.run`` (``portbench/ranks.py``): every
+rank and the launcher make the check of their modules, and the launcher
+prints rank 0's line.
 """
 from __future__ import annotations
 
 import time
 
 STARTED = time.perf_counter()
+STARTED_EPOCH = time.time()
 
 import argparse  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
+
+from portbench import ranks  # noqa: E402
 
 
 def parse(argv=None) -> argparse.Namespace:
@@ -42,6 +48,7 @@ def fail(message: str) -> int:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse(argv)
     from portbench import harness, spec
 
@@ -56,13 +63,32 @@ def main(argv=None) -> int:
         return fail(f"{args.workload} needs {cell.chips} cards, "
                     f"{torch.cuda.device_count()} found")
     note("cards found")
+    rank = ranks.current()
+    if cell.chips > 1 and rank is None:
+        code, out = ranks.launch("portbench.run", argv, cell.chips,
+                                 STARTED_EPOCH)
+        return code or finish(json.loads(out.splitlines()[-1]))
     ctx = harness.Context(cell=cell, seed=args.seed, seconds=args.seconds,
                           trace=bool(args.trace),
-                          device=torch.device("cuda", 0), started=STARTED)
+                          device=torch.device("cuda", rank.index if rank
+                                              else 0),
+                          started=ranks.started() if rank else STARTED,
+                          rank=rank)
     line = harness.run_cell(ctx, bench)
+    ranks.leave()
+    return finish(line)
+
+
+def finish(line) -> int:
+    """The end of a run, on every rank and in a launcher: exit 1 if JAX or
+    the JAX package is loaded; else print *line* (None on a rank but the
+    first), the compared numbers last on standard error."""
+    from portbench import harness
     loaded = harness.forbidden_modules()
     if loaded:
         return fail(f"loaded in this process: {', '.join(loaded)}")
+    if line is None:
+        return 0
     for name, value, limit in line["compared"]:
         print(f"compared {name} {value!r} limit {limit!r}", file=sys.stderr)
     sys.stderr.flush()

@@ -7,6 +7,15 @@ steps, sized to the cell's seconds, with no host sync among them, and
 ends with a synchronise; its rate is all images over all its time.  After
 the window the program is freed, and the reference recomputes what the
 check compares.
+
+Training also runs as one rank of several (``ctx.rank``, one card each,
+``portbench/ranks.py``): each rank joins the process group and builds the
+step as the port's command line does under a launcher, feeds its slice of
+every global batch (``shard_batch``), and the step takes BatchNorm's
+statistics over the global batch and sums the gradients once a step.  The
+ranks agree on the window's steps, the largest peak is the run's, and
+rank 0 alone checks: the global step against the one-card reference of
+the whole global batch, and every rank's model against rank 0's.
 """
 from __future__ import annotations
 
@@ -14,12 +23,12 @@ import contextlib
 import gc
 import sys
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from . import bounds, faults, flops, port, traffic, weights
+from . import bounds, faults, flops, port, ranks, spec, traffic, weights
 from .check import eval_numbers, train_numbers, worst_leaves
 from .harness import SPAN_STEPS, TRACE_SECONDS, Context, Outcome, Record
 from .peaks import PEAK_FLOPS, power_limit
@@ -64,17 +73,20 @@ def _weights_fn(cell, seed, device):
     return lambda leaves: weights.make_weights(leaves, scheme, seed, device)
 
 
-def _pool(cell, seed, device):
-    """Every pool batch, pinned on the host."""
+def _pool(cell, seed, device, shard=None):
+    """Every pool batch, pinned on the host; with *shard*, this rank's
+    slice of each (``port.shard``)."""
     size, channels = _image(cell)
-    return traffic.pin(traffic.make_pool(cell.traffic, size, channels, seed,
+    pool = traffic.pin(traffic.make_pool(cell.traffic, size, channels, seed,
                                          device))
+    return pool if shard is None else [shard(batch) for batch in pool]
 
 
 def _feeder(host, device):
     def feed(i: int) -> dict:
         with torch.profiler.record_function("h2d"):
             return {k: v.to(device, non_blocking=True)[None]
+                    if isinstance(v, torch.Tensor) else v
                     for k, v in host[i % len(host)].items()}
     return feed
 
@@ -109,12 +121,15 @@ def _steps_for(seconds: float, step_s: float) -> int:
     return max(3, int(round(seconds / max(step_s, 1e-6))))
 
 
-def _window(run, n: int, device, trace: bool):
+def _window(run, n: int, device, trace: bool, align=None):
     """Run *n* steps (``run(k)``) between two synchronises: (seconds,
     (trace, spans) or None).  Traced, *n* more steps run under the
     profiler recording the device and the CUDA calls, then SPAN_STEPS
     more with the host's calls and ranges too; the seconds are those of
-    the untraced steps."""
+    the untraced steps.  ``align()`` runs before each profiled window
+    (the ranks of a cell on several cards meet there: each reads its
+    trace for seconds, and a rank that starts late would stall the
+    others' first steps in the window)."""
     def steps(first, count):
         for k in range(first, first + count):
             run(k)
@@ -126,7 +141,10 @@ def _window(run, n: int, device, trace: bool):
     seconds = time.perf_counter() - t0
     if not trace:
         return seconds, None
+    align = align or (lambda: None)
+    align()
     traced = profile_window(lambda: steps(n, n), host=False)
+    align()
     spans = profile_window(lambda: steps(2 * n, SPAN_STEPS), host=True)
     return seconds, (traced, spans)
 
@@ -145,18 +163,13 @@ def _reference_mode():
     torch.backends.cudnn.benchmark = False
 
 
-def _attention_bounds(cell, batch: int, kind: str) -> Dict[str, float]:
-    block = cell.config["tree"]["model"]["segmentation.models.UNet"][
-        "architecture"].get("basic_block", {})
-    swin = block.get("segmentation.models.blocks.SwinTransformerBlock")
-    if swin is None or cell.workload.get("attention", "k1") != "k1":
+def _attention_bounds(cell, arch, batch: int, kind: str) -> Dict[str,
+                                                                float]:
+    if cell.workload.get("attention", "k1") != "k1":
         return {}
-    arch = cell.config["tree"]["model"]["segmentation.models.UNet"][
-        "architecture"]
-    calls = bounds.attention_calls(
-        batch, swin["img_size"], swin["patch_size"], swin["embed_dim"],
-        swin["num_heads_layers"], swin["window_size"], arch["depth"],
-        arch["width"])
+    calls = arch.attention_calls(arch.shape_of(cell.config["tree"]), batch)
+    if not calls:
+        return {}
     dtype = cell.workload["compute_dtype"]
     out = {"forward": bounds.forward_bound_s(calls, dtype)}
     if kind == "train":
@@ -165,10 +178,10 @@ def _attention_bounds(cell, batch: int, kind: str) -> Dict[str, float]:
 
 
 def _record(ctx, traces, steps, window_s, batch, chips, port_,
-            kind) -> Record:
+            kind, arch) -> Record:
     cell = ctx.cell
     size, channels = _image(cell)
-    macs = flops.forward_macs(cell.config["tree"], size, channels,
+    macs = flops.forward_macs(arch, cell.config["tree"], size, channels,
                               {n: s for n, s, d in port_.leaves
                                if d.is_floating_point})
     per_image = flops.train_flops(macs) if kind == "train" \
@@ -177,7 +190,8 @@ def _record(ctx, traces, steps, window_s, batch, chips, port_,
                   images_per_step=batch,
                   chips=chips, flops_per_step=float(per_image * batch),
                   peak_flops=PEAK_FLOPS[cell.workload["compute_dtype"]],
-                  attention_bound_s=_attention_bounds(cell, batch, kind),
+                  attention_bound_s=_attention_bounds(cell, arch, batch,
+                                                      kind),
                   kind=kind, spans=traces[1],
                   span_steps=SPAN_STEPS)
 
@@ -191,21 +205,31 @@ def _norms(named: Dict[str, torch.Tensor]) -> Dict[str, float]:
     return dict(zip(names, values))
 
 
-def train(ctx: Context) -> Outcome:
-    """The training session."""
-    cell, device, seed = ctx.cell, ctx.device, ctx.seed
-    batch = int(cell.traffic["batch"])
+def train(ctx: Context) -> Optional[Outcome]:
+    """The training session, on one card or as one rank of several (then
+    None on every rank but 0)."""
+    cell, device, seed, rank = ctx.cell, ctx.device, ctx.seed, ctx.rank
+    world = rank.world if rank is not None else 1
+    batch = int(cell.traffic["batch"])          # the global batch
     tree = cell.config["tree"]
+    arch = spec.load_arch(cell.config)
     port.apply_switches(tree, device)
     with port.route(cell.workload), contextlib.ExitStack() as stack:
+        if rank is not None:
+            stack.enter_context(port.one_build_at_a_time())
+            port.join(device)
         _note(ctx, "imports done")
         prt, init = port.build(tree, cell.workload["metrics"], device, seed,
                                _weights_fn(cell, seed, device))
+        if rank is not None:
+            port.replicate(prt.module)
         stack.enter_context(faults.patched(ctx.faults, prt.module))
         step = faults.wrap_step(ctx.faults, port.train_step(
             prt, port.MetricsRange(prt.calculator)))
         _note(ctx, "model built")
-        feed = _feeder(_pool(cell, seed, device), device)
+        feed = _feeder(_pool(cell, seed, device,
+                             port.shard if rank is not None else None),
+                       device)
         _note(ctx, "pool made")
         state, metrics_state = prt.state, prt.calculator.init_state(device)
         loss_name = prt.calculator.loss_name
@@ -232,6 +256,8 @@ def train(ctx: Context) -> Outcome:
                                  prt.module.named_buffers()
                                  if n.endswith(("running_mean",
                                                 "running_var"))})}
+        if rank is not None:
+            replicas = ranks.replica_gap(prt.module)
         del init
         _note(ctx, "checked steps done")
         _sync(device)
@@ -244,30 +270,46 @@ def train(ctx: Context) -> Outcome:
         seconds = min(ctx.seconds, TRACE_SECONDS) if ctx.trace \
             else ctx.seconds
         n = _steps_for(seconds, step_s)
+        if rank is not None:
+            n = ranks.agree(n, device)
+            ranks.barrier(device)
         offset = CHECK_STEPS + CALIBRATION_STEPS
         setup_s = time.perf_counter() - ctx.started
         _reset_peak(device)
-        window_s, traces = _window(lambda k: run(offset + k), n, device,
-                                   ctx.trace)
+        window_s, traces = _window(
+            lambda k: run(offset + k), n, device, ctx.trace,
+            align=(lambda: ranks.barrier(device)) if rank is not None
+            else None)
         trace = traces[0] if traces else None
         peak = _peak(device)
         busy = trace.busy_s() if trace is not None else None
-        record = _record(ctx, traces, n, window_s, batch, 1, prt,
-                         "train") if traces else None
+        if rank is not None:
+            peak = int(ranks.largest(peak, device))
+            if busy is not None:
+                busy = ranks.total(busy, device) / world
+        if rank is not None and rank.index != 0:
+            del prt, state, metrics_state, step, feed, run, names
+            _free()
+            return None
+        record = _record(ctx, traces, n, window_s, batch, world, prt,
+                         "train", arch) if traces else None
         leaves = prt.leaves
         del prt, state, metrics_state, step, feed, run, names
         _free()
-    # the reference, on the same weights and the same three batches
+    # the reference, on the same weights and the same three (global)
+    # batches
     _reference_mode()
     size, channels = _image(cell)
     ref_pool = traffic.make_pool(cell.traffic, size, channels, seed, device)
     ref_weights = weights.make_weights(leaves, cell.config["weights"], seed,
                                        device)
     lr, momentum = _lr_momentum(tree)
-    ref = train_reference(tree, ref_weights, ref_pool[:CHECK_STEPS], seed,
-                          lr, momentum, ckpt=device.type == "cuda")
+    ref = train_reference(arch, tree, ref_weights, ref_pool[:CHECK_STEPS],
+                          seed, lr, momentum, ckpt=device.type == "cuda")
     del ref_pool, ref_weights
     numbers = train_numbers(prog, ref)
+    if rank is not None:
+        numbers["replicas"] = replicas
     for key in ("grad", "change", "stats"):
         for row in worst_leaves(prog[key], ref[key]) if ref[key] else []:
             print(f"portbench: worst {key} leaves: {row}", file=sys.stderr)
@@ -277,7 +319,7 @@ def train(ctx: Context) -> Outcome:
              "train_images_per_s": n * batch / window_s,
              "peak_mem_gib": peak / _GIB},
         numbers=numbers, attempted=n,
-        device=_device_info(device, 1, peak, busy,
+        device=_device_info(device, world, peak, busy,
                             trace.window_s if trace else None),
         record=record)
 
@@ -289,6 +331,7 @@ def evaluate(ctx: Context) -> Outcome:
     batch = int(cell.traffic["batch"])
     pool_size = int(cell.traffic["pool"])
     tree = cell.config["tree"]
+    arch = spec.load_arch(cell.config)
     rng = np.random.default_rng(traffic.stream_seed(seed, 2))
     sample = sorted(int(i) for i in rng.choice(pool_size, SAMPLED,
                                                 replace=False))
@@ -337,8 +380,8 @@ def evaluate(ctx: Context) -> Outcome:
             kept.append({"prediction": prediction[..., 0].float().cpu(),
                          "values": _eval_values(values,
                                                 prt.calculator.loss_name)})
-        record = _record(ctx, traces, n, window_s, batch, 1, prt, "eval") \
-            if traces else None
+        record = _record(ctx, traces, n, window_s, batch, 1, prt, "eval",
+                         arch) if traces else None
         leaves = prt.leaves
         del prt, calculator, step, feed, run, metrics_state
         _free()
@@ -349,7 +392,7 @@ def evaluate(ctx: Context) -> Outcome:
                                        device)
     refs, own = [], []
     for i, prog in zip(sample, kept):
-        out = eval_reference(tree, ref_weights, ref_pool[i])
+        out = eval_reference(arch, tree, ref_weights, ref_pool[i])
         refs.append({"prediction": out["prediction"].cpu(),
                      "values": out["values"]})
         own.append(metric_values(prog["prediction"].numpy(),

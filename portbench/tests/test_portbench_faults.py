@@ -1,7 +1,8 @@
 """``correct`` comes out false for every fault a cell can have, planted
 under the timed path while the rest of a run goes on (the look for a card
-skipped, small sizes on the CPU), and for the control: the reference in
-float8 put in the program's place."""
+skipped, small sizes on the CPU; the four-card cell on two gloo ranks),
+and for the control: the reference in float8 put in the program's
+place."""
 import time
 
 import pytest
@@ -9,7 +10,7 @@ import torch
 
 from portbench import control, harness, spec
 from portbench.check import judge
-from portbench.tests.cells import small_cell
+from portbench.tests.cells import data_parallel_cell, run_ranks, small_cell
 
 BENCH = spec.load_benchmark()
 TRAIN = ["swin_unet_224.train_b256", "unet_256.train_b32"]
@@ -31,6 +32,13 @@ def test_training_faults_fail(name, fault):
 @pytest.mark.parametrize("name", TRAIN)
 def test_sound_training_run_passes(name):
     assert line(small_cell(name))["correct"] is True
+
+
+@pytest.mark.parametrize("fault", ["no_exchange", "local_stats",
+                                   "half_batch", "unchanged"])
+def test_data_parallel_faults_fail(fault):
+    line = run_ranks(data_parallel_cell(), faults=(fault,))
+    assert line["correct"] is False
 
 
 def test_altered_answer_fails():

@@ -43,6 +43,20 @@ def test_reference_imports_nothing_of_the_program(path):
     assert "portbench" not in names
 
 
+@pytest.mark.parametrize("path", sorted((BENCH / "archs").glob("*.py")),
+                         ids=lambda p: p.name)
+def test_architectures_import_nothing_of_the_program(path):
+    # an architecture module is reference: of the benchmark it takes the
+    # reference's layers and the yardstick's bounds, never the program
+    tree = ast.parse(path.read_text())
+    assert PROGRAM not in imported(path.read_text())
+    taken = {(n.module, a.name) for n in ast.walk(tree)
+             if isinstance(n, ast.ImportFrom) and n.module
+             and n.module.split(".")[0] == "portbench" for a in n.names}
+    assert {m for m, _ in taken} <= {"portbench", "portbench.reference.ops"}
+    assert {a for m, a in taken if m == "portbench"} <= {"bounds"}
+
+
 def test_names_compared_whole():
     assert imported(f"import {PROGRAM}.ops") == {PROGRAM}
     assert not imported(f"from {PROGRAM}.train import step") & JAX_SIDE

@@ -8,7 +8,7 @@ import time
 import pytest
 import torch
 
-from portbench import harness, run, spec, trace
+from portbench import harness, ranks, run, spec, trace
 from portbench.tests.cells import small_cell
 
 BENCH = spec.load_benchmark()
@@ -87,15 +87,28 @@ def test_readers_on_a_trace(metric):
                             kind=kind, spans=synthetic_trace(),
                             span_steps=2)
     value = spec.load_module("metrics", metric["name"]).read(record)
+    # a metric not named here reads nothing on this trace: it holds no
+    # span of the port and no kernel of a group but the collective
     expected = {"idle_share.train": 45.0, "idle_share.eval": 45.0,
                 "mfu.train": 100 * 2e9 / 0.01 / (4 * 989e12),
                 "mfu.eval": 100 * 2e9 / 0.01 / (4 * 989e12),
                 "launches.train": 1.5, "metrics_ms.eval": 0.5,
-                "norm_ms.train": None,
-                "layout_copy_ms.train": None, "attn_roofline.train": None,
-                "attn_roofline.eval": None}[metric["name"]]
+                "collective_ms.train": 1.5}.get(metric["name"])
     assert value == pytest.approx(expected) if expected is not None \
         else value is None
+
+
+def test_collective_reader_on_a_trace():
+    # the reader of a cell on several cards, which BENCHMARK.json does not
+    # list yet: the all-reduce's 3 ms over 2 steps; nothing without NCCL
+    reader = spec.load_module("metrics", "collective_ms.train")
+    record = harness.Record(trace=synthetic_trace(), steps=2,
+                            wall_step_s=0.005, images_per_step=8, chips=4,
+                            flops_per_step=1e9, peak_flops=989e12)
+    assert reader.read(record) == pytest.approx(1.5)
+    record.trace.device = [k for k in record.trace.device
+                           if "nccl" not in k.name.lower()]
+    assert reader.read(record) is None
 
 
 def test_run_refuses_without_a_card():
@@ -142,3 +155,28 @@ def test_cell_runs_on_the_card():
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert out["correct"] is True and out["device"]["platform"] == "gpu"
+
+
+def test_launch_relays_rank_0(monkeypatch):
+    # only rank 0 writes to standard output, and its line comes back
+    monkeypatch.chdir(spec.ROOT)
+    code, out = ranks.launch("portbench.tests.echo_rank", [], 3,
+                             time.time())
+    assert code == 0
+    assert out.splitlines() == ["rank 0 of 3 on standard output",
+                                json.dumps({"rank": 0, "world": 3,
+                                            "compared": []})]
+
+
+def test_launch_prints_nothing_when_a_rank_fails(monkeypatch):
+    monkeypatch.chdir(spec.ROOT)
+    assert ranks.launch("portbench.tests.echo_rank", ["--fail", "2"], 3,
+                        time.time()) == (1, "")
+
+
+def test_launch_refuses_jax_on_any_rank(monkeypatch):
+    # a rank but the first holds a module named flax once its run ends:
+    # its check fails it, and the launch gives no line
+    monkeypatch.chdir(spec.ROOT)
+    assert ranks.launch("portbench.tests.echo_rank", ["--load", "1"], 3,
+                        time.time()) == (1, "")
